@@ -1,0 +1,212 @@
+"""Chunked iteration loop for the port's drivers.
+
+The part of ``accbpg_and_fw_tpu/algorithms/driver.py::run_driver`` that the
+D-opt solvers need.  A driver is a step function
+``step(carry, k) -> (carry, hist)`` on tensors; ``carry`` is a dict that
+holds a bool ``done`` tensor and ``hist`` a dict of 0-d tensors that holds
+``_stop`` (the stopping test fired at this iteration, which is the last one
+recorded, matching the reference's ``break``).
+
+PyTorch runs eagerly, so a chunk is a Python loop of steps.  The loop never
+reads a tensor back inside a chunk: once ``done`` is set the carry freezes
+through a ``torch.where`` select (as the JAX scan body does), and the host
+reads the chunk's histories and the ``done`` flag once, at the chunk
+boundary.  That boundary is also where ``between_chunks`` runs, where
+checkpoints are written and where the verbose table is printed.
+
+Checkpoints are the JAX driver's ``.npz`` format (same keys, version and
+fingerprint check), so a run resumes iteration-exactly from a file written
+by either package.  Not ported: the AOT executable cache and the
+``solver_device``/``AUTO_CPU_MAX_SIZE`` host fallback (PyTorch compiles
+nothing, and the device is the caller's explicit choice).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+_CKPT_VERSION = 3
+
+# At most one checkpoint save per this many seconds, plus always after the
+# final chunk (every save rewrites the whole accumulated history).
+CHECKPOINT_MIN_INTERVAL_S = 10.0
+
+
+def _save_checkpoint(path, carry, blocks, k_next, t_spent, fp):
+    """Atomically persist carry + valid history rows + progress marker."""
+    payload = {
+        "__v": np.asarray(_CKPT_VERSION),
+        "__k_next": np.asarray(k_next),
+        "__t": np.asarray(t_spent),
+        "__fp": np.asarray(fp),
+    }
+    for k, v in carry.items():
+        payload[f"c::{k}"] = v.detach().cpu().numpy()
+    if blocks:
+        for name in blocks[0][0]:
+            payload[f"h::{name}"] = np.concatenate(
+                [b[0][name] for b in blocks])
+    tmp = path + ".tmp.npz"  # np.savez appends .npz unless already present
+    np.savez(tmp, **payload)
+    os.replace(tmp, path)
+
+
+def _load_checkpoint(path, carry_proto, fp):
+    """Load a checkpoint if present: ``(carry, block, k_next, t_spent)``,
+    where ``block`` holds the completed valid history rows (or None)."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        if "__v" not in z.files or int(z["__v"]) != _CKPT_VERSION:
+            raise ValueError(
+                f"checkpoint {path!r} has an incompatible format; delete it "
+                "to start fresh")
+        saved_fp = str(z["__fp"])
+        if saved_fp != fp:
+            raise ValueError(
+                f"checkpoint {path!r} was saved by a different solver "
+                f"({saved_fp}); refusing to resume as {fp}. Delete the "
+                "file to start fresh.")
+        saved_keys = sorted(n[3:] for n in z.files if n.startswith("c::"))
+        if saved_keys != sorted(carry_proto.keys()):
+            raise ValueError(
+                f"checkpoint {path!r} carry keys {saved_keys} do not match "
+                f"this solver's state {sorted(carry_proto.keys())}")
+        carry = {}
+        for k, proto in carry_proto.items():
+            saved = z[f"c::{k}"]
+            if tuple(saved.shape) != tuple(proto.shape):
+                raise ValueError(
+                    f"checkpoint {path!r} carry leaf {k!r} has shape "
+                    f"{tuple(saved.shape)} but this solve expects "
+                    f"{tuple(proto.shape)} — different problem instance")
+            carry[k] = torch.as_tensor(saved).to(device=proto.device,
+                                                 dtype=proto.dtype)
+        hist_names = [n[3:] for n in z.files if n.startswith("h::")]
+        block = ({name: z[f"h::{name}"] for name in hist_names}
+                 if hist_names else None)
+        return carry, block, int(z["__k_next"]), float(z["__t"])
+
+
+def run_driver(
+    step: Callable,
+    carry: Dict[str, torch.Tensor],
+    maxitrs: int,
+    *,
+    verbose: bool = True,
+    verbskip: int = 1,
+    header: Optional[str] = None,
+    print_row: Optional[Callable] = None,
+    chunk: Optional[int] = None,
+    between_chunks: Optional[Callable] = None,
+    checkpoint: Optional[str] = None,
+    fingerprint: str = "",
+    k_start: int = 0,
+):
+    """Run ``step`` for iterations ``k_start <= k < maxitrs`` in chunks.
+
+    ``between_chunks(carry, k_next) -> carry`` runs on the host between
+    chunks.  ``checkpoint``: path of an ``.npz`` saved at chunk boundaries
+    (throttled to one save per ``CHECKPOINT_MIN_INTERVAL_S``, the final
+    chunk always saved); if it exists when the run starts, the run resumes
+    from it exactly, even with another ``chunk`` or a larger budget.
+    ``fingerprint`` names the solver; a file saved under another name is
+    refused.
+
+    Returns ``(carry, hist, T)``: ``hist`` maps each history name to a host
+    numpy array truncated at the stopping iteration (inclusive); ``T`` is
+    the wall-time array, interpolated within each chunk.
+    """
+    if maxitrs <= k_start:
+        raise ValueError(f"maxitrs must be > {k_start}")
+    chunk = max(1, int(chunk) if chunk else int(max(verbskip, 256)))
+
+    if verbose and header:
+        print(header)
+
+    # blocks: list of (valid-rows hist dict, t_a, t_b, rows_launched)
+    blocks = []
+    k_next = k_start
+    t_spent = 0.0
+    last_save = None
+    if checkpoint is not None:
+        state = _load_checkpoint(checkpoint, carry, fingerprint)
+        if state is not None:
+            carry, block, k_next, t_spent = state
+            if block is not None:
+                nrows = len(next(iter(block.values())))
+                blocks.append((block, 0.0, t_spent, nrows))
+
+    t0 = time.time() - t_spent
+    while k_next < maxitrs and not bool(carry["done"]):
+        t_a = time.time() - t0
+        # the chunk grid is absolute, so hooks fire at the same k whether or
+        # not the run was resumed from a checkpoint
+        limit = min(maxitrs, (k_next // chunk + 1) * chunk)
+        rows = []
+        for k in range(k_next, limit):
+            done = carry["done"]
+            new, h = step(carry, k)
+            h = dict(h)
+            h["_valid"] = torch.logical_not(done)
+            new = dict(new)
+            new["done"] = done | new["done"] | h["_stop"]
+            carry = {key: torch.where(done, carry[key], new[key])
+                     for key in carry}
+            rows.append(h)
+        hist = {name: torch.stack([r[name] for r in rows]).cpu().numpy()
+                for name in rows[0]}
+        t_b = time.time() - t0
+        nv = int(hist["_valid"].sum())
+        block = {name: v[:nv] for name, v in hist.items()}
+        launched = limit - k_next
+        blocks.append((block, t_a, t_b, launched))
+
+        if verbose and print_row is not None:
+            for j in range(nv):
+                k = k_next + j
+                if k % verbskip == 0:
+                    row = {name: v[j] for name, v in block.items()}
+                    print_row(k, row, t_a + (t_b - t_a) * j / launched)
+
+        k_next += nv
+        done = bool(carry["done"])
+        # the hook runs BEFORE the save, so a checkpoint holds exactly the
+        # carry the next chunk consumes and resume replays the run bitwise
+        if between_chunks is not None and not done and k_next < maxitrs:
+            carry = between_chunks(carry, k_next)
+        if checkpoint is not None:
+            now = time.time()
+            final = done or k_next >= maxitrs
+            if (final or last_save is None
+                    or now - last_save >= CHECKPOINT_MIN_INTERVAL_S):
+                _save_checkpoint(checkpoint, carry, blocks, k_next,
+                                 now - t0, fingerprint)
+                last_save = now
+        if done:
+            break
+
+    # concatenate + truncate with the reference's inclusive-stop semantics
+    full = {name: np.concatenate([b[0][name] for b in blocks])
+            for name in blocks[0][0].keys()}
+    full.pop("_valid", None)
+    full.pop("_stop", None)
+    n = min(len(next(iter(full.values()))), maxitrs - k_start)
+    out = {name: v[:n] for name, v in full.items()}
+
+    # each block's rows spread linearly over its measured [t_a, t_b]
+    T = np.zeros(n)
+    pos = 0
+    for block, t_a, t_b, launched in blocks:
+        nb = min(len(next(iter(block.values()))), n - pos)
+        if nb <= 0:
+            break
+        T[pos:pos + nb] = t_a + (t_b - t_a) * np.arange(nb) / max(launched, 1)
+        pos += nb
+    out["T"] = T
+    return carry, out, T

@@ -1,0 +1,356 @@
+"""The port's lazy-H block engine (``ops/dopt_lazy.py``) against the JAX
+package.
+
+On the CPU ``lazy_block`` runs its plain PyTorch version.  Bars:
+
+* against the JAX lazy kernel run in interpret mode
+  (``dopt_fw_pallas_lazy(..., interpret=True, group=1)``, as
+  tests/test_pallas_lazy.py runs it): SP atol 1e-9 and x atol 1e-11, that
+  kernel's own bars against the DS engine.  Its SP history is float32, so
+  the port's float64 SP is compared after the same rounding;
+* against the JAX exact f64 engine: F rtol 1e-9, x atol 1e-11.
+
+The tests marked ``cuda`` need a card: they hold the Hopper kernel against
+the plain version (x, w, C rtol 1e-11 scaled by each array's max-abs; SP,
+SN, tau, tau (w_v - 1) atol 1e-12) and skip without one.  JAX is imported
+inside fixtures so that, on a machine with a card and without JAX, the
+card tests run with ``python -m pytest --noconftest -m cuda
+tests/test_torch_lazy.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from accbpg_and_fw_tpu_torch import D_opt_FW_away
+from accbpg_and_fw_tpu_torch.ops import dopt_lazy as dl
+from accbpg_and_fw_tpu_torch.ops.dopt_common import factorize
+
+torch.set_num_threads(1)
+
+SP_ATOL, X_ATOL, F_RTOL = 1e-9, 1e-11, 1e-9
+STATE_RTOL, HIST_ATOL = 1e-11, 1e-12
+
+
+@pytest.fixture(scope="module")
+def acc():
+    import accbpg_and_fw_tpu
+
+    return accbpg_and_fw_tpu
+
+
+@pytest.fixture(scope="module")
+def jax_lazy():
+    from accbpg_and_fw_tpu.ops.pallas_dopt_lazy import dopt_fw_pallas_lazy
+
+    return dopt_fw_pallas_lazy
+
+
+@pytest.fixture(scope="module")
+def problem():
+    V = np.random.default_rng(3).standard_normal((12, 160))
+    return V, np.full(160, 1.0 / 160)
+
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _fresh(V, device="cpu"):
+    V = torch.as_tensor(V, dtype=torch.float64, device=device)
+    n = V.shape[1]
+    x = torch.full((n,), 1.0 / n, dtype=torch.float64, device=device)
+    H0, w, _ = factorize(V, x)
+    return V, H0, x, w
+
+
+def _assert_blocks_agree(out, ref):
+    misc, misc_ref = out.misc.cpu(), ref.misc.cpu()
+    assert misc[[0, 1, 3]].tolist() == misc_ref[[0, 1, 3]].tolist()
+    iters, nrun = int(misc[1]), int(misc[3])
+    h, h_ref = out.hist[:, :iters].cpu(), ref.hist[:, :iters].cpu()
+    assert torch.equal(h[4], h_ref[4]), "pivot sequences differ"
+    for got, want in ((out.x, ref.x), (out.w, ref.w),
+                      (out.C[:nrun], ref.C[:nrun]),
+                      (out.beta[:nrun], ref.beta[:nrun]),
+                      (misc[2:3], misc_ref[2:3])):
+        got, want = got.cpu(), want.cpu()
+        scale = float(want.abs().max()) if want.numel() else 0.0
+        torch.testing.assert_close(got, want, rtol=STATE_RTOL,
+                                   atol=STATE_RTOL * scale)
+    torch.testing.assert_close(h[:4], h_ref[:4], rtol=0, atol=HIST_ATOL)
+
+
+def test_matches_jax_lazy_kernel_and_exact(problem, acc, jax_lazy):
+    V, x0 = problem
+    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, 1e-8, 60, verbose=False)
+    xl, Fl, SPl, SNl, _ = jax_lazy(V, x0, 1e-8, 60, verbose=False,
+                                   interpret=True, group=1)
+    assert len(F) == len(Fl) == 60
+    np.testing.assert_allclose(SP.astype(np.float32).astype(np.float64),
+                               np.asarray(SPl, np.float64), rtol=0,
+                               atol=SP_ATOL)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xl), rtol=0,
+                               atol=X_ATOL)
+    xe, Fe, SPe, SNe, _ = acc.D_opt_FW_away(V, x0, 1e-8, 60, verbose=False,
+                                            chunk=60)
+    np.testing.assert_allclose(F, Fe, rtol=F_RTOL)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xe), rtol=0,
+                               atol=X_ATOL)
+
+
+def test_plain_fw_variant(problem, acc, jax_lazy):
+    """away=False: the same row count as the JAX lazy kernel, and the exact
+    engine's F and x (the JAX kernel's own double-single x sits ~1e-11
+    from the exact engine here, the port ~1e-16)."""
+    V, x0 = problem
+    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, 1e-8, 50, away=False,
+                                      verbose=False)
+    _, Fl, *_ = jax_lazy(V, x0, 1e-8, 50, away=False, verbose=False,
+                         interpret=True, group=1)
+    xe, Fe, SPe, SNe, _ = acc.D_opt_FW(V, x0, 1e-8, 50, verbose=False,
+                                       chunk=50)
+    assert len(F) == len(Fl) == len(Fe) == 50
+    np.testing.assert_allclose(F, Fe, rtol=F_RTOL)
+    np.testing.assert_allclose(SP, SPe, rtol=0, atol=SP_ATOL)
+    np.testing.assert_allclose(SN, SNe, rtol=0, atol=SP_ATOL)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xe), rtol=0,
+                               atol=X_ATOL)
+
+
+def test_budget_exact_mid_block(problem):
+    V, x0 = problem
+    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, 1e-8, 37, verbose=False)
+    assert len(F) == len(SP) == len(SN) == len(T) == 37
+
+
+@pytest.mark.parametrize("kr", [16, 32])
+def test_multi_block_chain(problem, acc, monkeypatch, kr):
+    """A budget of 70 over blocks of 16 or 32: folds between blocks keep
+    the trajectory on the exact engine's."""
+    V, x0 = problem
+    monkeypatch.setattr(dl, "_KR", kr)
+    launches = dl.LAUNCHES
+    x, F, *_ = dl.dopt_fw_lazy(V, x0, 1e-8, 70, verbose=False)
+    assert dl.LAUNCHES == launches  # CPU tensors never launch the kernel
+    xe, Fe, *_ = acc.D_opt_FW_away(V, x0, 1e-8, 70, verbose=False, chunk=70)
+    assert len(F) == len(Fe) == 70
+    np.testing.assert_allclose(F, Fe, rtol=F_RTOL)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xe), rtol=0,
+                               atol=X_ATOL)
+
+
+def test_budget_above_one_block(acc):
+    """300 iterations at the production block size: two blocks."""
+    V = np.random.default_rng(4).standard_normal((10, 120))
+    x0 = np.full(120, 1.0 / 120)
+    x, F, *_ = dl.dopt_fw_lazy(V, x0, 1e-10, 300, verbose=False)
+    xe, Fe, *_ = acc.D_opt_FW_away(V, x0, 1e-10, 300, verbose=False,
+                                   chunk=300)
+    assert len(F) == len(Fe)
+    np.testing.assert_allclose(F, Fe, rtol=F_RTOL)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xe), rtol=0,
+                               atol=X_ATOL)
+
+
+def test_early_stop_truncation(acc):
+    V = np.random.default_rng(11).standard_normal((8, 64))
+    x0 = np.full(64, 1.0 / 64)
+    eps = 1e-3
+    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, eps, 200, verbose=False)
+    _, Fe, *_ = acc.D_opt_FW_away(V, x0, eps, 200, verbose=False)
+    assert len(F) == len(Fe) < 200
+    assert SP[-1] <= eps and SN[-1] <= eps
+    assert not ((SP[:-1] <= eps) & (SN[:-1] <= eps)).any()
+    xs = np.maximum(x.numpy(), 0.0)
+    xs /= xs.sum()
+    G = (V * xs) @ V.T
+    w = np.einsum("ij,ij->j", V, np.linalg.solve(G, V))
+    assert w.max() / V.shape[0] - 1.0 <= 2e-3
+
+
+def test_away_drop_is_exact_zero(acc):
+    """A boundary away step zeroes x_j exactly; the exact engine leaves a
+    ~1e-17 residual at the same coordinates."""
+    f, h, L, x0 = acc.D_opt_design(30, 300, randseed=10)
+    V = np.asarray(f.H)
+    x, F, *_ = dl.dopt_fw_lazy(V, np.asarray(x0), 1e-8, 256, verbose=False)
+    xe, Fe, *_ = acc.D_opt_FW_away(V, np.asarray(x0), 1e-8, 256,
+                                   verbose=False)
+    zeros = x.numpy() == 0.0
+    assert zeros.sum() > 0
+    np.testing.assert_array_equal(zeros, np.abs(np.asarray(xe)) < 1e-15)
+    np.testing.assert_allclose(F, Fe, rtol=F_RTOL)
+
+
+def test_refresh_every_rounds_up_to_blocks(problem, acc, monkeypatch):
+    V, x0 = problem
+    monkeypatch.setattr(dl, "_KR", 16)
+    calls = []
+    real = dl.factorize
+
+    def spy(V_, x_):
+        calls.append(1)
+        return real(V_, x_)
+
+    monkeypatch.setattr(dl, "factorize", spy)
+    x, F, *_ = dl.dopt_fw_lazy(V, x0, 1e-8, 64, verbose=False,
+                               refresh_every=20)
+    # blocks end at 16, 32, 48, 64: refreshes after 32 and 64 (20 rounded
+    # up to a block boundary), plus the initial factorization
+    assert len(calls) == 3
+    xe, Fe, *_ = acc.D_opt_FW_away(V, x0, 1e-8, 64, verbose=False)
+    np.testing.assert_allclose(F, Fe, rtol=F_RTOL)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xe), rtol=0,
+                               atol=X_ATOL)
+
+
+def test_checkpoint_resume(problem, tmp_path):
+    V, x0 = problem
+    ck = str(tmp_path / "lazy.npz")
+    a = dl.dopt_fw_lazy(V, x0, 1e-8, 40, verbose=False, checkpoint=ck)
+    b = dl.dopt_fw_lazy(V, x0, 1e-8, 80, verbose=False, checkpoint=ck)
+    full = dl.dopt_fw_lazy(V, x0, 1e-8, 80, verbose=False)
+    assert len(b[1]) == 80
+    np.testing.assert_array_equal(b[2][:40], a[2])  # saved rows verbatim
+    # resume = a refactorization at the interruption point
+    np.testing.assert_allclose(b[1], full[1], rtol=F_RTOL)
+    np.testing.assert_allclose(b[0].numpy(), full[0].numpy(), rtol=0,
+                               atol=X_ATOL)
+
+
+def test_verbose_rows(problem, capsys):
+    V, x0 = problem
+    dl.dopt_fw_lazy(V, x0, 1e-8, 10, verbose=True, verbskip=5)
+    out = capsys.readouterr().out
+    assert "lazy-H block kernel" in out
+    rows = [ln for ln in out.splitlines() if ln[:6].strip().isdigit()]
+    assert [int(r[:6]) for r in rows] == [0, 5]
+
+
+def test_d_opt_entry_routes_pallas_lazy(problem):
+    """u_mode="pallas_lazy" through the public entry point is this engine
+    (the plain block on the CPU)."""
+    V, x0 = problem
+    a = D_opt_FW_away(V, x0, 1e-8, 45, verbose=False, u_mode="pallas_lazy")
+    b = dl.dopt_fw_lazy(V, x0, 1e-8, 45, verbose=False)
+    assert torch.equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_lazy_block_on_cpu_is_the_plain_version(problem):
+    V, H0, x, w = _fresh(problem[0])
+    before = dl.LAUNCHES
+    out = dl.lazy_block(V, H0, x, w, eps=1e-8, kmax=40)
+    ref = dl.lazy_block_reference(V, H0, x, w, eps=1e-8, kmax=40)
+    assert dl.LAUNCHES == before
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert out.misc.tolist()[1] == 40 and out.misc.tolist()[3] == 40
+    # the lazy factor reproduces a fresh factorization of the new iterate
+    Hb = out.misc[2] * H0 + (out.C[:40].T * out.beta[:40]) @ out.C[:40]
+    H_new, w_new, _ = factorize(V, out.x)
+    torch.testing.assert_close(Hb, H_new, rtol=1e-10, atol=1e-12)
+    torch.testing.assert_close(out.w, w_new, rtol=1e-10, atol=0)
+
+
+def test_lazy_block_done_input_runs_nothing(problem):
+    V, H0, x, w = _fresh(problem[0])
+    out = dl.lazy_block(V, H0, x, w, eps=1e-8, kmax=10, done=True)
+    assert out.misc.tolist()[:2] == [1.0, 0.0] and out.misc.tolist()[3] == 0
+    assert torch.equal(out.x, x) and torch.equal(out.w, w)
+
+
+def test_lazy_block_rejects_bad_arguments(problem):
+    V, H0, x, w = _fresh(problem[0])
+    with pytest.raises(TypeError, match="float64"):
+        dl.lazy_block(V.float(), H0, x, w, eps=1e-8, kmax=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        dl.lazy_block(V, H0.T, x, w, eps=1e-8, kmax=4)
+    with pytest.raises(ValueError, match="shape"):
+        dl.lazy_block(V, H0, x[:-1], w, eps=1e-8, kmax=4)
+    with pytest.raises(ValueError, match="kmax"):
+        dl.lazy_block(V, H0, x, w, eps=1e-8, kmax=dl._KR + 1)
+
+
+@pytest.mark.cuda
+def test_lazy_block_on_cuda_never_takes_the_plain_path(problem, cuda_dev,
+                                                       monkeypatch):
+    V, H0, x, w = _fresh(problem[0], cuda_dev)
+    ref = dl.lazy_block_reference(V, H0, x, w, eps=1e-8, kmax=dl._KR)
+
+    def plain_taken(*args, **kwargs):
+        raise AssertionError("lazy_block ran the plain version on CUDA")
+
+    monkeypatch.setattr(dl, "lazy_block_reference", plain_taken)
+    before = dl.LAUNCHES
+    out = dl.lazy_block(V, H0, x, w, eps=1e-8, kmax=dl._KR)
+    torch.cuda.synchronize()
+    assert dl.LAUNCHES == before + 1
+    _assert_blocks_agree(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,eps,away", [
+    ((30, 300), 1e-8, True),
+    ((30, 300), 1e-8, False),
+    ((77, 1234), 1e-8, True),      # ragged column tiles and row chunks
+    ((8, 64), 1e-3, True),         # stops inside the block
+], ids=["30x300", "30x300-plain", "77x1234", "stop-in-block"])
+def test_kernel_matches_plain_version_on_card(cuda_dev, shape, eps, away):
+    V, H0, x, w = _fresh(np.random.default_rng(11).standard_normal(shape),
+                         cuda_dev)
+    ref = dl.lazy_block_reference(V, H0, x, w, eps=eps, kmax=dl._KR,
+                                  away=away)
+    out = dl.lazy_block(V, H0, x, w, eps=eps, kmax=dl._KR, away=away)
+    torch.cuda.synchronize()
+    _assert_blocks_agree(out, ref)
+    if eps == 1e-3:
+        assert out.misc[0].item() == 1.0 and out.misc[1] < dl._KR
+
+
+@pytest.mark.cuda
+def test_kernel_done_input_runs_nothing_on_card(problem, cuda_dev):
+    V, H0, x, w = _fresh(problem[0], cuda_dev)
+    out = dl.lazy_block(V, H0, x, w, eps=1e-8, kmax=10, done=True)
+    torch.cuda.synchronize()
+    assert out.misc.cpu().tolist() == [1.0, 0.0, 1.0, 0.0]
+    assert torch.equal(out.x, x) and torch.equal(out.w, w)
+
+
+@pytest.mark.cuda
+def test_exact_engine_on_card_matches_cpu(problem, cuda_dev):
+    V, x0 = problem
+    x, F, SP, SN, T = D_opt_FW_away(V, x0, 1e-8, 200, verbose=False,
+                                    u_mode="exact", device=cuda_dev)
+    xc, Fc, SPc, SNc, _ = D_opt_FW_away(V, x0, 1e-8, 200, verbose=False,
+                                        u_mode="exact")
+    assert x.device.type == "cuda" and len(F) == len(Fc)
+    np.testing.assert_allclose(F, Fc, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(SP, SPc, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(x.cpu().numpy(), xc.numpy(), rtol=0,
+                               atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps,budget", [(1e-8, 200), (1e-3, 400)],
+                         ids=["budget", "early-stop"])
+def test_engine_on_card_matches_cpu(problem, cuda_dev, monkeypatch, eps,
+                                    budget):
+    """Multi-block solve through the kernel against the CPU plain path."""
+    V, x0 = problem
+    monkeypatch.setattr(dl, "_KR", 32)
+    before = dl.LAUNCHES
+    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, eps, budget, verbose=False,
+                                      device=cuda_dev)
+    assert dl.LAUNCHES - before == -(-len(F) // 32)
+    xc, Fc, *_ = dl.dopt_fw_lazy(V, x0, eps, budget, verbose=False)
+    assert len(F) == len(Fc)
+    if eps == 1e-3:
+        assert len(F) < budget and SP[-1] <= eps and SN[-1] <= eps
+    np.testing.assert_allclose(F, Fc, rtol=F_RTOL)
+    np.testing.assert_allclose(x.cpu().numpy(), xc.numpy(), rtol=0,
+                               atol=X_ATOL)
