@@ -11,7 +11,8 @@ reference: log-space determinant (log1p increments), the ``u[i] = w[i]``
 consistency pin, the away-branch logdet through ``w[j]``, the stop test
 before the update, and optional ``refresh_every`` refactorization at chunk
 boundaries.  Large problems on a CUDA device route to the lazy-H block
-kernel (``ops/dopt_lazy.py``).
+kernel (``ops/dopt_lazy.py``); ``u_mode="pallas"`` takes the dense block
+kernel (``ops/dopt_dense.py``).
 
 The JAX ``u_mode`` names stay accepted: ``"ds"`` and ``"mixed"`` existed
 because the TPU has no fast f64, and resolve here to the FP64 exact engine.
@@ -24,6 +25,7 @@ import torch
 from .._device import as_f64, resolve_device
 from ..ops.dopt_common import ROW, XTOL
 from ..ops.dopt_common import factorize as _dopt_factorize
+from ..ops.dopt_dense import dopt_fw_dense
 from ..ops.dopt_lazy import dopt_fw_lazy
 from .driver import run_driver
 
@@ -107,22 +109,16 @@ def _dopt_step(away, V, eps, c, k):
 
 def _resolve_auto_u_mode(V, u_mode, device):
     """The engine for ``u_mode``: ``"pallas_lazy"`` (the lazy-H block
-    kernel, plain block on the CPU) or ``"exact"`` (this module's FP64
-    engine)."""
+    kernel), ``"pallas"`` (the dense block kernel; each runs its plain
+    block on the CPU) or ``"exact"`` (this module's FP64 engine)."""
     if u_mode == "auto":
         if device.type == "cuda" and V.numel() >= _LAZY_MIN_SIZE:
             return "pallas_lazy"
         return "exact"
     if u_mode in ("exact", "ds", "mixed"):
         return "exact"
-    if u_mode == "pallas_lazy":
+    if u_mode in ("pallas", "pallas_lazy"):
         return u_mode
-    if u_mode == "pallas":
-        raise NotImplementedError(
-            "u_mode='pallas' (the dense whole-iteration kernel of "
-            "accbpg_and_fw_tpu/ops/pallas_dopt.py::_fw_kernel_body) is not "
-            "ported yet: ROADMAP.md queue B item 3. Use 'auto', 'exact' or "
-            "'pallas_lazy'.")
     raise ValueError(f"unknown u_mode={u_mode!r}")
 
 
@@ -162,8 +158,11 @@ def _run_dopt(V, x0, eps, maxitrs, verbose, verbskip, chunk, away,
               refresh_every, header, checkpoint, u_mode, device):
     dev = resolve_device(device, like=V)
     V = as_f64(V, dev)
-    if _resolve_auto_u_mode(V, u_mode, dev) == "pallas_lazy":
-        return dopt_fw_lazy(V, x0, eps, maxitrs, away=away, verbose=verbose,
+    engine = _resolve_auto_u_mode(V, u_mode, dev)
+    if engine != "exact":
+        block_engine = {"pallas_lazy": dopt_fw_lazy,
+                        "pallas": dopt_fw_dense}[engine]
+        return block_engine(V, x0, eps, maxitrs, away=away, verbose=verbose,
                             verbskip=verbskip, chunk=chunk,
                             refresh_every=refresh_every,
                             checkpoint=checkpoint, device=dev)
@@ -187,7 +186,8 @@ def D_opt_FW(V, x0, eps, maxitrs, verbose=True, verbskip=1, chunk=None,
     ``u_mode``: "auto" (the lazy-H block kernel for designs of at least
     1.8M elements on a CUDA device, the exact engine otherwise), "exact",
     "pallas_lazy" (the lazy-H engine on any device; the plain block on the
-    CPU), and "ds"/"mixed" as aliases of "exact".  "pallas" is not ported.
+    CPU), "pallas" (the dense block engine, likewise), and "ds"/"mixed" as
+    aliases of "exact".
     ``device``: None keeps a tensor ``V``'s device and puts numpy input on
     the CPU; "cuda" without a card raises.
     """

@@ -1,8 +1,9 @@
 """Hand D-opt solver state over from the JAX package to the port.
 
 ``from_jax_carry`` turns the JAX package's D-opt state, given as numpy
-arrays, into the port's FP64 tensors; ``continue_dopt`` runs the port's
-exact engine on from there, so a run started under JAX finishes here.
+arrays or as a block-engine checkpoint file, into the port's FP64
+tensors; ``continue_dopt`` runs the port's exact engine on from there, so
+a run started under JAX finishes here.
 (Checkpoint files need no conversion: the port's drivers read the JAX
 ``.npz`` formats and fingerprints directly.)
 """
@@ -29,9 +30,11 @@ def from_jax_carry(carry, device=None):
     * the exact engine's carry ``{x, w, H, logdet}`` (``done`` optional);
     * the double-single engine's carry ``{x_hi, x_lo, w_hi, w_lo, H_hi,
       H_lo, ld_hi, ld_lo}``, each pair summed in f64;
-    * the path of a checkpoint written by ``dopt_fw_pallas_lazy``, whose
-      state is the iterate alone: the result is ``{x, k}`` with ``k`` the
-      iterations done (``continue_dopt`` refactorizes from ``x``).
+    * the path of a checkpoint written by ``dopt_fw_pallas_lazy`` or
+      ``dopt_fw_pallas`` (or by the port's ``dopt_fw_lazy`` or
+      ``dopt_fw_dense``: the same file), whose state is the iterate alone:
+      the result is ``{x, k}`` with ``k`` the iterations done
+      (``continue_dopt`` refactorizes from ``x``).
 
     Returns a dict of float64 tensors on ``device`` (CPU for None) with
     keys ``done, x, w, H, logdet`` (or ``x, k`` for a checkpoint path).
@@ -39,8 +42,10 @@ def from_jax_carry(carry, device=None):
     dev = resolve_device(device)
     if isinstance(carry, (str, os.PathLike)):
         with np.load(carry) as z:
-            if int(z["__v"]) != _CKPT_VERSION or "x" not in z.files:
-                raise ValueError(f"{carry!r} is not a lazy-engine checkpoint")
+            if (int(z["__v"]) != _CKPT_VERSION or "x" not in z.files
+                    or not str(z["__fp"]).startswith("dopt_fw_pallas")):
+                raise ValueError(f"{carry!r} is not a block-engine "
+                                 "checkpoint")
             return dict(x=as_f64(z["x"], dev), k=int(z["__k"]))
     if "x_hi" in carry:
         out = {name: as_f64(np.asarray(carry[f"{src}_hi"], np.float64)

@@ -183,9 +183,16 @@ def test_u_mode_aliases_resolve_to_exact(small, mode):
 
 
 def test_u_mode_pallas_not_ported(small):
+    """u_mode="pallas" is ported now: it runs the dense block engine (its
+    plain block on the CPU), which follows the exact engine; unknown names
+    still raise."""
     V, x0 = small
-    with pytest.raises(NotImplementedError, match="queue B item 3"):
-        port.D_opt_FW(V, x0, 1e-8, 10, verbose=False, u_mode="pallas")
+    x, F, *_ = port.D_opt_FW(V, x0, 1e-8, 10, verbose=False, u_mode="pallas")
+    xe, Fe, *_ = port.D_opt_FW(V, x0, 1e-8, 10, verbose=False,
+                               u_mode="exact")
+    np.testing.assert_allclose(F, Fe, rtol=0, atol=STATE_ATOL)
+    np.testing.assert_allclose(x.numpy(), xe.numpy(), rtol=0,
+                               atol=STATE_ATOL)
     with pytest.raises(ValueError, match="unknown u_mode"):
         port.D_opt_FW(V, x0, 1e-8, 10, verbose=False, u_mode="fast")
 

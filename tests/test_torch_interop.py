@@ -13,8 +13,10 @@ import torch
 
 import accbpg_and_fw_tpu as acc
 import accbpg_and_fw_tpu_torch as port
+from accbpg_and_fw_tpu.ops.pallas_dopt import dopt_fw_pallas
 from accbpg_and_fw_tpu.ops.pallas_dopt_lazy import dopt_fw_pallas_lazy
 from accbpg_and_fw_tpu_torch.interop import continue_dopt, from_jax_carry
+from accbpg_and_fw_tpu_torch.ops.dopt_dense import dopt_fw_dense
 
 torch.set_num_threads(1)
 
@@ -129,6 +131,43 @@ def test_continue_from_lazy_iterate(problem, tmp_path):
     np.testing.assert_allclose(x.numpy(), np.asarray(xe), rtol=0, atol=1e-11)
 
 
-def test_unrecognised_carry_raises():
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_dense_checkpoint_resumes_in_either_package(problem, tmp_path,
+                                                    writer):
+    """A dense-engine checkpoint (``dopt_fw_pallas`` format) written by one
+    package and resumed by the other matches the writer resuming it (both
+    refactorize from the saved iterate)."""
+    V, x0 = problem
+    ck = str(tmp_path / "dense.npz")
+    kw = dict(verbose=False, chunk=64, checkpoint=ck)
+    if writer == "jax":
+        a = dopt_fw_pallas(V, x0, 1e-8, 64, interpret=True, **kw)
+    else:
+        a = port.D_opt_FW_away(V, x0, 1e-8, 64, u_mode="pallas", **kw)
+    state = from_jax_carry(ck)
+    assert state["k"] == 64
+    np.testing.assert_array_equal(state["x"].numpy(), np.asarray(a[0]))
+    with open(ck, "rb") as src:
+        saved = src.read()
+    xp, Fp, SPp, *_ = dopt_fw_dense(V, x0, 1e-8, 128, **kw)
+    with open(ck, "wb") as dst:
+        dst.write(saved)
+    xj, Fj, SPj, *_ = dopt_fw_pallas(V, x0, 1e-8, 128, interpret=True, **kw)
+    assert len(Fp) == len(Fj) == 128
+    np.testing.assert_array_equal(SPp[:64], np.asarray(a[2], np.float64))
+    np.testing.assert_array_equal(np.asarray(SPj[:64], np.float64),
+                                  np.asarray(a[2], np.float64))
+    np.testing.assert_allclose(SPp, np.asarray(SPj, np.float64),
+                               rtol=2.0 ** -24, atol=1e-9)
+    np.testing.assert_allclose(xp.numpy(), np.asarray(xj), rtol=0,
+                               atol=1e-11)
+
+
+def test_unrecognised_carry_raises(tmp_path):
     with pytest.raises(ValueError, match="unrecognised"):
         from_jax_carry({"x": np.zeros(3)})
+    other = str(tmp_path / "other.npz")
+    np.savez(other, __v=np.asarray(1), __fp=np.asarray("something|else"),
+             x=np.zeros(3))
+    with pytest.raises(ValueError, match="not a block-engine checkpoint"):
+        from_jax_carry(other)
