@@ -17,13 +17,30 @@ Ported so far:
   ``csrc/dopt_dense.cu``);
 * the batched sweep entry point ``dopt_fw_batch`` (``parallel/``), over
   the batched exact engine and both kernels' batch entries;
-* the Kumar-Yildirim start ``D_opt_KYinit`` (``apps/``).
+* the Bregman proximal-gradient drivers ``BPG``, ``ABPG``, ``ABPG_expo``,
+  ``ABPG_gain`` and ``ABDA`` (``algorithms/bpg.py``), with the oracle layer
+  they need on D-optimal design (``ops/``: ``DOptimalObj``, the Burg
+  h-oracles, the root finders) and the one-kernel Burg-simplex multiplier
+  of ``BurgEntropySimplex(use_pallas=True)`` (``ops/simplex.py`` +
+  ``csrc/simplex_mult.cu``);
+* the factories ``D_opt_design`` and ``D_opt_KYinit`` (``apps/``).
 """
 
 __version__ = "0.1.0"
 
-from .algorithms import D_opt_FW, D_opt_FW_away
-from .apps import D_opt_KYinit
+from .algorithms import (ABDA, ABPG, BPG, ABPG_expo, ABPG_gain, D_opt_FW,
+                         D_opt_FW_away, solve_theta)
+from .apps import D_opt_design, D_opt_KYinit
+from .ops import (BurgEntropy, BurgEntropyL1, BurgEntropyL2,
+                  BurgEntropySimplex, DOptimalObj, LegendreFunction,
+                  LegendreOracle, RSmoothFunction, SmoothOracle,
+                  project_simplex_burg, simplex_inv_multiplier, solve_cubic)
 from .parallel import dopt_fw_batch
 
-__all__ = ["D_opt_FW", "D_opt_FW_away", "D_opt_KYinit", "dopt_fw_batch"]
+__all__ = ["ABDA", "ABPG", "ABPG_expo", "ABPG_gain", "BPG",
+           "BurgEntropy", "BurgEntropyL1", "BurgEntropyL2",
+           "BurgEntropySimplex", "DOptimalObj", "D_opt_FW", "D_opt_FW_away",
+           "D_opt_KYinit", "D_opt_design", "LegendreFunction",
+           "LegendreOracle", "RSmoothFunction", "SmoothOracle",
+           "dopt_fw_batch", "project_simplex_burg", "simplex_inv_multiplier",
+           "solve_cubic", "solve_theta"]

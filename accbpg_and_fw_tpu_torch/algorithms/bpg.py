@@ -1,0 +1,521 @@
+"""Bregman proximal-gradient family: BPG, ABPG, ABPG_expo, ABPG_gain, ABDA.
+
+Port of ``accbpg_and_fw_tpu/algorithms/bpg.py`` (HRX2018, arXiv:1808.03045;
+reference: accbpg/algorithms.py:11-514): the same math, signatures, return
+tuples and printed tables, for the plain steps (one oracle evaluation per
+query, no carried Gram).
+
+The JAX steps ran whole line searches inside a compiled scan as
+``lax.while_loop``s over a device flag.  In eager PyTorch every trial's
+accept/reject decision has to come back to the host, so the steps keep
+their scalar recurrences there, in Python floats (IEEE doubles): L, theta,
+the gain G, gamma, ``sumlogG`` and the multipliers of the acceptance tests.
+Only the vectors (iterates, gradients) stay on the device.  Each trial ends
+in one read of the few scalars it computed (values, inner products,
+divergences) and decides on the host with the JAX expressions in the JAX
+order, so a trajectory follows the JAX one decision for decision.  Host
+syncs per iteration on CUDA: one per line-search trial (per iteration for
+ABPG and ABDA), plus the prox's own (none with
+``BurgEntropySimplex(use_pallas=True)``; ``3 + Newton steps`` with the
+default h).
+
+Checkpoints use the JAX drivers' carry keys, history names and
+fingerprints, so a run saved by either package resumes in the other.
+
+Not ported yet: ``fast_gram=True`` / ``"ds"`` (the stateful linear-Gram
+steps) and stochastic f-oracles; both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .._device import as_f64, resolve_device
+from .._scalar import div, exp, log, power, read
+from .driver import run_driver
+from .theta import solve_theta
+
+_LS_MAX = 200  # safety bound; backtracking terminates long before this
+
+
+def _fingerprint(step, cfg):
+    """The JAX driver's checkpoint identity of this step and config."""
+    return f"accbpg_and_fw_tpu.algorithms.bpg.{step.__name__}|{cfg!r}"
+
+
+def _check_supported(f, fast_gram):
+    if fast_gram:
+        raise NotImplementedError(
+            f"fast_gram={fast_gram!r} is not ported yet (ROADMAP.md queue A: "
+            "fast_gram in FP64); use fast_gram=False")
+    if getattr(f, "stochastic", False):
+        raise NotImplementedError(
+            "stochastic f-oracles are not ported yet (ROADMAP.md queue A: "
+            "the other f-oracles)")
+
+
+def _start(f, x0):
+    """x0 as float64 on the f-oracle's device (x0's own, or the CPU, for
+    an oracle without one)."""
+    return as_f64(x0, resolve_device(getattr(f, "device", None), like=x0))
+
+
+def _read(**vals):
+    """The named 0-d tensors / numbers as Python floats, in one read."""
+    return dict(zip(vals, read(*vals.values())))
+
+
+def _comb(theta, a, b):
+    return (1.0 - theta) * a + theta * b
+
+
+def _accept_delta(f, scale):
+    """Inexact-oracle allowance for descent acceptances:
+    ``accept_tol * (1 + |scale|)`` for oracles that declare their noise,
+    exactly 0.0 for exact ones (then adding it changes no bit)."""
+    tol = getattr(f, "accept_tol", 0.0)
+    if not tol:
+        return 0.0
+    return tol * (1.0 + abs(scale))
+
+
+def _restart(cfg, F_prev, k, Fk, gd, x_new, z_new, theta, kk, k_guard):
+    """Function ('f') or gradient ('g') restart of the ABPG family:
+    ``(theta, kk, z)`` after it.  ``gd`` is <g, x_new - x>; ``k_guard``
+    keeps plain ABPG's explicit k > 0 gate (the others rely on F_prev
+    starting at +inf)."""
+    if not cfg.restart:
+        return theta, kk, z_new
+    trig = Fk > F_prev if cfg.restart_rule == 'f' else gd > 0
+    if k_guard:
+        trig = k > 0 and trig
+    return (1.0, 0, x_new) if trig else (theta, kk, z_new)
+
+
+def _wants_gd(cfg):
+    return cfg.restart and cfg.restart_rule != 'f'
+
+
+def _printer(names):
+    """The JAX drivers' progress row: k, the named values, the time."""
+    fmt = "{0:6d}" + "".join(f"  {{{i + 1}:10.3e}}"
+                             for i in range(len(names)))
+    fmt += f"  {{{len(names) + 1}:6.1f}}"
+
+    def row(k, r, t):
+        print(fmt.format(k, *(r[n] for n in names), t))
+
+    return row
+
+
+def _run(step, cfg, prob, carry, maxitrs, title, columns, names, verbose,
+         verbskip, chunk, checkpoint):
+    header = f"\n{title}\n     k      F(x)  {columns}"
+    return run_driver(lambda c, k: step(cfg, prob, c, k), carry, maxitrs,
+                      verbose=verbose, verbskip=verbskip, header=header,
+                      print_row=_printer(names), chunk=chunk,
+                      checkpoint=checkpoint,
+                      fingerprint=_fingerprint(step, cfg))
+
+
+# ---------------------------------------------------------------------------
+# BPG
+# ---------------------------------------------------------------------------
+
+
+# The configs keep the JAX drivers' fields and defaults (stochastic and
+# gamma2 are never set here): their repr is the checkpoint fingerprint.
+class _BPGCfg(NamedTuple):
+    linesearch: bool
+    stochastic: bool = False
+
+
+def _bpg_step(cfg, prob, c, k):
+    f, h = prob["f"], prob["h"]
+    x, Lk = c["x"], c["L"]
+    fx_t, g = f.value_and_grad(x)
+    psi_t = h.extra_psi(x)
+
+    if cfg.linesearch:
+        ls_ratio = prob["ls_ratio"]
+
+        def trial(Lt, **extra):
+            x1 = h.div_prox_map(x, g, Lt)
+            return x1, _read(f1=f.value(x1), gd=torch.dot(g, x1 - x),
+                             dv=h.divergence(x1, x), **extra)
+
+        Lt = Lk / ls_ratio
+        x_new, s = trial(Lt, fx=fx_t, psi=psi_t)
+        fx, psi = s["fx"], s["psi"]
+        delta = _accept_delta(f, fx)
+        t = 0
+        # NaN-robust acceptance: a trial that leaves the domain (NaN)
+        # fails and L backs off
+        while (not s["f1"] <= fx + s["gd"] + Lt * s["dv"] + delta
+               and t < _LS_MAX):
+            Lt = Lt * ls_ratio
+            x_new, s = trial(Lt)
+            t += 1
+        Lk = Lt
+    else:
+        x_new = h.div_prox_map(x, g, Lk)
+        fx, psi = read(fx_t, psi_t)
+
+    Fk = fx + psi
+    stop = k > 0 and abs(Fk - c["F_prev"]) < prob["eps"]
+    return (dict(done=c["done"], x=x_new, L=Lk, F_prev=Fk),
+            dict(F=Fk, Ls=Lk, _stop=stop))
+
+
+def BPG(f, h, L, x0, maxitrs, epsilon=1e-14, linesearch=True, ls_ratio=1.2,
+        verbose=True, verbskip=1, chunk=None, checkpoint=None,
+        fast_gram=False, seed=None):
+    """Bregman Proximal Gradient method for min_{x in C} f(x) + Psi(x):
+
+        x_{k+1} = argmin_{x in C} { Psi(x) + <f'(x_k), x> + L_k D_h(x, x_k) }
+
+    with optional backtracking on the relative smoothness constant L
+    (reference: algorithms.py:11-72).  Returns ``(x, F, Ls, T)``: ``x`` a
+    float64 tensor on the f-oracle's device, the histories numpy arrays.
+    ``seed`` is accepted for the JAX signature (it seeds stochastic
+    oracles, which are not ported)."""
+    _check_supported(f, fast_gram)
+    x0 = _start(f, x0)
+    prob = dict(f=f, h=h, eps=float(epsilon), ls_ratio=float(ls_ratio))
+    carry = dict(done=False, x=x0, L=float(L), F_prev=float("inf"))
+    cfg = _BPGCfg(linesearch=bool(linesearch))
+    carry, hist, T = _run(_bpg_step, cfg, prob, carry, maxitrs,
+                          "BPG_LS method for min_{x in C} F(x) = f(x) + Psi(x)",
+                          "       Lk       time", ["F", "Ls"], verbose,
+                          verbskip, chunk, checkpoint)
+    return carry["x"], hist["F"], hist["Ls"], T
+
+
+# ---------------------------------------------------------------------------
+# ABPG
+# ---------------------------------------------------------------------------
+
+
+class _ABPGCfg(NamedTuple):
+    theta_eq: bool
+    restart: bool
+    restart_rule: str
+    stochastic: bool = False
+    gamma2: bool = False
+
+
+def _abpg_theta(cfg, gam, c):
+    """theta from the Newton equality or gamma/(k + gamma)."""
+    if cfg.theta_eq:
+        return solve_theta(c["theta"], gam) if c["kk"] > 0 else 1.0
+    return gam / (float(c["kk"]) + gam)
+
+
+def _abpg_step(cfg, prob, c, k):
+    f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
+    x, z = c["x"], c["z"]
+    fx_t = f.value(x)
+    theta = _abpg_theta(cfg, gam, c)
+    y = _comb(theta, x, z)
+    g = f.grad(y)
+    z_new = h.div_prox_map(z, g, power(theta, gam - 1.0) * L)
+    x_new = _comb(theta, x, z_new)
+    dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
+    s = _read(fx=fx_t, psi=h.extra_psi(x), dxy=dxy, dzz=dzz,
+              gd=torch.dot(g, x_new - x) if _wants_gd(cfg) else 0.0)
+    Fk = s["fx"] + s["psi"]
+    Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
+
+    theta_c, kk, z_new = _restart(cfg, c["F_prev"], k, Fk, s["gd"], x_new,
+                                  z_new, theta, c["kk"] + 1, k_guard=True)
+    return (dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
+                 F_prev=Fk),
+            dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
+                 _stop=s["dzz"] < prob["eps"]))
+
+
+def ABPG(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=False,
+         restart=False, restart_rule='g', verbose=True, verbskip=1,
+         chunk=None, checkpoint=None, fast_gram=False, seed=None):
+    """Accelerated Bregman Proximal Gradient (reference: algorithms.py:94-180).
+
+    Triple-sequence update with TSE gamma; theta from gamma/(k+gamma) or the
+    Newton equality; optional function ('f') / gradient ('g') restart.
+    Returns ``(x, F, G, T)`` with G the triangle-scaling gains."""
+    _check_supported(f, fast_gram)
+    x0 = _start(f, x0)
+    prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
+                eps=float(epsilon))
+    carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
+                 F_prev=float("inf"))
+    cfg = _ABPGCfg(theta_eq=bool(theta_eq), restart=bool(restart),
+                   restart_rule=str(restart_rule))
+    carry, hist, T = _run(
+        _abpg_step, cfg, prob, carry, maxitrs,
+        "ABPG method for minimize_{x in C} F(x) = f(x) + Psi(x)",
+        "     theta        TSG       D(x+,y)     D(z+,z)     time",
+        ["F", "theta", "G", "dxy", "dzz"], verbose, verbskip, chunk,
+        checkpoint)
+    return carry["x"], hist["F"], hist["G"], T
+
+
+# ---------------------------------------------------------------------------
+# ABPG_expo
+# ---------------------------------------------------------------------------
+
+
+class _ABPGExpoCfg(NamedTuple):
+    theta_eq: bool
+    checkdiv: bool
+    restart: bool
+    restart_rule: str
+    stochastic: bool = False
+
+
+def _abpg_expo_step(cfg, prob, c, k):
+    f, h, L = prob["f"], prob["h"], prob["L"]
+    delta, Gmargin = prob["delta"], prob["Gmargin"]
+    x, z, kk, gamma = c["x"], c["z"], c["kk"], c["gamma"]
+    # f(x) carried from the previous accepted trial (see _abpg_gain_step)
+    fx = c["fx"]
+    theta = _abpg_theta(cfg, gamma, c)
+    y = _comb(theta, x, z)
+    fy_t, g = f.value_and_grad(y)
+
+    def attempt(gm, **extra):
+        z_new = h.div_prox_map(z, g, power(theta, gm - 1.0) * L)
+        x_new = _comb(theta, x, z_new)
+        dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
+        q = dict(dxy=dxy, dzz=dzz, **extra)
+        if not cfg.checkdiv:
+            q.update(fxn=f.value(x_new), vd=torch.dot(g, x_new - y))
+        if _wants_gd(cfg):
+            q["gd"] = torch.dot(g, x_new - x)
+        return z_new, x_new, _read(**q)
+
+    gm = gamma
+    z_new, x_new, s = attempt(gm, fy=fy_t, psi=h.extra_psi(x))
+    fy, psi = s["fy"], s["psi"]
+
+    def fails(gm, s):
+        thg = power(theta, gm)
+        if cfg.checkdiv:
+            return not s["dxy"] <= Gmargin * thg * s["dzz"]
+        return not (s["fxn"] <= fy + s["vd"] + thg * L * s["dzz"]
+                    + _accept_delta(f, fy))
+
+    while fails(gm, s) and gm > 1.0:
+        gm = max(gm - delta, 1.0)
+        z_new, x_new, s = attempt(gm)
+
+    dxy, dzz = s["dxy"], s["dzz"]
+    Gdr = div(div(dxy, dzz), power(theta, gm))
+    fx_new = read(f.value(x_new))[0] if cfg.checkdiv else s["fxn"]
+    Fk = fx + psi
+
+    theta_c, kk, z_new = _restart(cfg, c["F_prev"], k, Fk, s.get("gd"),
+                                  x_new, z_new, theta, kk + 1,
+                                  k_guard=False)
+    return (dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
+                 gamma=gm, F_prev=Fk, fx=fx_new),
+            dict(F=Fk, Gamma=gm, G=Gdr, theta=theta, dxy=dxy, dzz=dzz,
+                 _stop=dzz < prob["eps"]))
+
+
+def ABPG_expo(f, h, L, x0, gamma0, maxitrs, epsilon=1e-14, delta=0.2,
+              theta_eq=True, checkdiv=False, Gmargin=10, restart=False,
+              restart_rule='g', verbose=True, verbskip=1, chunk=None,
+              checkpoint=None, fast_gram=False, seed=None):
+    """ABPG with exponent adaption: start gamma0 > 2, decrease gamma by
+    ``delta`` (floor 1) while the TSE inequality / descent condition fails
+    (reference: algorithms.py:183-292).  Returns ``(x, F, Gamma, G, T)``.
+
+    As in JAX, with ``restart=True, restart_rule='f'`` F_prev starts at
+    +inf, so the k=0 comparison never restarts (the reference compares
+    against an uninitialized history slot, algorithms.py:268)."""
+    _check_supported(f, fast_gram)
+    x0 = _start(f, x0)
+    prob = dict(f=f, h=h, L=float(L), eps=float(epsilon), delta=float(delta),
+                Gmargin=float(Gmargin))
+    carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
+                 gamma=float(gamma0), F_prev=float("inf"),
+                 fx=read(f.value(x0))[0])
+    cfg = _ABPGExpoCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
+                       restart=bool(restart), restart_rule=str(restart_rule))
+    carry, hist, T = _run(
+        _abpg_expo_step, cfg, prob, carry, maxitrs,
+        "ABPG_expo method for min_{x in C} F(x) = f(x) + Psi(x)",
+        "     theta       gamma        TSG       D(x+,y)     D(z+,z)     "
+        "time", ["F", "theta", "Gamma", "G", "dxy", "dzz"], verbose,
+        verbskip, chunk, checkpoint)
+    return carry["x"], hist["F"], hist["Gamma"], hist["G"], T
+
+
+# ---------------------------------------------------------------------------
+# ABPG_gain
+# ---------------------------------------------------------------------------
+
+
+class _ABPGGainCfg(NamedTuple):
+    theta_eq: bool
+    checkdiv: bool
+    restart: bool
+    restart_rule: str
+    stochastic: bool = False
+    gamma2: bool = False
+
+
+def _abpg_gain_step(cfg, prob, c, k):
+    f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
+    ls_inc, ls_dec, eps = prob["ls_inc"], prob["ls_dec"], prob["eps"]
+    x, z, kk = c["x"], c["z"], c["kk"]
+    G_1, theta_1 = c["G"], c["theta"]
+    # f(x) was computed by the accepted trial of the PREVIOUS iteration
+    # (the descent acceptance evaluates f(x_new)); the carry threads it
+    # forward, initialized at f(x0)
+    fx = c["fx"]
+    psi_t = h.extra_psi(x)
+
+    def attempt(G, **extra):
+        if kk == 0:
+            theta = theta_1
+        elif cfg.theta_eq:
+            theta = solve_theta(theta_1, gam, G / G_1)
+        else:
+            alpha = G / G_1
+            theta = theta_1 * ((1.0 + alpha * (gam - 1.0))
+                               / (gam * alpha + theta_1))
+        y = _comb(theta, x, z)
+        fy_t, g = f.value_and_grad(y)
+        z_new = h.div_prox_map(z, g, power(theta, gam - 1.0) * G * L)
+        x_new = _comb(theta, x, z_new)
+        dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
+        q = dict(fy=fy_t, dxy=dxy, dzz=dzz, **extra)
+        if not cfg.checkdiv:
+            q.update(fxn=f.value(x_new), vd=torch.dot(g, x_new - y))
+        if _wants_gd(cfg):
+            q["gd"] = torch.dot(g, x_new - x)
+        s = _read(**q)
+        thg = power(theta, gam)
+        Gdr = div(div(s["dxy"], s["dzz"]), thg)
+        if cfg.checkdiv:
+            fail = not Gdr <= G
+        else:
+            fail = not (s["fxn"] <= s["fy"] + s["vd"] + thg * G * L * s["dzz"]
+                        + _accept_delta(f, s["fy"]))
+        early = s["dzz"] < eps
+        return dict(s, G=G, theta=theta, z=z_new, x=x_new, Gdr=Gdr,
+                    fail=fail and not early)
+
+    s = attempt(G_1 / ls_dec, psi=psi_t)
+    psi = s["psi"]
+    t = 0
+    while s["fail"] and t < _LS_MAX:
+        t += 1
+        s = attempt(s["G"] * ls_inc)
+    G, theta, z_new, x_new = s["G"], s["theta"], s["z"], s["x"]
+    fx_new = read(f.value(x_new))[0] if cfg.checkdiv else s["fxn"]
+
+    sumlogG = c["sumlogG"] + log(G)
+    Gavg = exp(sumlogG / (gam + float(k)))
+    Fk = fx + psi
+
+    theta_c, kk, z_new = _restart(cfg, c["F_prev"], k, Fk, s.get("gd"),
+                                  x_new, z_new, theta, kk + 1,
+                                  k_guard=False)
+    return (dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
+                 G=G, sumlogG=sumlogG, F_prev=Fk, fx=fx_new),
+            dict(F=Fk, Gain=G, Gdiv=s["Gdr"], Gavg=Gavg, theta=theta,
+                 dxy=s["dxy"], dzz=s["dzz"], _stop=s["dzz"] < eps))
+
+
+def ABPG_gain(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, G0=1,
+              ls_inc=1.2, ls_dec=1.2, theta_eq=True, checkdiv=False,
+              restart=False, restart_rule='g', verbose=True, verbskip=1,
+              chunk=None, checkpoint=None, fast_gram=False, seed=None):
+    """ABPG with gain adaption ("ABPG-g"): per-iteration line search on the
+    triangle-scaling gain G (optimistic divide by ls_dec, then multiply by
+    ls_inc on failure), theta from solve_theta(theta_1, gamma, G/G_1) or the
+    closed form (reference: algorithms.py:295-420).
+    Returns ``(x, F, Gain, Gdiv, Gavg, T)``.
+
+    As in JAX, with ``restart=True, restart_rule='f'`` F_prev starts at
+    +inf, so the k=0 comparison never restarts (the reference compares
+    against an uninitialized history slot, algorithms.py:404-405)."""
+    _check_supported(f, fast_gram)
+    x0 = _start(f, x0)
+    gam, G0 = float(gamma), float(G0)
+    prob = dict(f=f, h=h, L=float(L), gamma=gam, eps=float(epsilon),
+                ls_inc=float(ls_inc), ls_dec=float(ls_dec))
+    carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0, G=G0,
+                 sumlogG=gam * log(G0), F_prev=float("inf"),
+                 fx=read(f.value(x0))[0])
+    cfg = _ABPGGainCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
+                       restart=bool(restart), restart_rule=str(restart_rule))
+    carry, hist, T = _run(
+        _abpg_gain_step, cfg, prob, carry, maxitrs,
+        "ABPG_gain method for min_{x in C} F(x) = f(x) + Psi(x)",
+        "     theta         Gk         TSG       D(x+,y)     D(z+,z)      "
+        "Gavg       time",
+        ["F", "theta", "Gain", "Gdiv", "dxy", "dzz", "Gavg"], verbose,
+        verbskip, chunk, checkpoint)
+    return (carry["x"], hist["F"], hist["Gain"], hist["Gdiv"], hist["Gavg"],
+            T)
+
+
+# ---------------------------------------------------------------------------
+# ABDA
+# ---------------------------------------------------------------------------
+
+
+class _ABDACfg(NamedTuple):
+    theta_eq: bool
+    stochastic: bool = False
+    gamma2: bool = False
+
+
+def _abda_step(cfg, prob, c, k):
+    f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
+    x, z, kk = c["x"], c["z"], c["kk"]
+    fx_t = f.value(x)
+    theta = _abpg_theta(cfg, gam, c)
+    y = _comb(theta, x, z)
+    g = f.grad(y)
+    w = power(theta, 1.0 - gam)
+    gavg = c["gavg"] + w * g
+    csum = c["csum"] + w
+    z_new = h.prox_map(gavg / csum, L / csum)
+    x_new = _comb(theta, x, z_new)
+    dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
+    s = _read(fx=fx_t, psi=h.extra_psi(x), dxy=dxy, dzz=dzz)
+    Fk = s["fx"] + s["psi"]
+    Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
+    return (dict(done=c["done"], x=x_new, z=z_new, theta=theta, kk=kk + 1,
+                 gavg=gavg, csum=csum, F_prev=Fk),
+            dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
+                 _stop=s["dzz"] < prob["eps"]))
+
+
+def ABDA(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=True,
+         verbose=True, verbskip=1, chunk=None, checkpoint=None,
+         fast_gram=False, seed=None):
+    """Accelerated Bregman Dual Averaging: accumulates the weighted gradient
+    average and uses the *primal* prox_map (reference: algorithms.py:423-514;
+    restart is intentionally unsupported, :445-446).
+    Returns ``(x, F, G, T)``."""
+    _check_supported(f, fast_gram)
+    x0 = _start(f, x0)
+    prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
+                eps=float(epsilon))
+    carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
+                 gavg=torch.zeros_like(x0), csum=0.0, F_prev=float("inf"))
+    cfg = _ABDACfg(theta_eq=bool(theta_eq))
+    carry, hist, T = _run(
+        _abda_step, cfg, prob, carry, maxitrs,
+        "ABDA method for min_{x in C} F(x) = f(x) + Psi(x)",
+        "     theta        TSG       D(x+,y)     D(z+,z)     time",
+        ["F", "theta", "G", "dxy", "dzz"], verbose, verbskip, chunk,
+        checkpoint)
+    return carry["x"], hist["F"], hist["G"], T

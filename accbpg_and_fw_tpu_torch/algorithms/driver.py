@@ -1,18 +1,27 @@
 """Chunked iteration loop for the port's drivers.
 
 The part of ``accbpg_and_fw_tpu/algorithms/driver.py::run_driver`` that the
-D-opt solvers need.  A driver is a step function
-``step(carry, k) -> (carry, hist)`` on tensors; ``carry`` is a dict that
-holds a bool ``done`` tensor and ``hist`` a dict of 0-d tensors that holds
-``_stop`` (the stopping test fired at this iteration, which is the last one
-recorded, matching the reference's ``break``).
+D-opt solvers and the Bregman drivers need.  A driver is a step function
+``step(carry, k) -> (carry, hist)``; ``carry`` is a dict that holds a bool
+``done`` and ``hist`` a dict of scalars that holds ``_stop`` (the stopping
+test fired at this iteration, which is the last one recorded, matching the
+reference's ``break``).
 
-PyTorch runs eagerly, so a chunk is a Python loop of steps.  The loop never
-reads a tensor back inside a chunk: once ``done`` is set the carry freezes
-through a ``torch.where`` select (as the JAX scan body does), and the host
-reads the chunk's histories and the ``done`` flag once, at the chunk
-boundary.  That boundary is also where ``between_chunks`` runs, where
-checkpoints are written and where the verbose table is printed.
+PyTorch runs eagerly, so a chunk is a Python loop of steps, in one of two
+modes chosen by the type of ``carry["done"]``:
+
+* a bool tensor (the D-opt engines): the loop never reads a tensor back
+  inside a chunk; once ``done`` is set the carry freezes through a
+  ``torch.where`` select (as the JAX scan body does), and the host reads
+  the chunk's histories and the ``done`` flag once, at the chunk boundary;
+* a Python bool (the Bregman drivers, whose line searches read each trial's
+  decision back anyway): the step keeps its scalars on the host, returns
+  host numbers in ``hist``, and the chunk ends at the stop row, which is
+  the iteration the JAX driver's frozen carry stops at.  The carry may mix
+  tensors with Python floats, ints and bools.
+
+The chunk boundary is where ``between_chunks`` runs, where checkpoints are
+written and where the verbose table is printed.
 
 Checkpoints are the JAX driver's ``.npz`` format (same keys, version and
 fingerprint check), so a run resumes iteration-exactly from a file written
@@ -46,7 +55,8 @@ def _save_checkpoint(path, carry, blocks, k_next, t_spent, fp):
         "__fp": np.asarray(fp),
     }
     for k, v in carry.items():
-        payload[f"c::{k}"] = v.detach().cpu().numpy()
+        payload[f"c::{k}"] = (v.detach().cpu().numpy()
+                              if isinstance(v, torch.Tensor) else np.asarray(v))
     if blocks:
         for name in blocks[0][0]:
             payload[f"h::{name}"] = np.concatenate(
@@ -80,17 +90,53 @@ def _load_checkpoint(path, carry_proto, fp):
         carry = {}
         for k, proto in carry_proto.items():
             saved = z[f"c::{k}"]
-            if tuple(saved.shape) != tuple(proto.shape):
+            if tuple(saved.shape) != tuple(np.shape(proto)):
                 raise ValueError(
                     f"checkpoint {path!r} carry leaf {k!r} has shape "
                     f"{tuple(saved.shape)} but this solve expects "
-                    f"{tuple(proto.shape)} — different problem instance")
-            carry[k] = torch.as_tensor(saved).to(device=proto.device,
-                                                 dtype=proto.dtype)
+                    f"{tuple(np.shape(proto))} — different problem instance")
+            if isinstance(proto, torch.Tensor):
+                carry[k] = torch.as_tensor(saved).to(device=proto.device,
+                                                     dtype=proto.dtype)
+            else:  # a host scalar: bool, int or float, as the proto
+                carry[k] = type(proto)(saved.item())
         hist_names = [n[3:] for n in z.files if n.startswith("h::")]
         block = ({name: z[f"h::{name}"] for name in hist_names}
                  if hist_names else None)
         return carry, block, int(z["__k_next"]), float(z["__t"])
+
+
+def _device_chunk(step, carry, k0, limit):
+    """Iterations ``k0 <= k < limit`` with tensor scalars: the carry
+    freezes through ``torch.where`` once done, histories are read once."""
+    rows = []
+    for k in range(k0, limit):
+        done = carry["done"]
+        new, h = step(carry, k)
+        h = dict(h)
+        h["_valid"] = torch.logical_not(done)
+        new = dict(new)
+        new["done"] = done | new["done"] | h["_stop"]
+        carry = {key: torch.where(done, carry[key], new[key])
+                 for key in carry}
+        rows.append(h)
+    hist = {name: torch.stack([r[name] for r in rows]).cpu().numpy()
+            for name in rows[0]}
+    return carry, hist
+
+
+def _host_chunk(step, carry, k0, limit):
+    """Iterations ``k0 <= k < limit`` of a step with host scalars, ending
+    at the stop row (inclusive)."""
+    rows = []
+    for k in range(k0, limit):
+        carry, h = step(carry, k)
+        rows.append(dict(h, _valid=True))
+        if h["_stop"]:
+            carry = dict(carry, done=True)
+            break
+    hist = {name: np.asarray([r[name] for r in rows]) for name in rows[0]}
+    return carry, hist
 
 
 def run_driver(
@@ -148,23 +194,13 @@ def run_driver(
         # the chunk grid is absolute, so hooks fire at the same k whether or
         # not the run was resumed from a checkpoint
         limit = min(maxitrs, (k_next // chunk + 1) * chunk)
-        rows = []
-        for k in range(k_next, limit):
-            done = carry["done"]
-            new, h = step(carry, k)
-            h = dict(h)
-            h["_valid"] = torch.logical_not(done)
-            new = dict(new)
-            new["done"] = done | new["done"] | h["_stop"]
-            carry = {key: torch.where(done, carry[key], new[key])
-                     for key in carry}
-            rows.append(h)
-        hist = {name: torch.stack([r[name] for r in rows]).cpu().numpy()
-                for name in rows[0]}
+        chunk_fn = (_host_chunk if isinstance(carry["done"], bool)
+                    else _device_chunk)
+        carry, hist = chunk_fn(step, carry, k_next, limit)
         t_b = time.time() - t0
         nv = int(hist["_valid"].sum())
         block = {name: v[:nv] for name, v in hist.items()}
-        launched = limit - k_next
+        launched = len(hist["_valid"])
         blocks.append((block, t_a, t_b, launched))
 
         if verbose and print_row is not None:

@@ -1,9 +1,9 @@
 """Problem factories of the port (counterpart of
 ``accbpg_and_fw_tpu/apps/applications.py``).
 
-Ported so far: ``D_opt_KYinit``.  It is numpy driven by the global
-``np.random`` state, as in the JAX package, so the same seed gives the same
-start bit for bit.
+Ported so far: ``D_opt_design`` and ``D_opt_KYinit``.  Both are numpy
+driven by the global ``np.random`` state, as in the JAX package, so the same
+seed gives the same instance and start bit for bit.
 """
 
 from __future__ import annotations
@@ -12,6 +12,27 @@ import numpy as np
 import torch
 
 from .._device import DTYPE, resolve_device
+from ..ops.f_oracles import DOptimalObj
+from ..ops.h_oracles import BurgEntropySimplex
+
+
+def D_opt_design(m, n, randseed=-1, oracle=None, device=None):
+    """Random D-optimal design instance: H ~ randn(m, n), Burg-simplex h,
+    L = 1, x0 = center of simplex (reference: applications.py:36-56).
+    Returns ``(f, h, L, x0)`` with H and x0 float64 on ``device`` (the CPU
+    for None).
+
+    ``oracle="mixed"`` (the JAX package's int8-digit oracle, a TPU
+    workaround for slow f64) is accepted and gives the FP64
+    ``DOptimalObj``."""
+    if oracle not in (None, "mixed"):
+        raise ValueError(f"unknown oracle={oracle!r} (None or 'mixed')")
+    dev = resolve_device(device)
+    if randseed > 0:
+        np.random.seed(randseed)
+    H = np.random.randn(m, n)
+    x0 = torch.full((n,), 1.0 / n, dtype=DTYPE, device=dev)
+    return DOptimalObj(H, device=dev), BurgEntropySimplex(), 1.0, x0
 
 
 def D_opt_KYinit(V, device=None):

@@ -1,11 +1,12 @@
-"""Hand D-opt solver state over from the JAX package to the port.
+"""Hand problems and solver state over from the JAX package to the port.
 
-``from_jax_carry`` turns the JAX package's D-opt state, given as numpy
-arrays or as a block-engine checkpoint file, into the port's FP64
-tensors; ``continue_dopt`` runs the port's exact engine on from there, so
-a run started under JAX finishes here.
-(Checkpoint files need no conversion: the port's drivers read the JAX
-``.npz`` formats and fingerprints directly.)
+``from_jax_oracle`` turns a JAX f- or h-oracle into the port's, so both
+packages compute the same thing.  ``from_jax_carry`` turns the JAX
+package's D-opt state, given as numpy arrays or as a block-engine
+checkpoint file, into the port's FP64 tensors; ``continue_dopt`` runs the
+port's exact engine on from there, so a run started under JAX finishes
+here.  (Checkpoint files need no conversion: the port's drivers read the
+JAX ``.npz`` formats and fingerprints directly.)
 """
 
 from __future__ import annotations
@@ -17,9 +18,35 @@ import torch
 
 from ._device import as_f64, resolve_device
 from .algorithms.d_opt import _dopt_factorize, _run_exact
+from .ops import h_oracles
 from .ops.dopt_common import _CKPT_VERSION
+from .ops.f_oracles import DOptimalObj
 
 _DS_NAMES = (("x", "x"), ("w", "w"), ("H", "H"), ("logdet", "ld"))
+
+
+def from_jax_oracle(obj, device=None):
+    """The port's counterpart of the JAX oracle ``obj``: a ``DOptimalObj``
+    (its design ``H`` and ``n_valid``, H as float64 on ``device``, the CPU
+    for None) or a Burg-family h-oracle (``BurgEntropy``,
+    ``BurgEntropyL1``/``L2`` with their ``lamda``, ``BurgEntropySimplex``
+    with its ``eps`` and ``use_pallas``).  Other oracles are not ported
+    yet and raise ``TypeError``.  The JAX object is read through its
+    attributes; this module does not import JAX."""
+    name = type(obj).__name__
+    if name == "DOptimalObj":
+        return DOptimalObj(np.asarray(obj.H, np.float64),
+                           n_valid=(None if obj.n_valid is None
+                                    else int(np.asarray(obj.n_valid))),
+                           device=resolve_device(device))
+    if name == "BurgEntropySimplex":
+        return h_oracles.BurgEntropySimplex(
+            eps=float(np.asarray(obj.eps)), use_pallas=bool(obj.use_pallas))
+    if name in ("BurgEntropyL1", "BurgEntropyL2"):
+        return getattr(h_oracles, name)(lamda=float(np.asarray(obj.lamda)))
+    if name == "BurgEntropy":
+        return h_oracles.BurgEntropy()
+    raise TypeError(f"no port of the oracle {name} yet")
 
 
 def from_jax_carry(carry, device=None):

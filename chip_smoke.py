@@ -13,7 +13,9 @@ without the result line:
    shape and at the shapes its path gives it, plus per-block times: the
    lazy-H kernel (12x160, 1000x5000), its instance-partitioned batch entry
    (K=3 of 100x1000 and of 1000x2000), the dense kernel (B=4 and B=32 of
-   30x1000, and B=1);
+   30x1000, and B=1), the Burg-simplex multiplier (the first prox input of
+   the 30x10000 and 30x1000 paths, n=1 where its bisection moves, and
+   random inputs at n = 1000, 10000, 100000; ms per call);
 4. the paths, each with its kernel's launch count set to 0 just before it
    and read just after:
    a. the dense sweep: ``dopt_fw_batch(precision="pallas")`` on K=32 of
@@ -32,6 +34,26 @@ without the result line:
       budget, ``u_mode="auto"`` on ``device="cuda"``; it must go through
       the lazy-H kernel and its final iterate must certify against the
       known optimum by a fresh float64 slogdet;
+   e. the Bregman path: ``ABPG_gain`` (gamma=2, 9000 iterations) on
+      ``D_opt_design(30, 10000, randseed=10, device="cuda")`` with
+      ``BurgEntropySimplex(use_pallas=True)``; every prox must launch the
+      multiplier kernel and land on the simplex (|sum x - 1| <= 1e-8 plus
+      the sum's rounding), and the fresh float64 F of the final iterate
+      must reach -16.0963 (the reference notebook's numpy run: -16.096434);
+   f. ``BPG`` with its line search (9000 iterations) on the 30x1000 seed-10
+      design with the default h on the card: the last F row within 1e-7 of
+      the reference's -8.62103647488 (its history's last row), the returned
+      iterate (one step further) at or below it by a fresh float64
+      slogdet, and no multiplier kernel launch;
+   g. the README example's BPG, ABPG, ABPG_expo and ABPG_gain calls
+      (``examples/ex_Dopt_random.py``) at 80x200 seed 10 on the card with
+      ``use_pallas=True``: finite F, BPG and ABPG within 0.05 of 17.59 and
+      17.585 at 900 iterations; and ABPG_gain for 300 iterations on the
+      card against the CPU (the kernel's plain version), F rtol 1e-9 over
+      the first 100 rows;
+   h. per-iteration costs of the five Bregman drivers at 30x1000 on the
+      card, with each h: host syncs (``torch.cuda.set_sync_debug_mode``)
+      and device operations (``torch.profiler``) per iteration;
 5. the kernels' JSON line, the card line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -41,6 +63,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -58,6 +81,13 @@ LARGE_K, LARGE_M, LARGE_N, LARGE_BUDGET, LARGE_EPS = 3, 1000, 2000, 20000, 1e-7
 LARGE_REFRESH = 4096
 # fresh float64 slacks against the recorded stop row
 DENSE_CERT_TOL, LARGE_CERT_TOL = 1e-10, 1e-9
+# the Bregman paths (BASELINE.md: the reference notebooks' numpy runs)
+GAIN_M, GAIN_N, GAIN_ITERS, GAIN_F_BOUND = 30, 10000, 9000, -16.0963
+BPG_M, BPG_N, BPG_ITERS, BPG_F_REF, BPG_F_TOL = 30, 1000, 9000, \
+    -8.62103647488, 1e-7
+README_M, README_N, README_ITERS = 80, 200, 900
+# the multiplier kernel's Newton stall threshold
+SIMPLEX_STALL = 1e-8
 # kernel vs plain version on the card, over one 256-iteration block: x, w
 # and C to rtol 1e-11 (each array's max-abs scales the atol, for entries
 # that cancel to near zero); SP, SN, tau, tau (w_v - 1) to atol 1e-12.
@@ -403,6 +433,243 @@ def single_pallas(port, dd, dev):
     return launches
 
 
+def simplex_resid(gg, c):
+    """sum 1/(gg + c) - 1 in float64 on the host."""
+    g = gg.cpu().numpy()
+    return float(np.sum(1.0 / (g + c)) - 1.0)
+
+
+def compare_simplex(sm, gg, label):
+    """The multiplier kernel against its plain version on one input: c to
+    rtol 1e-12, or (the two froze at different Newton steps) both residuals
+    within the stall threshold; returns (|c_kernel - c_plain|, ms,
+    plain_ms)."""
+    before = sm.LAUNCHES
+    c_k = float(sm.simplex_inv_multiplier_pallas(gg))
+    if sm.LAUNCHES != before + 1:
+        raise AssertionError("simplex_inv_multiplier_pallas did not count "
+                             "its launch")
+    c_p = float(sm.simplex_multiplier_reference(gg))
+    err = abs(c_k - c_p)
+    slack = SIMPLEX_STALL + gg.numel() * 2.0**-52
+    if err > 1e-12 * abs(c_p):
+        r_k, r_p = simplex_resid(gg, c_k), simplex_resid(gg, c_p)
+        if not (abs(r_k) <= slack and abs(r_p) <= slack):
+            raise AssertionError(
+                f"simplex {label}: kernel c {c_k!r} (resid {r_k:.3e}) vs "
+                f"plain {c_p!r} (resid {r_p:.3e})")
+    ms = time_launches(lambda: sm.simplex_inv_multiplier_pallas(gg), 50)
+    plain_ms = time_launches(lambda: sm.simplex_multiplier_reference(gg), 5)
+    print(f"[kernel] simplex multiplier {label} n={gg.numel()}: "
+          f"|c kernel - c plain| {err:.3e} (c {c_p:.6e}); per call kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    return err, ms, plain_ms
+
+
+def first_prox_input(port, m, n):
+    """gg of the first prox of BPG (L = 1) from the uniform start on the
+    seed-10 m x n design: (g + 1/x0) / 1."""
+    f, _, _, x0 = port.D_opt_design(m, n, randseed=10, device="cuda")
+    _, g = f.value_and_grad(x0)
+    return (g + torch.div(1.0, x0)).contiguous()
+
+
+def fresh_F(f, x):
+    """-logdet(H diag(x / sum x) H^T) by a fresh float64 numpy slogdet."""
+    H = f.H.cpu().numpy()
+    xs = x.cpu().numpy()
+    xs = xs / xs.sum()
+    sign, logdet = np.linalg.slogdet((H * xs) @ H.T)
+    if sign <= 0:
+        raise AssertionError("the final information matrix is not "
+                             "positive definite")
+    return -logdet
+
+
+def gain_trials(Gain, G0, ratio):
+    """Line-search trials per ABPG_gain row, read off the gain history."""
+    prev = np.concatenate([[G0], Gain[:-1]]) / ratio
+    return np.rint(np.log(Gain / prev) / np.log(ratio)).astype(int) + 1
+
+
+class ProxProbe:
+    """Counts the prox calls of an h-oracle and keeps the largest
+    |sum x - 1| of their outputs on the device (no host read)."""
+
+    def __init__(self, h):
+        self.calls, self.worst = 0, None
+        inner = h.prox_map
+
+        def prox_map(g, L):
+            x = inner(g, L)
+            self.calls += 1
+            e = (x.sum() - 1.0).abs()
+            self.worst = e if self.worst is None else torch.maximum(
+                self.worst, e)
+            return x
+
+        h.prox_map = prox_map
+
+
+def gain_path(port, sm):
+    """Phase 4e; returns the kernel's launches in it."""
+    f, _, L, x0 = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
+                                    device="cuda")
+    h = port.BurgEntropySimplex(use_pallas=True)
+    probe = ProxProbe(h)
+    sm.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x, F, Gain, Gdiv, Gavg, T = port.ABPG_gain(f, h, L, x0, gamma=2,
+                                               maxitrs=GAIN_ITERS,
+                                               verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = sm.LAUNCHES
+    trials = int(gain_trials(Gain, 1.0, 1.2).sum())
+    if not launches >= probe.calls >= trials:
+        raise AssertionError(f"ABPG_gain path: {launches} kernel launches, "
+                             f"{probe.calls} prox calls, {trials} trials")
+    worst = float(probe.worst)
+    if not worst <= SIMPLEX_STALL + GAIN_N * 2.0**-52:
+        raise AssertionError(f"a prox output is off the simplex by {worst}")
+    Ff = fresh_F(f, x)
+    if not (np.all(np.isfinite(F)) and Ff <= GAIN_F_BOUND):
+        raise AssertionError(f"ABPG_gain path: fresh F {Ff!r} above "
+                             f"{GAIN_F_BOUND}")
+    print(f"[bregman gain] ABPG_gain gamma=2 {GAIN_M}x{GAIN_N} seed 10 "
+          f"use_pallas=True on cuda: wall {wall:.3f} s (with the prox "
+          f"probe), {len(F)} iterations, {trials} line-search trials, "
+          f"{probe.calls} prox calls, {launches} kernel launches; fresh F "
+          f"{Ff:.9f} (recorded {F[-1]:.9f}; numpy reference -16.096434); "
+          f"worst |sum x - 1| of a prox {worst:.3e}", flush=True)
+    return launches
+
+
+def bpg_path(port, sm):
+    """Phase 4f."""
+    f, h, L, x0 = port.D_opt_design(BPG_M, BPG_N, randseed=10,
+                                    device="cuda")
+    sm.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x, F, Ls, T = port.BPG(f, h, L, x0, maxitrs=BPG_ITERS, linesearch=True,
+                           verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if sm.LAUNCHES != 0:
+        raise AssertionError("the default h launched the multiplier kernel")
+    # the reference's value is its history's last row, f(x_8999); the
+    # returned iterate is one step further, so it must lie at or below it
+    Ff, Fo = fresh_F(f, x), float(f.value(x))
+    if not (len(F) == BPG_ITERS and abs(F[-1] - BPG_F_REF) <= BPG_F_TOL
+            and Ff <= F[-1] and abs(Ff - Fo) <= 1e-12 * abs(Ff)):
+        raise AssertionError(f"BPG-LS path: {len(F)} rows, F[-1] {F[-1]!r} "
+                             f"(reference {BPG_F_REF}), fresh F of the "
+                             f"iterate {Ff!r}, oracle {Fo!r}")
+    trials = int(np.rint(np.log(Ls / np.concatenate([[L], Ls[:-1]])
+                                * 1.2) / np.log(1.2)).sum()) + len(Ls)
+    print(f"[bregman bpg] BPG-LS {BPG_M}x{BPG_N} seed 10 default h on cuda: "
+          f"wall {wall:.3f} s, {len(F)} iterations, {trials} line-search "
+          f"trials; F[-1] {F[-1]:.11f} (reference {BPG_F_REF}); the "
+          f"returned iterate's fresh F {Ff:.11f}", flush=True)
+
+
+def readme_path(port, sm):
+    """Phase 4g."""
+    f, _, L, x0 = port.D_opt_design(README_M, README_N, randseed=10,
+                                    device="cuda")
+    h = port.BurgEntropySimplex(use_pallas=True)
+    n = README_ITERS
+    calls = {
+        "BPG": lambda: port.BPG(f, h, L, x0, maxitrs=n, linesearch=True,
+                                ls_ratio=2, verbose=False),
+        "ABPG": lambda: port.ABPG(f, h, L, x0, gamma=2.0, maxitrs=n,
+                                  theta_eq=True, verbose=False),
+        "ABPG_expo": lambda: port.ABPG_expo(f, h, L, x0, gamma0=3,
+                                            maxitrs=n, theta_eq=True,
+                                            Gmargin=100, verbose=False),
+        "ABPG_gain": lambda: port.ABPG_gain(f, h, L, x0, gamma=2,
+                                            maxitrs=n, G0=0.1,
+                                            theta_eq=True, verbose=False),
+    }
+    bars = {"BPG": 17.59, "ABPG": 17.585}
+    parts = []
+    for name, run in calls.items():
+        sm.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        F = run()[1]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if sm.LAUNCHES < len(F) or not np.all(np.isfinite(F)):
+            raise AssertionError(f"README {name}: {sm.LAUNCHES} launches, "
+                                 f"finite F {np.all(np.isfinite(F))}")
+        if name in bars and not abs(F[-1] - bars[name]) < 0.05:
+            raise AssertionError(f"README {name}: F {F[-1]} not within 0.05 "
+                                 f"of {bars[name]}")
+        parts.append(f"{name} F {F[-1]:.6f} in {wall:.3f} s "
+                     f"({sm.LAUNCHES} launches)")
+    print(f"[readme] {README_M}x{README_N} seed 10 use_pallas=True on cuda, "
+          f"{n} iterations: " + "; ".join(parts), flush=True)
+
+    kw = dict(gamma=2, maxitrs=300, G0=0.1, theta_eq=True, verbose=False)
+    F_gpu = port.ABPG_gain(f, h, L, x0, **kw)[1]
+    fc, _, _, x0c = port.D_opt_design(README_M, README_N, randseed=10)
+    F_cpu = port.ABPG_gain(fc, port.BurgEntropySimplex(use_pallas=True),
+                           L, x0c, **kw)[1]
+    np.testing.assert_allclose(F_gpu[:100], F_cpu[:100], rtol=1e-9)
+    err = float(np.max(np.abs(F_gpu[:100] - F_cpu[:100])
+                       / np.abs(F_cpu[:100])))
+    print(f"[readme] ABPG_gain 300 iterations, card against CPU (plain "
+          f"multiplier): F max rel diff {err:.3e} over the first 100 rows "
+          f"(bar 1e-9); {len(F_gpu)} and {len(F_cpu)} rows", flush=True)
+
+
+def per_iteration_costs(port):
+    """Phase 4h: host syncs and device operations per iteration."""
+    f, _, L, x0 = port.D_opt_design(BPG_M, BPG_N, randseed=10,
+                                    device="cuda")
+    iters = 30
+    drivers = {
+        "BPG": lambda h: port.BPG(f, h, L, x0, iters, verbose=False),
+        "ABPG": lambda h: port.ABPG(f, h, L, x0, 2.0, iters, verbose=False),
+        "ABPG_expo": lambda h: port.ABPG_expo(f, h, L, x0, 3.0, iters,
+                                              verbose=False),
+        "ABPG_gain": lambda h: port.ABPG_gain(f, h, L, x0, 2.0, iters,
+                                              verbose=False),
+        "ABDA": lambda h: port.ABDA(f, h, L, x0, 2.0, iters, verbose=False),
+    }
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    for name, run in drivers.items():
+        for use_pallas in (True, False):
+            h = port.BurgEntropySimplex(use_pallas=use_pallas)
+            run(h)  # warm-up
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    n_rows = len(run(h)[1])
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(h)
+                torch.cuda.synchronize()
+            ops = sum(1 for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+            ops_txt = (f"{ops / n_rows:.1f}" if ops else "not measured "
+                       "(no device events in the trace)")
+            rows.append(f"{name} use_pallas={use_pallas}: "
+                        f"{syncs / n_rows:.2f} syncs, {ops_txt} device ops")
+    print(f"[costs] per iteration at {BPG_M}x{BPG_N} on cuda ({iters} "
+          f"iterations each): " + "; ".join(rows), flush=True)
+
+
 def main():
     # ---- 1. the card --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -419,9 +686,10 @@ def main():
     from accbpg_and_fw_tpu_torch.ops import _build
     from accbpg_and_fw_tpu_torch.ops import dopt_dense as dd
     from accbpg_and_fw_tpu_torch.ops import dopt_lazy as dl
+    from accbpg_and_fw_tpu_torch.ops import simplex as sm
 
     # ---- 2. the build -------------------------------------------------------
-    names = ("dopt_lazy", "dopt_dense")
+    names = ("dopt_lazy", "dopt_dense", "simplex_mult")
     cached = [n for n in names if _build.library_path(n).exists()]
     t = time.perf_counter()
     _build.build_all(names)
@@ -454,6 +722,22 @@ def main():
     compare_lazy_batch(dl, mid, torch.full((3, 1000), 1e-3,
                                            dtype=torch.float64, device=dev),
                        EPS)
+
+    simplex_errs = []
+    for g in (-1.3210486329130189, 0.1):  # n = 1: bisection moves / idle
+        simplex_errs.append(compare_simplex(
+            sm, torch.tensor([g], dtype=torch.float64, device=dev),
+            f"g={g}")[0])
+    simplex_errs.append(compare_simplex(
+        sm, first_prox_input(port, BPG_M, BPG_N), "BPG 30x1000 first prox")[0])
+    path_err, simplex_ms, simplex_plain_ms = compare_simplex(
+        sm, first_prox_input(port, GAIN_M, GAIN_N),
+        "ABPG_gain 30x10000 first prox")
+    simplex_errs.append(path_err)
+    for n in (1000, 10000, 100000):
+        gg = torch.tensor(np.random.default_rng(n).standard_normal(n) * 3.0
+                          + 1.0, device=dev)
+        simplex_errs.append(compare_simplex(sm, gg, "random")[0])
 
     # the small slice end to end on the card against the CPU exact engine
     x_s, F_s, _, _, _ = D_opt_FW_away(V_small, np.full(160, 1 / 160), 1e-8,
@@ -505,6 +789,11 @@ def main():
           f"final SP {SP[-1]:.4e} SN {SN[-1]:.4e}, certified gap {gap:.3e}",
           flush=True)
 
+    simplex_launches = gain_path(port, sm)
+    bpg_path(port, sm)
+    readme_path(port, sm)
+    per_iteration_costs(port)
+
     # ---- 5. the record ------------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda",
@@ -525,6 +814,10 @@ def main():
         entry("dopt_dense_block_batch", "dopt_dense.cu",
               "accbpg_and_fw_tpu/ops/pallas_dopt.py:830",
               dense_batch_launches, batch_err, batch_ms, batch_plain_ms),
+        entry("simplex_multiplier", "simplex_mult.cu",
+              "accbpg_and_fw_tpu/ops/pallas_kernels.py:32",
+              simplex_launches, max(simplex_errs), simplex_ms,
+              simplex_plain_ms),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

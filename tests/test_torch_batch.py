@@ -35,6 +35,8 @@ from accbpg_and_fw_tpu_torch.ops import dopt_lazy as dl
 from accbpg_and_fw_tpu_torch.ops.dopt_common import factorize
 from accbpg_and_fw_tpu_torch.parallel import batched as pb
 
+from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 EXACT_ATOL = 1e-12

@@ -26,6 +26,8 @@ import accbpg_and_fw_tpu_torch as port
 from accbpg_and_fw_tpu_torch.ops import dopt_dense as dd
 from accbpg_and_fw_tpu_torch.ops.dopt_common import factorize
 
+from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 X_ATOL, SP_ATOL, F_RTOL = 1e-11, 1e-9, 1e-7

@@ -17,6 +17,8 @@ import accbpg_and_fw_tpu as acc
 import accbpg_and_fw_tpu_torch as port
 from accbpg_and_fw_tpu_torch.algorithms import d_opt as port_dopt
 
+from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 STATE_ATOL = 1e-12

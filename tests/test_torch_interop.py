@@ -18,6 +18,8 @@ from accbpg_and_fw_tpu.ops.pallas_dopt_lazy import dopt_fw_pallas_lazy
 from accbpg_and_fw_tpu_torch.interop import continue_dopt, from_jax_carry
 from accbpg_and_fw_tpu_torch.ops.dopt_dense import dopt_fw_dense
 
+from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 K, TOTAL = 50, 120

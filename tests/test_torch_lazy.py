@@ -18,6 +18,8 @@ card tests run with ``python -m pytest --noconftest -m cuda
 tests/test_torch_lazy.py``.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,25 @@ torch.set_num_threads(1)
 
 SP_ATOL, X_ATOL, F_RTOL = 1e-9, 1e-11, 1e-9
 STATE_RTOL, HIST_ATOL = 1e-11, 1e-12
+
+
+@pytest.fixture(scope="module", autouse=True)
+def keep_jax_exec_cache():
+    """Put the JAX drivers' bounded executable cache (64 entries) back as
+    the module found it.  The JAX runs of the port's parity tests would
+    otherwise fill it on a shared xdist worker, and a later test there that
+    counts its entries (``test_checkpoint.py::test_executable_cache_reuse``)
+    would see an eviction instead of a new entry.  Every port test file
+    that runs JAX drivers imports this fixture.  JAX is never imported
+    here, so the card tests run without it."""
+    name = "accbpg_and_fw_tpu.algorithms.driver"
+    before = sys.modules.get(name)
+    saved = list(before._EXEC_CACHE.items()) if before else []
+    yield
+    driver = sys.modules.get(name)
+    if driver is not None:
+        driver._EXEC_CACHE.clear()
+        driver._EXEC_CACHE.update(saved)
 
 
 @pytest.fixture(scope="module")

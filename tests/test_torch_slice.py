@@ -19,6 +19,8 @@ from accbpg_and_fw_tpu.ops.pallas_dopt_lazy import dopt_fw_pallas_lazy
 from accbpg_and_fw_tpu_torch.algorithms import d_opt as port_dopt
 from accbpg_and_fw_tpu_torch.ops import dopt_lazy as dl
 
+from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 PKG = pathlib.Path(port.__file__).resolve().parent
