@@ -4,9 +4,10 @@ The JAX package stays the reference; this package keeps its public names,
 arguments and return tuples so a script moves across by changing its
 import.  Everything computes in ``torch.float64`` (Hopper has FP64 in
 hardware, so the JAX package's double-single and int8-digit layers have no
-counterpart here).  Functions take an explicit ``device=``: a numpy input
-with ``device=None`` runs on the CPU, as torch's default does, and there is
-no silent switch to CUDA.
+counterpart here).  The entry points run on the card unless the caller
+asks for the CPU: with ``device=None`` a tensor input keeps its device and
+a numpy input goes to CUDA, ``device="cpu"`` asks for the CPU, and without
+a card the default raises instead of falling back.
 
 Ported so far:
 

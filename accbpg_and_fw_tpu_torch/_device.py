@@ -11,18 +11,24 @@ DTYPE = torch.float64
 def resolve_device(device=None, like=None) -> torch.device:
     """The device a solve runs on.
 
+    The port runs on the card unless the caller asks for the CPU:
     ``device=None`` keeps a tensor input's device and puts anything else
-    (numpy arrays, lists) on the CPU.  Asking for CUDA on a machine without
-    a card raises instead of falling back."""
+    (numpy arrays, lists) on CUDA; ``device="cpu"`` asks for the CPU.  On a
+    machine without a card the default raises, as an explicit
+    ``device="cuda"`` does, instead of falling back."""
     if device is None:
         if isinstance(like, torch.Tensor):
             return like.device
-        return torch.device("cpu")
+        device = "cuda"
+        asked = "no device was given, the port's default is CUDA,"
+    else:
+        asked = f"device={device!r} was requested"
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device={device!r} was requested but torch.cuda.is_available() "
-            "is False (no CUDA card, or a CPU-only torch build)")
+            f"{asked} but torch.cuda.is_available() is False (no CUDA card, "
+            'or a CPU-only torch build); pass device="cpu" or CPU tensors '
+            "to run on the CPU")
     return dev
 
 

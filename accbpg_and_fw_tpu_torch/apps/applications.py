@@ -19,8 +19,8 @@ from ..ops.h_oracles import BurgEntropySimplex
 def D_opt_design(m, n, randseed=-1, oracle=None, device=None):
     """Random D-optimal design instance: H ~ randn(m, n), Burg-simplex h,
     L = 1, x0 = center of simplex (reference: applications.py:36-56).
-    Returns ``(f, h, L, x0)`` with H and x0 float64 on ``device`` (the CPU
-    for None).
+    Returns ``(f, h, L, x0)`` with H and x0 float64 on ``device`` (CUDA
+    for None; ``"cpu"`` asks for the CPU).
 
     ``oracle="mixed"`` (the JAX package's int8-digit oracle, a TPU
     workaround for slow f64) is accepted and gives the FP64
@@ -40,8 +40,9 @@ def D_opt_KYinit(V, device=None):
     (JOTA 126(1):1-21, 2005; reference: applications.py:59-95).
 
     Draws ``m`` vectors from ``np.random.rand``, as the JAX function does.
-    Returns a float64 tensor on ``device`` (the CPU for None)."""
-    dev = resolve_device(device)
+    Returns a float64 tensor on ``device`` (for None: V's device where V
+    is a tensor, else CUDA)."""
+    dev = resolve_device(device, like=V)
     V = np.asarray(V.cpu() if isinstance(V, torch.Tensor) else V)
     m, n = V.shape
     if n <= 2 * m:

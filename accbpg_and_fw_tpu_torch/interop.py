@@ -27,7 +27,7 @@ _DS_NAMES = (("x", "x"), ("w", "w"), ("H", "H"), ("logdet", "ld"))
 
 def from_jax_oracle(obj, device=None):
     """The port's counterpart of the JAX oracle ``obj``: a ``DOptimalObj``
-    (its design ``H`` and ``n_valid``, H as float64 on ``device``, the CPU
+    (its design ``H`` and ``n_valid``, H as float64 on ``device``, CUDA
     for None) or a Burg-family h-oracle (``BurgEntropy``,
     ``BurgEntropyL1``/``L2`` with their ``lamda``, ``BurgEntropySimplex``
     with its ``eps`` and ``use_pallas``).  Other oracles are not ported
@@ -63,7 +63,7 @@ def from_jax_carry(carry, device=None):
       the result is ``{x, k}`` with ``k`` the iterations done
       (``continue_dopt`` refactorizes from ``x``).
 
-    Returns a dict of float64 tensors on ``device`` (CPU for None) with
+    Returns a dict of float64 tensors on ``device`` (CUDA for None) with
     keys ``done, x, w, H, logdet`` (or ``x, k`` for a checkpoint path).
     """
     dev = resolve_device(device)

@@ -19,6 +19,14 @@ the plain PyTorch version of the same iteration.  ``lazy_block_batch`` is
 the same block for K instances of one shape (the port of the JAX
 grid-over-instances kernel), and ``dopt_fw_lazy_batch`` the sweep driver
 around it.
+
+How a launch is laid out on the card (which columns of V and rows of H0
+each CTA owns, how many columns stay in shared memory, the scratch sizes,
+the groups and waves for K instances) is decided here, in ``launch_plan``,
+from the SM count and the shared-memory limit, and handed to the C
+entries.  A driver prepares the kernel once per solve (``_LazyKernel``:
+the plan checked against the device, scratch and output buffers allocated
+once) and reads a block's rows back in one copy.
 """
 
 from __future__ import annotations
@@ -51,8 +59,8 @@ class LazyBlock(NamedTuple):
     ``[done, iters, alpha, nrun]``: ``iters`` rows were recorded, ``nrun``
     of them ran (the stop row records slacks only).  ``hist`` (5, KR) holds
     ``tau``, ``tau (w_v - 1)``, ``SP``, ``SN`` and the pivot ``v`` per
-    recorded row; on the stop row ``tau`` and ``tau (w_v - 1)`` are 0 and
-    ``v`` is -1."""
+    recorded row (columns ``>= iters`` are unspecified); on the stop row
+    ``tau`` and ``tau (w_v - 1)`` are 0 and ``v`` is -1."""
     x: torch.Tensor
     w: torch.Tensor
     C: torch.Tensor
@@ -134,18 +142,84 @@ def lazy_block(V, H0, x, w, *, eps, kmax, done=False, away=True, xtol=XTOL,
 
     On a CUDA tensor this launches the Hopper kernel and counts the launch
     in ``LAUNCHES``; a launch that fails raises.  On a CPU tensor it runs
-    the plain version.  ``VT`` is ``V.T.contiguous()``, which the kernel
-    reads the pivot column from; pass it to avoid a copy per call."""
+    the plain version.  ``VT`` is ``V.T.contiguous()``, which is what the
+    kernel reads; pass it to avoid a copy per call."""
     _check_block_args(V, H0, x, w, kmax)
-    if V.device.type == "cpu":
-        return lazy_block_reference(V, H0, x, w, eps=eps, kmax=kmax,
-                                    done=done, away=away, xtol=xtol)
-    if V.device.type != "cuda":
-        raise ValueError(f"lazy_block runs on cpu or cuda, not {V.device}")
-    global LAUNCHES
-    out = _launch_cuda(V, H0, x, w, eps, kmax, done, away, xtol, VT)
-    LAUNCHES += 1
-    return out
+    return _prepared(V, VT).run(H0, x, w, eps=eps, kmax=kmax, done=done,
+                                away=away, xtol=xtol)
+
+
+# ---- the kernel's launch plan -----------------------------------------------
+
+_WARPS = 16          # warps of a CTA (512 threads)
+_STATIC_SMEM = 2048  # room left for the kernel's static shared memory
+_MAX_SEGS = 8        # most segments a row of H0 is cut into
+_BAR_WORDS = 32      # the barrier's 128-byte line, in ints
+
+
+class LaunchPlan(NamedTuple):
+    """How one launch of the lazy-H kernel is laid out on a card (see
+    ``launch_plan``).  The fields up to ``iwords`` are what the C entries
+    take, in their order."""
+    group: int       # CTAs per instance
+    wave: int        # instances per cooperative launch
+    col_base: int    # CTA b owns col_base + (b < col_extra) columns of V
+    col_extra: int
+    row_base: int    # ... and row_base + (b < row_extra) rows of H0
+    row_extra: int
+    resident: int    # columns a CTA keeps in shared memory (the first
+                     # of its own; it streams the rest each iteration)
+    segs: int        # segments a row of H0 (or C) is cut into for H0 v
+    seg_len: int     # their length, a multiple of 32
+    smem_bytes: int  # dynamic shared memory per CTA
+    dwords: int      # double scratch per instance
+    iwords: int      # int scratch per instance
+    waves: int       # launches that K instances take
+
+    def cols(self, b):
+        """The columns of V that CTA ``b`` of a group owns."""
+        start = b * self.col_base + min(b, self.col_extra)
+        return range(start, start + self.col_base + (b < self.col_extra))
+
+    def rows(self, b):
+        """The rows of H0 that CTA ``b`` of a group owns."""
+        start = b * self.row_base + min(b, self.row_extra)
+        return range(start, start + self.row_base + (b < self.row_extra))
+
+
+def launch_plan(m, n, kr, K, sms, smem_limit):
+    """The layout of one lazy-H launch for K instances of an (m, n) design
+    with a ``kr``-row rank buffer, on a card of ``sms`` SMs whose CTAs may
+    take ``smem_limit`` bytes of shared memory.
+
+    One persistent CTA per SM.  A wave runs ``min(K, sms)`` instances side
+    by side, each on a group of ``sms // wave`` CTAs.  Within a group the
+    columns of V and the rows of H0 are split evenly (the first ``extra``
+    CTAs take one more), the rows of C round-robin.  A CTA's shared memory
+    holds one length-m vector, the segment sums of its rows, and as many
+    of its own columns of V as the rest of the limit takes."""
+    if min(m, n, kr, K, sms) < 1:
+        raise ValueError(f"launch_plan needs positive sizes, got m={m} n={n} "
+                         f"kr={kr} K={K} sms={sms}")
+    wave = min(K, sms)
+    group = sms // wave
+    col_base, col_extra = divmod(n, group)
+    row_base, row_extra = divmod(m, group)
+    rows = row_base + 1 + -(-kr // group)  # most rows of H0 and C per CTA
+    segs = max(1, min(_MAX_SEGS, -(-_WARPS // rows), -(-m // 32)))
+    seg_len = 32 * -(-m // (32 * segs))
+    fixed = 8 * (m + rows * segs + rows)
+    room = smem_limit - _STATIC_SMEM - fixed
+    if room < 0:
+        raise ValueError(f"m={m} needs {fixed + _STATIC_SMEM} bytes of shared "
+                         f"memory per CTA, the card gives {smem_limit}")
+    # a resident column takes its m doubles and its w and x
+    resident = min(col_base + (col_extra > 0), room // (8 * (m + 2)))
+    iwords = -(-(_BAR_WORDS + 2 * group) // _BAR_WORDS) * _BAR_WORDS
+    return LaunchPlan(group, wave, col_base, col_extra, row_base, row_extra,
+                      resident, segs, seg_len,
+                      fixed + 8 * resident * (m + 2),
+                      m + kr + 3 * group, iwords, -(-K // wave))
 
 
 def _kernel_lib():
@@ -153,61 +227,168 @@ def _kernel_lib():
 
     lib = _build.load("dopt_lazy")
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.dopt_lazy_scratch.argtypes = [i, i, i,
-                                      ctypes.POINTER(ctypes.c_longlong),
-                                      ctypes.POINTER(ctypes.c_longlong)]
-    lib.dopt_lazy_scratch.restype = i
-    lib.dopt_lazy_run.argtypes = ([p] * 13 + [d, d] + [i] * 6 + [p])
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.dopt_lazy_plan_len.argtypes = []
+    lib.dopt_lazy_plan_len.restype = i
+    lib.dopt_lazy_prepare.argtypes = [ip, i, i, i, i, ip]
+    lib.dopt_lazy_prepare.restype = i
+    lib.dopt_lazy_run.argtypes = ([ip] + [p] * 13 + [d, d] + [i] * 6 + [p])
     lib.dopt_lazy_run.restype = i
-    lib.dopt_lazy_batch_scratch.argtypes = [
-        i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i)]
-    lib.dopt_lazy_batch_scratch.restype = i
-    lib.dopt_lazy_batch_run.argtypes = ([p] * 15 + [d, d] + [i] * 5 + [p])
+    lib.dopt_lazy_batch_run.argtypes = ([ip] + [p] * 14 + [d, d] + [i] * 5
+                                        + [p])
     lib.dopt_lazy_batch_run.restype = i
     lib.dopt_lazy_error_string.argtypes = [i]
     lib.dopt_lazy_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch_cuda(V, H0, x, w, eps, kmax, done, away, xtol, VT):
-    m, n = V.shape
-    if m > _MAX_M:
-        raise ValueError(f"the lazy kernel takes m <= {_MAX_M}, got {m}")
+class _LazyKernel:
+    """The Hopper kernel prepared for one design on one card: the launch
+    plan (made and checked against the device once), the scratch, and the
+    output buffers, which every ``run`` reuses.
+
+    ``VT`` is ``V.T.contiguous()`` (n, m) for the single-instance entry or
+    ``Vs.transpose(1, 2).contiguous()`` (K, n, m) for the batch entry.  A
+    block's C, beta, misc and hist are overwritten by the next ``run``; x
+    and w alternate between two buffers, so a block's x and w may be the
+    next block's inputs."""
+
+    def __init__(self, VT):
+        if (VT.dtype != torch.float64 or VT.device.type != "cuda"
+                or VT.dim() not in (2, 3) or not VT.is_contiguous()):
+            raise ValueError("VT must be a contiguous float64 CUDA tensor, "
+                             "V.T of one design or of a stack of designs")
+        self.batch = VT.dim() == 3
+        self.VT = VT
+        self.K = VT.shape[0] if self.batch else 1
+        self.n, self.m = VT.shape[-2:]
+        self.kr = _KR
+        K, m, n, kr = self.K, self.m, self.n, self.kr
+        if m > _MAX_M:
+            raise ValueError(f"the lazy kernel takes m <= {_MAX_M}, got {m}")
+        dev = self.dev = VT.device
+        props = torch.cuda.get_device_properties(dev)
+        self.plan = launch_plan(m, n, kr, K, props.multi_processor_count,
+                                props.shared_memory_per_block_optin)
+        self.lib = _kernel_lib()
+        n_plan = self.lib.dopt_lazy_plan_len()
+        self._plan = (ctypes.c_int * n_plan)(*self.plan[:n_plan])
+        info = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            self._check(self.lib.dopt_lazy_prepare(
+                self._plan, m, n, kr, int(self.batch), info), "prepare")
+        self.regs = info[0]  # registers per thread, as compiled
+        f64 = dict(dtype=torch.float64, device=dev)
+        self._xw = torch.empty((2, 2, K, n), **f64)  # two (x, w) pairs
+        self._turn = 0
+        self._C = torch.empty((K, kr, m), **f64)
+        self._beta = torch.empty((K, kr), **f64)
+        self._rows = torch.empty(K * (4 + 5 * kr), **f64)  # misc, then hist
+        self._dscr = torch.empty(K * self.plan.dwords, **f64)
+        self._iscr = torch.empty(K * self.plan.iwords, dtype=torch.int32,
+                                 device=dev)
+
+    def _check(self, err, what):
+        if err:
+            raise RuntimeError(
+                f"dopt_lazy {what} failed: "
+                + self.lib.dopt_lazy_error_string(err).decode())
+
+    def run(self, H0, x, w, *, eps, kmax, done, away, xtol, prof=None):
+        """Launch one block from ``(H0, x, w)`` and count it.  Single
+        entry: ``kmax`` an int and ``done`` a bool; batch entry: one of
+        each per instance (``done`` may be None).  ``prof``: a zeroed int64
+        tensor of 8 that CTA 0 adds its clocks per phase to."""
+        global LAUNCHES, BATCH_LAUNCHES
+        K, m, n, kr = self.K, self.m, self.n, self.kr
+        lead = (K,) if self.batch else ()
+        check_operands(self.dev, (("H0", H0, lead + (m, m)),
+                                  ("x", x, lead + (n,)),
+                                  ("w", w, lead + (n,))))
+        pair = self._xw[self._turn]
+        if x.data_ptr() == pair[0].data_ptr() or \
+                w.data_ptr() == pair[1].data_ptr():
+            self._turn ^= 1
+            pair = self._xw[self._turn]
+        self._turn ^= 1
+        misc = self._rows[:4 * K].view(K, 4)
+        hist = self._rows[4 * K:].view(K, 5, kr)
+        ptrs = (self.VT.data_ptr(), H0.data_ptr(), x.data_ptr(),
+                w.data_ptr(), pair[0].data_ptr(), pair[1].data_ptr(),
+                self._C.data_ptr(), self._beta.data_ptr(), misc.data_ptr(),
+                hist.data_ptr(), self._dscr.data_ptr(),
+                self._iscr.data_ptr())
+        with torch.cuda.device(self.dev):
+            stream = torch.cuda.current_stream(self.dev).cuda_stream
+            if self.batch:
+                done = [False] * K if done is None else done
+                flags = torch.tensor([[int(q) for q in kmax],
+                                      [int(bool(d)) for d in done]],
+                                     dtype=torch.int32).to(self.dev)
+                err = self.lib.dopt_lazy_batch_run(
+                    self._plan, *ptrs, flags[0].data_ptr(),
+                    flags[1].data_ptr(), float(eps), float(xtol), m, n, kr,
+                    K, int(bool(away)), stream)
+            else:
+                err = self.lib.dopt_lazy_run(
+                    self._plan, *ptrs,
+                    None if prof is None else prof.data_ptr(), float(eps),
+                    float(xtol), m, n, kr, int(kmax), int(bool(done)),
+                    int(bool(away)), stream)
+        self._check(err, "kernel launch")
+        if self.batch:
+            BATCH_LAUNCHES += self.plan.waves
+            return LazyBlock(pair[0], pair[1], self._C, self._beta, misc,
+                             hist)
+        LAUNCHES += 1
+        return LazyBlock(pair[0, 0], pair[1, 0], self._C[0], self._beta[0],
+                         misc[0], hist[0])
+
+    def host_rows(self):
+        """The last block's ``(misc, hist)`` as numpy arrays, in one copy
+        to the host (the block's one round trip)."""
+        rows = self._rows.cpu().numpy()
+        K, kr = self.K, self.kr
+        misc = rows[:4 * K].reshape(K, 4)
+        hist = rows[4 * K:].reshape(K, 5, kr)
+        return (misc, hist) if self.batch else (misc[0], hist[0])
+
+
+class _PlainBlocks:
+    """The plain version behind ``_LazyKernel``'s interface, for a design
+    (m, n) or a stack of designs (K, m, n) on the CPU."""
+
+    def __init__(self, V):
+        self.V = V
+        self.batch = V.dim() == 3
+
+    def run(self, H0, x, w, *, eps, kmax, done, away, xtol):
+        ref = (lazy_block_batch_reference if self.batch
+               else lazy_block_reference)
+        self._blk = ref(self.V, H0, x, w, eps=eps, kmax=kmax, done=done,
+                        away=away, xtol=xtol)
+        return self._blk
+
+    def host_rows(self):
+        return self._blk.misc.numpy(), self._blk.hist.numpy()
+
+
+def _prepared(V, VT=None):
+    """What runs the blocks of a design ``V`` (m, n) or of a stack (K, m,
+    n): the Hopper kernel on a CUDA tensor, the plain version on a CPU
+    tensor, and nothing else.  ``VT`` is ``V.transpose(-2, -1).contiguous()``
+    where the caller holds it already (the kernel reads it)."""
+    if V.device.type == "cpu":
+        return _PlainBlocks(V)
+    if V.device.type != "cuda":
+        raise ValueError(f"the lazy-H block runs on cpu or cuda, not "
+                         f"{V.device}")
     if VT is None:
-        VT = V.T.contiguous()
-    elif (VT.dtype != torch.float64 or VT.device != V.device
-          or tuple(VT.shape) != (n, m) or not VT.is_contiguous()):
-        raise ValueError("VT must be V.T.contiguous() (float64, same device)")
-    lib = _kernel_lib()
-    dwords, iwords = ctypes.c_longlong(), ctypes.c_longlong()
-    err = lib.dopt_lazy_scratch(m, n, _KR, ctypes.byref(dwords),
-                                ctypes.byref(iwords))
-    if err:
-        raise RuntimeError("dopt_lazy_scratch failed: "
-                           + lib.dopt_lazy_error_string(err).decode())
-    dev = V.device
-    f64 = dict(dtype=torch.float64, device=dev)
-    xo = torch.empty(n, **f64)
-    wo = torch.empty(n, **f64)
-    C = torch.empty((_KR, m), **f64)
-    beta = torch.empty(_KR, **f64)
-    misc = torch.empty(4, **f64)
-    hist = torch.empty((5, _KR), **f64)
-    dscr = torch.empty(dwords.value, **f64)
-    iscr = torch.zeros(iwords.value, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dopt_lazy_run(
-            V.data_ptr(), VT.data_ptr(), H0.data_ptr(), x.data_ptr(),
-            w.data_ptr(), xo.data_ptr(), wo.data_ptr(), C.data_ptr(),
-            beta.data_ptr(), misc.data_ptr(), hist.data_ptr(),
-            dscr.data_ptr(), iscr.data_ptr(), float(eps), float(xtol),
-            m, n, _KR, int(kmax), int(bool(done)), int(bool(away)), stream)
-    if err:
-        raise RuntimeError("dopt_lazy kernel launch failed: "
-                           + lib.dopt_lazy_error_string(err).decode())
-    return LazyBlock(xo, wo, C, beta, misc, hist)
+        VT = V.transpose(-2, -1).contiguous()
+    elif VT.device != V.device or VT.shape != V.transpose(-2, -1).shape:
+        raise ValueError("VT must be V.transpose(-2, -1).contiguous() "
+                         "(float64, same device)")
+    return _LazyKernel(VT)
 
 
 def lazy_block_batch_reference(Vs, H0s, xs, ws, *, eps, kmax, done=None,
@@ -223,18 +404,7 @@ def lazy_block_batch_reference(Vs, H0s, xs, ws, *, eps, kmax, done=None,
     return LazyBlock(*(torch.stack(t) for t in zip(*outs)))
 
 
-def lazy_block_batch(Vs, H0s, xs, ws, *, eps, kmax, done=None, away=True,
-                     xtol=XTOL, VTs=None):
-    """One launch block for K instances of one (m, n) shape (see
-    ``lazy_block_batch_reference``): ``kmax`` and ``done`` hold one entry
-    per instance, and every field of the result gains a leading K axis.
-
-    On a CUDA tensor this launches the instance-partitioned Hopper kernel
-    (all instances side by side, in waves when they outnumber the
-    co-resident CTAs) and adds its launches to ``BATCH_LAUNCHES``; a launch
-    that fails raises.  On a CPU tensor it runs the plain version.  ``VTs``
-    is ``Vs.transpose(1, 2).contiguous()``; pass it to avoid a copy per
-    call."""
+def _check_batch_args(Vs, H0s, xs, ws, kmax, done):
     if Vs.dim() != 3:
         raise ValueError(f"Vs must be 3-d (K, m, n), got {tuple(Vs.shape)}")
     K, m, n = Vs.shape
@@ -244,66 +414,23 @@ def lazy_block_batch(Vs, H0s, xs, ws, *, eps, kmax, done=None, away=True,
         raise ValueError(f"kmax and done need one entry per instance ({K})")
     if not all(0 <= int(q) <= _KR for q in kmax):
         raise ValueError(f"kmax={list(kmax)} outside [0, {_KR}]")
-    if Vs.device.type == "cpu":
-        return lazy_block_batch_reference(Vs, H0s, xs, ws, eps=eps,
-                                          kmax=kmax, done=done, away=away,
-                                          xtol=xtol)
-    if Vs.device.type != "cuda":
-        raise ValueError(f"lazy_block_batch runs on cpu or cuda, not "
-                         f"{Vs.device}")
-    global BATCH_LAUNCHES
-    out, waves = _launch_cuda_batch(Vs, H0s, xs, ws, eps, kmax, done, away,
-                                    xtol, VTs)
-    BATCH_LAUNCHES += waves
-    return out
 
 
-def _launch_cuda_batch(Vs, H0s, xs, ws, eps, kmax, done, away, xtol, VTs):
-    K, m, n = Vs.shape
-    if m > _MAX_M:
-        raise ValueError(f"the lazy kernel takes m <= {_MAX_M}, got {m}")
-    if VTs is None:
-        VTs = Vs.transpose(1, 2).contiguous()
-    elif (VTs.dtype != torch.float64 or VTs.device != Vs.device
-          or tuple(VTs.shape) != (K, n, m) or not VTs.is_contiguous()):
-        raise ValueError("VTs must be Vs.transpose(1, 2).contiguous() "
-                         "(float64, same device)")
-    lib = _kernel_lib()
-    dwords, iwords = ctypes.c_longlong(), ctypes.c_longlong()
-    waves = ctypes.c_int()
-    err = lib.dopt_lazy_batch_scratch(m, n, _KR, K, ctypes.byref(dwords),
-                                      ctypes.byref(iwords),
-                                      ctypes.byref(waves))
-    if err:
-        raise RuntimeError("dopt_lazy_batch_scratch failed: "
-                           + lib.dopt_lazy_error_string(err).decode())
-    dev = Vs.device
-    f64 = dict(dtype=torch.float64, device=dev)
-    xo = torch.empty((K, n), **f64)
-    wo = torch.empty((K, n), **f64)
-    C = torch.empty((K, _KR, m), **f64)
-    beta = torch.empty((K, _KR), **f64)
-    misc = torch.empty((K, 4), **f64)
-    hist = torch.empty((K, 5, _KR), **f64)
-    dscr = torch.empty(K * dwords.value, **f64)
-    iscr = torch.zeros(K * iwords.value, dtype=torch.int32, device=dev)
-    flags = torch.tensor(
-        [[int(q) for q in kmax],
-         [0] * K if done is None else [int(bool(d)) for d in done]],
-        dtype=torch.int32).to(dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dopt_lazy_batch_run(
-            Vs.data_ptr(), VTs.data_ptr(), H0s.data_ptr(), xs.data_ptr(),
-            ws.data_ptr(), xo.data_ptr(), wo.data_ptr(), C.data_ptr(),
-            beta.data_ptr(), misc.data_ptr(), hist.data_ptr(),
-            dscr.data_ptr(), iscr.data_ptr(), flags[0].data_ptr(),
-            flags[1].data_ptr(), float(eps), float(xtol), m, n, _KR, K,
-            int(bool(away)), stream)
-    if err:
-        raise RuntimeError("dopt_lazy batch kernel launch failed: "
-                           + lib.dopt_lazy_error_string(err).decode())
-    return LazyBlock(xo, wo, C, beta, misc, hist), waves.value
+def lazy_block_batch(Vs, H0s, xs, ws, *, eps, kmax, done=None, away=True,
+                     xtol=XTOL, VTs=None):
+    """One launch block for K instances of one (m, n) shape (see
+    ``lazy_block_batch_reference``): ``kmax`` and ``done`` hold one entry
+    per instance, and every field of the result gains a leading K axis.
+
+    On a CUDA tensor this launches the instance-partitioned Hopper kernel
+    (all instances side by side, in waves when they outnumber the SMs) and
+    adds its launches to ``BATCH_LAUNCHES``; a launch that fails raises.
+    On a CPU tensor it runs the plain version.  ``VTs`` is
+    ``Vs.transpose(1, 2).contiguous()``; pass it to avoid a copy per
+    call."""
+    _check_batch_args(Vs, H0s, xs, ws, kmax, done)
+    return _prepared(Vs, VTs).run(H0s, xs, ws, eps=eps, kmax=kmax, done=done,
+                                  away=away, xtol=xtol)
 
 
 def _lazy_refresh(H0, C, beta, alpha):
@@ -327,17 +454,18 @@ def dopt_fw_lazy(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
     dev = resolve_device(device, like=V)
     V = as_f64(V, dev).contiguous()
     m, n = V.shape
-    VT = V.T.contiguous() if dev.type == "cuda" else None
+    # prepared once for the solve (on the card: plan, scratch and output
+    # buffers; C and beta are folded before the next launch)
+    kernel = _prepared(V)
 
     def fresh_state(x):
         H0, w, ld = factorize(V, x)
         return dict(x=x, w=w, H0=H0, ld=float(ld))
 
     def launch(state, kmax):
-        blk = lazy_block(V, state["H0"], state["x"], state["w"], eps=eps,
-                         kmax=kmax, away=away, VT=VT)
-        misc = blk.misc.cpu().numpy()  # the block's one host round trip
-        hist = blk.hist.cpu().numpy()
+        blk = kernel.run(state["H0"], state["x"], state["w"], eps=eps,
+                         kmax=kmax, done=False, away=away, xtol=XTOL)
+        misc, hist = kernel.host_rows()
         nrun = int(misc[3])
         if nrun:
             state["H0"] = _lazy_refresh(state["H0"], blk.C[:nrun],
@@ -419,7 +547,7 @@ def dopt_fw_lazy_batch(Vs, x0s, eps, num_iters, away=True, group=None,
     Vs = as_f64(Vs, dev).contiguous()
     K, m, n = Vs.shape
     x = as_f64(x0s, dev).clone()
-    VTs = Vs.transpose(1, 2).contiguous() if dev.type == "cuda" else None
+    kernel = _prepared(Vs)
     parts = [factorize(Vs[k], x[k]) for k in range(K)]
     H0 = torch.stack([p[0] for p in parts])
     w = torch.stack([p[1] for p in parts])
@@ -446,10 +574,9 @@ def dopt_fw_lazy_batch(Vs, x0s, eps, num_iters, away=True, group=None,
                 break  # the rest of the JAX dispatch would be no-ops
             kmax = [0 if stopped[k] else int(min(_KR, num_iters - emitted[k]))
                     for k in range(K)]
-            blk = lazy_block_batch(Vs, H0, x, w, eps=eps, kmax=kmax,
-                                   away=away, VTs=VTs)
-            misc = blk.misc.cpu().numpy()  # the block's one host round trip
-            hist = blk.hist.cpu().numpy()
+            blk = kernel.run(H0, x, w, eps=eps, kmax=kmax, done=None,
+                             away=away, xtol=XTOL)
+            misc, hist = kernel.host_rows()
             x, w = blk.x, blk.w
             H0 = _lazy_refresh_batch(H0, blk.C, blk.beta, blk.misc[:, 2],
                                      misc[:, 3].astype(np.int64))

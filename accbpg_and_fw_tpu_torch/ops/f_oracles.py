@@ -21,7 +21,7 @@ class DOptimalObj(SmoothOracle):
     the gradient ``g_i = -||R^{-1} h_i||^2`` (one triangular solve).  A
     matrix that is not positive definite gives NaN, as JAX's Cholesky does
     (``cholesky_ex``, so no host sync on CUDA).  ``H`` is held as a float64
-    tensor on ``device`` (a tensor's own device for None, else the CPU).
+    tensor on ``device`` (for None a tensor's own device, else CUDA).
 
     ``n_valid``: when set, gradient entries past it report +1e30 instead
     of the 0 a zero-padded column gives, so every Burg/simplex prox sends

@@ -1,9 +1,21 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --blocks-only [--root DIR] [--solves N]
 
-Phases, one line each; any failure raises and the script exits non-zero
-without the result line:
+With ``--blocks-only`` it prints only the lazy-H kernel's block times
+(1000x5000, and K=3 of 1000x2000) and the walls of ``--solves`` warm
+main-path solves, for the package under ``--root`` (default: this file's
+directory), through the wrappers that every commit of the port has.  That
+is how two commits are compared on one card, in ONE call (two calls may
+land on cards with other power limits):
+
+    mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
+    for r in build/parent . . build/parent; do
+        python3 chip_smoke.py --blocks-only --root $r; done
+
+Without arguments it runs these phases, one line each; any failure raises
+and the script exits non-zero without the result line:
 
 1. the card: CUDA must be available; torch version, card name and power
    limit;
@@ -12,7 +24,13 @@ without the result line:
 3. each kernel against its plain PyTorch version on the card, at a small
    shape and at the shapes its path gives it, plus per-block times: the
    lazy-H kernel (12x160, 1000x5000), its instance-partitioned batch entry
-   (K=3 of 100x1000 and of 1000x2000), the dense kernel (B=4 and B=32 of
+   (K=3 of 100x1000 and of 1000x2000); for those two at the paths' shapes
+   also the launch plan (resident and streamed columns per CTA, registers
+   per thread), the time of a prepared block as the drivers launch it, the
+   bound, two blocks from one state compared bit for bit and, for the
+   1000x5000 kernel, the clocks of CTA 0 per phase, two cuBLAS DGEMV
+   times as yardsticks of its phases, and a launch after a smaller design's
+   kernel was prepared in between; the dense kernel (B=4 and B=32 of
    30x1000, and B=1), the Burg-simplex multiplier (the first prox input of
    the 30x10000 and 30x1000 paths, n=1 where its bisection moves, and
    random inputs at n = 1000, 10000, 100000; ms per call);
@@ -31,9 +49,11 @@ without the result line:
       to eps=1e-8, against the CPU exact engine;
    d. the main path: ``D_opt_FW_away`` on the 1000x5000 seed-10 design
       from the uniform start, eps=1e-8, the reference's 20741-iteration
-      budget, ``u_mode="auto"`` on ``device="cuda"``; it must go through
-      the lazy-H kernel and its final iterate must certify against the
-      known optimum by a fresh float64 slogdet;
+      budget, ``u_mode="auto"`` and no ``device`` (the port's default is
+      the card); it must go through the lazy-H kernel and its final
+      iterate must certify against the known optimum by a fresh float64
+      slogdet; one more solve is traced (device busy and idle shares, the
+      kernel's share), as is one more large-m sweep;
    e. the Bregman path: ``ABPG_gain`` (gamma=2, 9000 iterations) on
       ``D_opt_design(30, 10000, randseed=10, device="cuda")`` with
       ``BurgEntropySimplex(use_pallas=True)``; every prox must launch the
@@ -54,12 +74,16 @@ without the result line:
    h. per-iteration costs of the five Bregman drivers at 30x1000 on the
       card, with each h: host syncs (``torch.cuda.set_sync_debug_mode``)
       and device operations (``torch.profiler``) per iteration;
-5. the kernels' JSON line, the card line, then the result line
-   ``{"ok": true, "device": {...}}``.
+5. the kernels' JSON line (launches on the path, error against the plain
+   version, kernel and plain times, the bound from this run's inputs and
+   the time of a PyTorch call for the same function where one exists), the
+   card line, then the result line ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import json
 import math
+import pathlib
 import subprocess
 import sys
 import time
@@ -93,6 +117,14 @@ SIMPLEX_STALL = 1e-8
 # that cancel to near zero); SP, SN, tau, tau (w_v - 1) to atol 1e-12.
 RTOL_STATE = 1e-11
 ATOL_HIST = 1e-12
+# the card's published peaks for the bounds (NVIDIA's H100 SXM data sheet):
+# HBM3 bytes/s, and FP64 operations/s on the tensor cores, the card's
+# highest rate for this type (the sheet's "FP64 Tensor Core" line; its
+# "FP64" line, outside the tensor cores, is 34 TFLOP/s)
+PEAK_BYTES, PEAK_FP64 = 3.35e12, 67e12
+PHASES = ("prologue", "pivots and step scalars", "phase 1 (H0 v, C v)",
+          "barrier 1", "phase 2 (g)", "barrier 2", "phase 3 (u, w, x)",
+          "barrier 3")
 
 
 def card_line():
@@ -136,12 +168,92 @@ def time_launches(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def trace_line(label, fn, kernel_name):
+    """Run ``fn`` once more under torch.profiler and print where the wall
+    went: device busy and idle shares, and the share of the kernel whose
+    name holds ``kernel_name``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print(f"[trace] {label}: not measured (no device events in the "
+              f"trace)", flush=True)
+        return
+    busy = sum(e.device_time for e in events) * 1e-6
+    mine = [e.device_time * 1e-6 for e in events if kernel_name in e.name]
+    print(f"[trace] {label}: traced wall {wall:.3f} s, device busy "
+          f"{busy:.3f} s, idle {100 * (1 - busy / wall):.1f}%; "
+          f"{kernel_name} {sum(mine):.3f} s in {len(mine)} launches "
+          f"({100 * sum(mine) / wall:.1f}% of the wall, "
+          f"{1e3 * sum(mine) / max(len(mine), 1):.3f} ms each)", flush=True)
+
+
 def timed_plain(fn):
     torch.cuda.synchronize()
     t = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t) * 1e3
+
+
+def bound(nbytes, flops):
+    """The least time (ms) the card could take: bytes over the HBM rate or
+    FP64 operations over the peak rate, whichever is larger, and which."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP64 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lazy_bound(m, n, nrun_each):
+    """Bound of one lazy-H block of ``nrun_each`` iterations per instance:
+    V^T, H0, x and w read once, x, w, the run rows of C and beta, misc and
+    hist written once; iteration k does 2 m n (u) + 2 m^2 (H0 v) + 4 k m
+    (C v and g) + 8 n (w, x, pivots) FP64 operations."""
+    nbytes = flops = 0
+    for nrun in nrun_each:
+        nbytes += 8 * (m * n + m * m + 4 * n + nrun * (m + 1) + 4 + 5 * 256)
+        flops += nrun * (2 * m * n + 2 * m * m + 8 * n) \
+            + 4 * m * nrun * (nrun - 1) // 2
+    return bound(nbytes, flops)
+
+
+def dense_bound(B, m, n, kmax, iters):
+    """Bound of one dense block of B instances that ran ``iters``
+    iterations in all: V^T, H, x, w read once, H, x, w and the ``kmax``
+    rows written once; an iteration does 2 m n (u) + 4 m^2 (H v and the
+    rank-1 update of H) + 8 n FP64 operations."""
+    nbytes = 8 * B * (m * n + 2 * m * m + 4 * n + 3 + 5 * kmax)
+    return bound(nbytes, iters * (2 * m * n + 4 * m * m + 8 * n))
+
+
+def simplex_bound(gg):
+    """Bound of one multiplier solve on this input: gg read once, c written
+    once; the passes this input needs (one min, the bisection steps until
+    the residual is >= 0, one per Newton step until it stalls), 5 FP64
+    operations per element and pass."""
+    g = gg.cpu().numpy()
+    cmin = -g.min()
+    c, passes = cmin + 1.0, 1
+    for _ in range(64):
+        passes += 1
+        if np.sum(1.0 / (g + c)) - 1.0 >= 0.0:
+            break
+        c = 0.5 * (cmin + c)
+    fc = np.sum(1.0 / (g + c)) - 1.0
+    for _ in range(24):
+        passes += 1
+        c_new = c - fc / np.sum(-1.0 / (g + c) ** 2)
+        if c_new == c or abs(fc) <= SIMPLEX_STALL:
+            break
+        c, fc = c_new, np.sum(1.0 / (g + c_new)) - 1.0
+    return bound(8 * (g.size + 1), 5 * g.size * passes)
 
 
 def close_state(name, got, ref):
@@ -198,19 +310,98 @@ def compare_block(dl, V, eps):
                                  f"exceeds atol {ATOL_HIST}")
         errs.append(err)
 
-    # per-block kernel time: CUDA events over back-to-back launches
-    reps = 5
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        dl.lazy_block(V, H0, x0, w0, VT=VT, **kw)
-    end.record()
+    # two launches from one state: the same bits
+    again = dl.lazy_block(V, H0, x0, w0, VT=VT, **kw)
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
-    print(f"[kernel] {m}x{n}: {iters} iterations, pivots identical, "
-          f"max |kernel - plain| {max(errs):.3e}; per block "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    return max(errs), ms, plain_ms
+    same_bits("lazy_block", again, out, [nrun])
+
+    # per-block time as the drivers launch it: the kernel prepared once
+    # (plan, scratch and output buffers), CUDA events over back-to-back
+    # launches
+    kernel = dl._LazyKernel(VT)
+    run = dict(eps=eps, kmax=dl._KR, done=False, away=True, xtol=1e-8)
+    ms = time_launches(lambda: kernel.run(H0, x0, w0, **run), 10)
+    bound_ms, bound_by = lazy_bound(m, n, [nrun])
+    plan = kernel.plan
+    print(f"[kernel] {m}x{n}: {iters} iterations, pivots identical, two "
+          f"launches bit for bit, max |kernel - plain| {max(errs):.3e}; per "
+          f"block kernel {ms:.3f} ms ({ms * 1e3 / max(nrun, 1):.2f} us per "
+          f"iteration), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (by "
+          f"{bound_by}); {plan.group} CTAs of {plan.col_base}-"
+          f"{plan.col_base + (plan.col_extra > 0)} columns, {plan.resident} "
+          f"resident in {plan.smem_bytes} B of shared memory, the rest "
+          f"streamed; {kernel.regs} registers per thread", flush=True)
+    return max(errs), ms, plain_ms, bound_ms, bound_by
+
+
+def same_bits(name, a, b, nrun_each):
+    """Raise unless two blocks agree bit for bit (C and beta over the rows
+    that ran, the histories over the rows that were recorded)."""
+    single = a.misc.dim() == 1
+    for k, nrun in enumerate(nrun_each):
+        pick = (lambda t: t) if single else (lambda t: t[k])
+        iters = int(pick(a.misc)[1])
+        pairs = [(pick(a.x), pick(b.x)), (pick(a.w), pick(b.w)),
+                 (pick(a.misc), pick(b.misc)),
+                 (pick(a.hist)[:, :iters], pick(b.hist)[:, :iters]),
+                 (pick(a.C)[:nrun], pick(b.C)[:nrun]),
+                 (pick(a.beta)[:nrun], pick(b.beta)[:nrun])]
+        if not all(torch.equal(p, q) for p, q in pairs):
+            raise AssertionError(f"{name}: two launches from one state "
+                                 f"differ (instance {k})")
+
+
+def lazy_phases(dl, V, eps, ms):
+    """The clocks of CTA 0 per phase over one 256-iteration block of the
+    1000x5000 kernel, as shares of the block's time, and two cuBLAS DGEMV
+    calls on the same operands as yardsticks of phases 1 and 3."""
+    from accbpg_and_fw_tpu_torch.ops.dopt_common import factorize
+
+    m, n = V.shape
+    x0 = torch.full((n,), 1.0 / n, dtype=torch.float64, device=V.device)
+    H0, w0, _ = factorize(V, x0)
+    kernel = dl._LazyKernel(V.T.contiguous())
+    prof = torch.zeros(8, dtype=torch.int64, device=V.device)
+    blk = kernel.run(H0, x0, w0, eps=eps, kmax=dl._KR, done=False, away=True,
+                     xtol=1e-8, prof=prof)
+    clocks = prof.cpu().numpy().astype(np.float64)
+    nrun = int(blk.misc[3])
+    if not (clocks > 0).all():
+        raise AssertionError(f"the phase clocks were not written: {clocks}")
+    us = clocks / clocks.sum() * ms * 1e3 / max(nrun, 1)
+    parts = "; ".join(f"{name} {t:.2f} us ({100 * t / us.sum():.1f}%)"
+                      for name, t in zip(PHASES, us))
+    g = torch.randn(m, dtype=torch.float64, device=V.device)
+    gemv_u = time_launches(lambda: g @ V, 50) * 1e3
+    gemv_h = time_launches(lambda: H0 @ g, 50) * 1e3
+    print(f"[phases] {m}x{n} per iteration, CTA 0's clocks scaled to the "
+          f"block time: {parts}; yardsticks: cuBLAS DGEMV g@V {gemv_u:.1f} "
+          f"us, H0@v {gemv_h:.1f} us", flush=True)
+
+
+def interleaved_kernels(dl, V, V_small, eps):
+    """A kernel prepared for a large design still launches after one was
+    prepared for a small design (the shared-memory opt-in is the
+    function's for the whole process), and both give the bits of a fresh
+    ``lazy_block``."""
+    from accbpg_and_fw_tpu_torch.ops.dopt_common import factorize
+
+    run = dict(eps=eps, kmax=dl._KR, done=False, away=True, xtol=1e-8)
+    big = dl._LazyKernel(V.T.contiguous())
+    small = dl._LazyKernel(V_small.T.contiguous())
+    for name, kernel, W in (("large", big, V), ("small", small, V_small)):
+        n = W.shape[1]
+        x0 = torch.full((n,), 1.0 / n, dtype=torch.float64, device=W.device)
+        H0, w0, _ = factorize(W, x0)
+        got = kernel.run(H0, x0, w0, **run)
+        ref = dl.lazy_block(W, H0, x0, w0, eps=eps, kmax=dl._KR, away=True)
+        torch.cuda.synchronize()
+        same_bits(f"interleaved {name} kernel", got, ref,
+                  [int(ref.misc[3])])
+    print(f"[kernel] a {V.shape[0]}x{V.shape[1]} kernel launches after a "
+          f"{V_small.shape[0]}x{V_small.shape[1]} one was prepared "
+          f"({big.plan.smem_bytes} and {small.plan.smem_bytes} B of shared "
+          f"memory), both bit for bit with a fresh lazy_block", flush=True)
 
 
 def compare_dense(dd, Vs, eps, kmax=256):
@@ -249,10 +440,12 @@ def compare_dense(dd, Vs, eps, kmax=256):
     errs.append(err)
     ms = time_launches(lambda: dd.dense_block(Vs, Hs, xs, ws, VTs=VTs, **kw),
                        5)
+    bound_ms, bound_by = dense_bound(B, m, n, kmax, int(misc[:, 1].sum()))
     print(f"[kernel] dense B={B} {m}x{n}: {kmax} iterations each, pivots "
           f"identical, max |kernel - plain| {max(errs):.3e}; per block "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    return max(errs), ms, plain_ms
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms (by {bound_by})", flush=True)
+    return max(errs), ms, plain_ms, bound_ms, bound_by
 
 
 def compare_lazy_batch(dl, Vs, x0s, eps):
@@ -293,12 +486,25 @@ def compare_lazy_batch(dl, Vs, x0s, eps):
             raise AssertionError(f"batch instance {k} histories: "
                                  f"{err:.3e} exceeds atol {ATOL_HIST}")
         errs.append(err)
-    ms = time_launches(
-        lambda: dl.lazy_block_batch(Vs, H0, x0s, w0, VTs=VTs, **kw), 5)
+    nrun_each = [int(q) for q in misc[:, 3]]
+    again = dl.lazy_block_batch(Vs, H0, x0s, w0, VTs=VTs, **kw)
+    torch.cuda.synchronize()
+    same_bits("lazy_block_batch", again, out, nrun_each)
+    kernel = dl._LazyKernel(VTs)
+    run = dict(eps=eps, kmax=[dl._KR] * K, done=None, away=True, xtol=1e-8)
+    ms = time_launches(lambda: kernel.run(H0, x0s, w0, **run), 10)
+    bound_ms, bound_by = lazy_bound(m, n, nrun_each)
+    plan = kernel.plan
     print(f"[kernel] lazy batch K={K} {m}x{n}: {dl._KR} iterations each, "
-          f"pivots identical, max |kernel - plain| {max(errs):.3e}; per "
-          f"block kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    return max(errs), ms, plain_ms
+          f"pivots identical, two launches bit for bit, max |kernel - plain| "
+          f"{max(errs):.3e}; per block kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (by {bound_by}); "
+          f"{plan.wave} groups of {plan.group} CTAs, {plan.col_base}-"
+          f"{plan.col_base + (plan.col_extra > 0)} columns each, "
+          f"{plan.resident} resident in {plan.smem_bytes} B of shared "
+          f"memory, the rest streamed; {kernel.regs} registers per thread",
+          flush=True)
+    return max(errs), ms, plain_ms, bound_ms, bound_by
 
 
 def dense_designs():
@@ -308,6 +514,26 @@ def dense_designs():
         np.random.seed(k + 1)
         Vs[k] = np.random.randn(DENSE_M, DENSE_N)
     return Vs
+
+
+def main_design():
+    """The main path's instance: 1000x5000 from np.random.seed(10)."""
+    np.random.seed(SEED)
+    return np.random.randn(M, N)
+
+
+def large_designs(start=None):
+    """The large-m sweep's instances, instance k from np.random.seed(k + 1),
+    and their starts ``start(V)``, each drawn right after its design from
+    the same stream (None: no starts are drawn); returns (Vs, x0s)."""
+    Vs = np.empty((LARGE_K, LARGE_M, LARGE_N))
+    x0s = np.empty((LARGE_K, LARGE_N))
+    for k in range(LARGE_K):
+        np.random.seed(k + 1)
+        Vs[k] = np.random.randn(LARGE_M, LARGE_N)
+        if start is not None:
+            x0s[k] = start(Vs[k])
+    return Vs, x0s
 
 
 def dense_sweep(port, dd, dev):
@@ -352,12 +578,8 @@ def dense_sweep(port, dd, dev):
 def large_sweep(port, dl, dev):
     """Phase 4b; returns the batch kernel's launches in it and the last
     instances (V, x0) for the per-block comparison."""
-    Vs = np.empty((LARGE_K, LARGE_M, LARGE_N))
-    x0s = np.empty((LARGE_K, LARGE_N))
-    for k in range(LARGE_K):
-        np.random.seed(k + 1)
-        Vs[k] = np.random.randn(LARGE_M, LARGE_N)
-        x0s[k] = port.D_opt_KYinit(Vs[k]).numpy()
+    Vs, x0s = large_designs(
+        lambda V: port.D_opt_KYinit(V, device="cpu").numpy())
     dl.BATCH_LAUNCHES = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -393,6 +615,12 @@ def large_sweep(port, dl, dev):
           f"{LARGE_K}/{LARGE_K} stopped at 1e-7 and certified at the stop "
           f"row (fresh slacks within {LARGE_CERT_TOL}, F rtol 1e-9); "
           f"iterations to eps 1e-3..1e-7 per instance: {table}", flush=True)
+    trace_line(f"large sweep K={LARGE_K} of {LARGE_M}x{LARGE_N}",
+               lambda: port.dopt_fw_batch(Vs, x0s, LARGE_EPS, LARGE_BUDGET,
+                                          away=True, precision="auto",
+                                          refresh_every=LARGE_REFRESH,
+                                          device=dev),
+               "dopt_lazy_kernel")
     return launches, Vs, x0s
 
 
@@ -414,7 +642,8 @@ def single_pallas(port, dd, dev):
         raise AssertionError("u_mode='pallas' made no dense kernel launch")
     t = time.perf_counter()
     xe, Fe, SPe, SNe, _ = port.D_opt_FW_away(V, x0, EPS, DENSE_BUDGET,
-                                             verbose=False, u_mode="exact")
+                                             verbose=False, u_mode="exact",
+                                             device="cpu")
     wall_cpu = time.perf_counter() - t
     if abs(len(F) - len(Fe)) > 0.01 * len(Fe):
         raise AssertionError(f"u_mode='pallas': {len(F)} iterations, the "
@@ -460,10 +689,12 @@ def compare_simplex(sm, gg, label):
                 f"plain {c_p!r} (resid {r_p:.3e})")
     ms = time_launches(lambda: sm.simplex_inv_multiplier_pallas(gg), 50)
     plain_ms = time_launches(lambda: sm.simplex_multiplier_reference(gg), 5)
+    bound_ms, bound_by = simplex_bound(gg)
     print(f"[kernel] simplex multiplier {label} n={gg.numel()}: "
           f"|c kernel - c plain| {err:.3e} (c {c_p:.6e}); per call kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return err, ms, plain_ms
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"(by {bound_by})", flush=True)
+    return err, ms, plain_ms, bound_ms, bound_by
 
 
 def first_prox_input(port, m, n):
@@ -615,7 +846,8 @@ def readme_path(port, sm):
 
     kw = dict(gamma=2, maxitrs=300, G0=0.1, theta_eq=True, verbose=False)
     F_gpu = port.ABPG_gain(f, h, L, x0, **kw)[1]
-    fc, _, _, x0c = port.D_opt_design(README_M, README_N, randseed=10)
+    fc, _, _, x0c = port.D_opt_design(README_M, README_N, randseed=10,
+                                      device="cpu")
     F_cpu = port.ABPG_gain(fc, port.BurgEntropySimplex(use_pallas=True),
                            L, x0c, **kw)[1]
     np.testing.assert_allclose(F_gpu[:100], F_cpu[:100], rtol=1e-9)
@@ -670,12 +902,72 @@ def per_iteration_costs(port):
           f"iterations each): " + "; ".join(rows), flush=True)
 
 
+def block_times(root, solves):
+    """``--blocks-only``: one 256-iteration block of the lazy-H kernel from
+    the uniform start's fresh state, through ``lazy_block`` at 1000x5000 and
+    ``lazy_block_batch`` at K=3 of 1000x2000 (each call prepares the kernel
+    anew, as every commit's wrapper does), then warm main-path solves."""
+    sys.path.insert(0, root)
+    import accbpg_and_fw_tpu_torch as port
+    from accbpg_and_fw_tpu_torch.ops import dopt_lazy as dl
+    from accbpg_and_fw_tpu_torch.ops.dopt_common import factorize
+
+    if pathlib.Path(root) not in pathlib.Path(port.__file__).resolve().parents:
+        raise RuntimeError(f"imported {port.__file__}, not the package "
+                           f"under {root}")
+    dev = torch.device("cuda")
+    V64 = main_design()
+    designs = ((torch.tensor(V64, device=dev), dl.lazy_block, dl._KR, "VT"),
+               (torch.tensor(large_designs()[0], device=dev),
+                dl.lazy_block_batch, [dl._KR] * LARGE_K, "VTs"))
+    ms = []
+    for W, block, kmax, transposed in designs:
+        n = W.shape[-1]
+        x = torch.full(W.shape[:-2] + (n,), 1.0 / n, dtype=torch.float64,
+                       device=dev)
+        if W.dim() == 2:
+            H0, w, _ = factorize(W, x)
+        else:
+            parts = [factorize(Wk, xk) for Wk, xk in zip(W, x)]
+            H0 = torch.stack([p[0] for p in parts])
+            w = torch.stack([p[1] for p in parts])
+        kw = {"eps": EPS, "kmax": kmax,
+              transposed: W.transpose(-2, -1).contiguous()}
+        ms.append(time_launches(lambda: block(W, H0, x, w, **kw), 10))
+    print(f"[blocks] {root}: {card_line()}; lazy block {M}x{N} {ms[0]:.3f} "
+          f"ms, batch K={LARGE_K} of {LARGE_M}x{LARGE_N} {ms[1]:.3f} ms "
+          f"({dl._KR} iterations each)", flush=True)
+    x0 = np.full(N, 1.0 / N)
+    for rep in range(solves):
+        dl.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        F = port.D_opt_FW_away(V64, x0, eps=EPS, maxitrs=REF_ITERS,
+                               verbose=False, device="cuda")[1]
+        torch.cuda.synchronize()
+        print(f"[solve {rep}] {root}: D_opt_FW_away {M}x{N} wall "
+              f"{time.perf_counter() - t:.3f} s, {len(F)} iterations, "
+              f"{dl.LAUNCHES} kernel launches", flush=True)
+    return 0
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--blocks-only", action="store_true",
+                    help="print only the lazy-H block times and main-path "
+                         "walls of the package under --root")
+    ap.add_argument("--root", default=str(pathlib.Path(__file__).parent),
+                    help="checkout whose package --blocks-only times")
+    ap.add_argument("--solves", type=int, default=3)
+    args = ap.parse_args()
     # ---- 1. the card --------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    if args.blocks_only:
+        return block_times(str(pathlib.Path(args.root).resolve()),
+                           args.solves)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -706,16 +998,16 @@ def main():
     rng = np.random.default_rng(3)
     V_small = torch.tensor(rng.standard_normal((12, 160)), device=dev)
     compare_block(dl, V_small, EPS)
-    np.random.seed(SEED)
-    V64 = np.random.randn(M, N)
+    V64 = main_design()
     V = torch.tensor(V64, device=dev)
-    lazy_err, lazy_ms, lazy_plain_ms = compare_block(dl, V, EPS)
+    lazy = compare_block(dl, V, EPS)
+    lazy_phases(dl, V, EPS, lazy[1])
+    interleaved_kernels(dl, V, V_small, EPS)
 
     dense_Vs = torch.tensor(dense_designs(), device=dev)
     compare_dense(dd, dense_Vs[:4].contiguous(), EPS)
-    batch_err, batch_ms, batch_plain_ms = compare_dense(dd, dense_Vs, EPS)
-    one_err, one_ms, one_plain_ms = compare_dense(
-        dd, dense_Vs[:1].contiguous(), EPS)
+    dense_batch = compare_dense(dd, dense_Vs, EPS)
+    dense_one = compare_dense(dd, dense_Vs[:1].contiguous(), EPS)
 
     mid = torch.tensor(np.random.default_rng(5).standard_normal(
         (3, 100, 1000)), device=dev)
@@ -730,10 +1022,9 @@ def main():
             f"g={g}")[0])
     simplex_errs.append(compare_simplex(
         sm, first_prox_input(port, BPG_M, BPG_N), "BPG 30x1000 first prox")[0])
-    path_err, simplex_ms, simplex_plain_ms = compare_simplex(
-        sm, first_prox_input(port, GAIN_M, GAIN_N),
-        "ABPG_gain 30x10000 first prox")
-    simplex_errs.append(path_err)
+    simplex = compare_simplex(sm, first_prox_input(port, GAIN_M, GAIN_N),
+                              "ABPG_gain 30x10000 first prox")
+    simplex_errs.append(simplex[0])
     for n in (1000, 10000, 100000):
         gg = torch.tensor(np.random.default_rng(n).standard_normal(n) * 3.0
                           + 1.0, device=dev)
@@ -745,7 +1036,7 @@ def main():
                                       u_mode="pallas_lazy", device=dev)
     x_e, F_e, _, _, _ = D_opt_FW_away(V_small.cpu(), np.full(160, 1 / 160),
                                       1e-8, 300, verbose=False,
-                                      u_mode="exact")
+                                      u_mode="exact", device="cpu")
     if len(F_s) != len(F_e):
         raise AssertionError(f"12x160 slice: {len(F_s)} vs {len(F_e)} rows")
     np.testing.assert_allclose(F_s, F_e, rtol=1e-9)
@@ -757,7 +1048,7 @@ def main():
     # ---- 4. the paths -------------------------------------------------------
     dense_batch_launches = dense_sweep(port, dd, dev)
     batch_launches, large_Vs, large_x0s = large_sweep(port, dl, dev)
-    lb_err, lb_ms, lb_plain_ms = compare_lazy_batch(
+    lazy_batch = compare_lazy_batch(
         dl, torch.tensor(large_Vs, device=dev),
         torch.tensor(large_x0s, device=dev), LARGE_EPS)
     dense_one_launches = single_pallas(port, dd, dev)
@@ -766,9 +1057,12 @@ def main():
     dl.LAUNCHES = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
+    # numpy input and no device: the port's default is the card
     x, F, SP, SN, T = D_opt_FW_away(V64, x0, eps=EPS, maxitrs=REF_ITERS,
-                                    verbose=False, device="cuda")
+                                    verbose=False)
     torch.cuda.synchronize()
+    if x.device.type != "cuda":
+        raise AssertionError(f"the main path ran on {x.device}, not the card")
     wall = time.perf_counter() - t
     launches = dl.LAUNCHES
     iters = len(F)
@@ -789,35 +1083,43 @@ def main():
           f"final SP {SP[-1]:.4e} SN {SN[-1]:.4e}, certified gap {gap:.3e}",
           flush=True)
 
+    trace_line(f"main path {M}x{N}",
+               lambda: D_opt_FW_away(V64, x0, eps=EPS, maxitrs=REF_ITERS,
+                                     verbose=False),
+               "dopt_lazy_kernel")
+
     simplex_launches = gain_path(port, sm)
     bpg_path(port, sm)
     readme_path(port, sm)
     per_iteration_costs(port)
 
     # ---- 5. the record ------------------------------------------------------
-    def entry(name, source, replaces, launches, err, ms, plain_ms):
+    def entry(name, source, replaces, launches, measured):
+        err, ms, plain_ms, bound_ms, bound_by = measured
+        # library_ms: no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda",
                 "source": f"accbpg_and_fw_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
 
     kernels = [
         entry("dopt_lazy_block", "dopt_lazy.cu",
               "accbpg_and_fw_tpu/ops/pallas_dopt_lazy.py:153", launches,
-              lazy_err, lazy_ms, lazy_plain_ms),
+              lazy),
         entry("dopt_lazy_block_batch", "dopt_lazy.cu",
               "accbpg_and_fw_tpu/ops/pallas_dopt_lazy.py:899",
-              batch_launches, lb_err, lb_ms, lb_plain_ms),
+              batch_launches, lazy_batch),
         entry("dopt_dense_block", "dopt_dense.cu",
               "accbpg_and_fw_tpu/ops/pallas_dopt.py:169",
-              dense_one_launches, one_err, one_ms, one_plain_ms),
+              dense_one_launches, dense_one),
         entry("dopt_dense_block_batch", "dopt_dense.cu",
               "accbpg_and_fw_tpu/ops/pallas_dopt.py:830",
-              dense_batch_launches, batch_err, batch_ms, batch_plain_ms),
+              dense_batch_launches, dense_batch),
         entry("simplex_multiplier", "simplex_mult.cu",
               "accbpg_and_fw_tpu/ops/pallas_kernels.py:32",
-              simplex_launches, max(simplex_errs), simplex_ms,
-              simplex_plain_ms),
+              simplex_launches, (max(simplex_errs),) + simplex[1:]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

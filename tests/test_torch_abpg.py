@@ -41,7 +41,7 @@ CHECKDIV_F_RTOL, CHECKDIV_G_RTOL, CHECKDIV_X_ATOL = 1e-9, 1e-4, 1e-10
 @pytest.fixture(scope="module")
 def problems():
     fj, hj, L, x0j = acc.D_opt_design(40, 120, randseed=10)
-    fp, hp, _, x0p = port.D_opt_design(40, 120, randseed=10)
+    fp, hp, _, x0p = port.D_opt_design(40, 120, randseed=10, device="cpu")
     return (fj, hj, L, x0j), (fp, hp, L, x0p)
 
 

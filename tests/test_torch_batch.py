@@ -111,7 +111,7 @@ def test_lazy_batch_matches_jax(lazy_pair, jax_lazy_batch, refresh):
     Vs, x0s = lazy_pair
     kw = dict(refresh_every=refresh, group=1) if refresh else {}
     before = dl.BATCH_LAUNCHES
-    got = dl.dopt_fw_lazy_batch(Vs, x0s, 1e-8, 300, **kw)
+    got = dl.dopt_fw_lazy_batch(Vs, x0s, 1e-8, 300, device="cpu", **kw)
     assert dl.BATCH_LAUNCHES == before  # CPU tensors take the plain block
     assert got[1].shape == (2, 300)
     _assert_lazy_matches(got, jax_lazy_batch(Vs, x0s, 1e-8, 300, **kw),
@@ -132,9 +132,10 @@ def test_lazy_batch_refresh_cadence(lazy_pair, monkeypatch):
         return real(H0s, Vs_)
 
     monkeypatch.setattr(dl, "_fresh_w", spy)
-    dl.dopt_fw_lazy_batch(Vs, x0s, 1e-8, 600, refresh_every=300)
+    dl.dopt_fw_lazy_batch(Vs, x0s, 1e-8, 600, refresh_every=300, device="cpu")
     assert calls == []
-    dl.dopt_fw_lazy_batch(Vs, x0s, 1e-8, 600, refresh_every=300, group=1)
+    dl.dopt_fw_lazy_batch(Vs, x0s, 1e-8, 600, refresh_every=300, group=1,
+                          device="cpu")
     # rounds end at 256, 512, 600: refreshes once 300 accumulated, after
     # 512; the last round ends the run
     assert len(calls) == 1
@@ -142,7 +143,7 @@ def test_lazy_batch_refresh_cadence(lazy_pair, monkeypatch):
 
 def test_lazy_batch_early_stop_in_one_instance(lazy_pair, jax_lazy_batch):
     Vs, x0s = lazy_pair
-    got = dl.dopt_fw_lazy_batch(Vs, x0s, 1e-6, 1000)
+    got = dl.dopt_fw_lazy_batch(Vs, x0s, 1e-6, 1000, device="cpu")
     x, F, SP, SN = got
     stops = [int(np.argmax((SP[k] <= 1e-6) & (SN[k] <= 1e-6)))
              for k in range(2)]
@@ -155,9 +156,10 @@ def test_lazy_batch_early_stop_in_one_instance(lazy_pair, jax_lazy_batch):
 
 def test_lazy_batch_of_one_is_the_single_engine(lazy_pair):
     Vs, x0s = lazy_pair
-    xb, Fb, SPb, SNb = dl.dopt_fw_lazy_batch(Vs[:1], x0s[:1], 1e-6, 1000)
+    xb, Fb, SPb, SNb = dl.dopt_fw_lazy_batch(Vs[:1], x0s[:1], 1e-6, 1000,
+                                             device="cpu")
     x1, F1, SP1, SN1, _ = dl.dopt_fw_lazy(Vs[0], x0s[0], 1e-6, 1000,
-                                          verbose=False)
+                                          verbose=False, device="cpu")
     assert Fb.shape == (1, len(F1))
     np.testing.assert_array_equal(SPb[0], SP1)
     np.testing.assert_array_equal(SNb[0], SN1)
@@ -178,7 +180,7 @@ def test_lazy_batch_converged_start_holds_its_initial_rows():
     x0s = np.full((2, 6), 1.0 / 6)
     x0s[1] = rng.random(6) + 0.5
     x0s[1] /= x0s[1].sum()
-    x, F, SP, SN = dl.dopt_fw_lazy_batch(Vs, x0s, 1e-8, 100)
+    x, F, SP, SN = dl.dopt_fw_lazy_batch(Vs, x0s, 1e-8, 100, device="cpu")
     _, ld0 = np.linalg.slogdet((Vs[0] / 6.0) @ Vs[0].T)
     assert F.shape[1] > 1
     np.testing.assert_allclose(F[0], -ld0, rtol=1e-12)
@@ -242,7 +244,7 @@ def test_exact_engine_matches_jax_native(exact_problem, refresh, away):
     xj, Fj, SPj, SNj = jax_batch(Vs, x0s, eps, 250, away=away,
                                  refresh_every=refresh, precision="native")
     x, F, SP, SN = port.dopt_fw_batch(Vs, x0s, eps, 250, away=away,
-                                      refresh_every=refresh)
+                                      refresh_every=refresh, device="cpu")
     assert isinstance(x, torch.Tensor) and x.shape == (3, 120)
     assert F.shape == np.shape(Fj) == (3, 250)
     np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=0,
@@ -259,9 +261,11 @@ def test_exact_engine_frozen_after_all_stop(exact_problem, monkeypatch):
     the rows still run to the budget (refreshed at each boundary)."""
     Vs, x0s = exact_problem
     monkeypatch.setattr(pb, "_EXIT_EVERY", 64)
-    a = pb.dopt_fw_batch_exact(Vs, x0s, 1e-2, 600, refresh_every=200)
+    a = pb.dopt_fw_batch_exact(Vs, x0s, 1e-2, 600, refresh_every=200,
+                               device="cpu")
     monkeypatch.setattr(pb, "_EXIT_EVERY", 2048)
-    b = pb.dopt_fw_batch_exact(Vs, x0s, 1e-2, 600, refresh_every=200)
+    b = pb.dopt_fw_batch_exact(Vs, x0s, 1e-2, 600, refresh_every=200,
+                               device="cpu")
     assert a[1].shape == (3, 600)
     assert torch.equal(a[0], b[0])
     for i in (1, 2, 3):
@@ -270,7 +274,7 @@ def test_exact_engine_frozen_after_all_stop(exact_problem, monkeypatch):
 
 def test_exact_engine_zero_budget(exact_problem):
     Vs, x0s = exact_problem
-    x, F, SP, SN = port.dopt_fw_batch(Vs, x0s, 1e-8, 0)
+    x, F, SP, SN = port.dopt_fw_batch(Vs, x0s, 1e-8, 0, device="cpu")
     assert F.shape == SP.shape == SN.shape == (3, 0)
     np.testing.assert_array_equal(x.numpy(), x0s)
 
@@ -280,8 +284,9 @@ def test_exact_engine_zero_budget(exact_problem):
 @pytest.mark.parametrize("precision", ["mixed", "ds", "auto"])
 def test_precision_aliases_run_the_exact_engine(exact_problem, precision):
     Vs, x0s = exact_problem
-    ref = port.dopt_fw_batch(Vs, x0s, 1e-6, 60)
-    got = port.dopt_fw_batch(Vs, x0s, 1e-6, 60, precision=precision)
+    ref = port.dopt_fw_batch(Vs, x0s, 1e-6, 60, device="cpu")
+    got = port.dopt_fw_batch(Vs, x0s, 1e-6, 60, precision=precision,
+                             device="cpu")
     assert torch.equal(got[0], ref[0])
     for i in (1, 2, 3):
         np.testing.assert_array_equal(got[i], ref[i])
@@ -301,10 +306,11 @@ def test_kernel_precisions_route_to_their_engines(exact_problem, monkeypatch,
 
     monkeypatch.setattr(pb, engine, spy)
     got = port.dopt_fw_batch(Vs, x0s, 1e-6, 60, refresh_every=30,
-                             precision=precision)
+                             precision=precision, device="cpu")
     assert len(seen) == 1 and seen[0]["refresh_every"] == 30
     mod = dd if precision == "pallas" else dl
-    want = getattr(mod, engine)(Vs, x0s, 1e-6, 60, refresh_every=30)
+    want = getattr(mod, engine)(Vs, x0s, 1e-6, 60, refresh_every=30,
+                                device="cpu")
     assert torch.equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
 
@@ -321,7 +327,7 @@ def test_auto_batch_rule(device, m, expected):
 def test_unknown_precision_raises(exact_problem):
     Vs, x0s = exact_problem
     with pytest.raises(ValueError, match="unknown precision"):
-        port.dopt_fw_batch(Vs, x0s, 1e-6, 10, precision="f32")
+        port.dopt_fw_batch(Vs, x0s, 1e-6, 10, precision="f32", device="cpu")
 
 
 # ---- D_opt_KYinit -----------------------------------------------------------
@@ -335,7 +341,7 @@ def test_kyinit_bit_for_bit(shape):
     state = np.random.get_state()
     want = np.asarray(acc.D_opt_KYinit(V))
     np.random.set_state(state)
-    got = port.D_opt_KYinit(V)
+    got = port.D_opt_KYinit(V, device="cpu")
     assert got.dtype == torch.float64 and got.device.type == "cpu"
     np.testing.assert_array_equal(got.numpy(), want)
     # both drew the same count of numbers from the global stream
@@ -426,7 +432,8 @@ def test_sweep_on_card_matches_cpu(cuda_dev, lazy_pair):
     Vs, x0s = lazy_pair
     got = port.dopt_fw_batch(Vs, x0s, 1e-6, 1000, precision="pallas_lazy",
                              device=cuda_dev)
-    want = port.dopt_fw_batch(Vs, x0s, 1e-6, 1000, precision="pallas_lazy")
+    want = port.dopt_fw_batch(Vs, x0s, 1e-6, 1000, precision="pallas_lazy",
+                              device="cpu")
     assert got[1].shape == want[1].shape
     np.testing.assert_allclose(got[1], want[1], rtol=1e-9)
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),

@@ -35,7 +35,7 @@ ROWS, F_RTOL, G_RTOL = 200, 1e-11, 1e-8
 @pytest.fixture(scope="module")
 def problems():
     fj, hj, L, x0j = acc.D_opt_design(40, 120, randseed=10)
-    fp, hp, _, x0p = port.D_opt_design(40, 120, randseed=10)
+    fp, hp, _, x0p = port.D_opt_design(40, 120, randseed=10, device="cpu")
     return (fj, hj, L, x0j), (fp, hp, L, x0p)
 
 

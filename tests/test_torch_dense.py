@@ -113,7 +113,7 @@ def test_single_matches_jax_kernel(jax_single, shape, away):
     x0 = np.full(shape[1], 1.0 / shape[1])
     before = dd.LAUNCHES
     x, F, SP, SN, T = dd.dopt_fw_dense(V, x0, EPS, BUDGET, away=away,
-                                       verbose=False, chunk=256)
+                                       verbose=False, chunk=256, device="cpu")
     assert dd.LAUNCHES == before  # CPU tensors take the plain block
     assert isinstance(x, torch.Tensor) and x.dtype == torch.float64
     assert len(T) == len(F)
@@ -126,7 +126,8 @@ def test_batch_matches_jax_kernel_with_groups(batch_problem, jax_batch):
     instances' frozen rows included, and the second group padded to the
     first's length) and the same rows."""
     Vs, x0s = batch_problem
-    x, F, SP, SN = dd.dopt_fw_dense_batch(Vs, x0s, 1e-6, 2000, group=2)
+    x, F, SP, SN = dd.dopt_fw_dense_batch(Vs, x0s, 1e-6, 2000, group=2,
+                                          device="cpu")
     assert F.shape == (3, 896)  # stops 573, 842, 583: lockstep rows 896
     _assert_matches_jax((x.numpy(), F, SP, SN), jax_batch)
     for k in range(3):
@@ -137,8 +138,8 @@ def test_batch_matches_jax_kernel_with_groups(batch_problem, jax_batch):
 
 def test_batch_one_group_matches_groups(batch_problem):
     Vs, x0s = batch_problem
-    a = dd.dopt_fw_dense_batch(Vs, x0s, 1e-6, 2000)
-    b = dd.dopt_fw_dense_batch(Vs, x0s, 1e-6, 2000, group=2)
+    a = dd.dopt_fw_dense_batch(Vs, x0s, 1e-6, 2000, device="cpu")
+    b = dd.dopt_fw_dense_batch(Vs, x0s, 1e-6, 2000, group=2, device="cpu")
     assert torch.equal(a[0], b[0])
     for i in (1, 2, 3):
         np.testing.assert_array_equal(a[i], b[i])
@@ -157,11 +158,12 @@ def test_batch_refresh_every(batch_problem, monkeypatch):
 
     monkeypatch.setattr(dd, "factorize", spy)
     x, F, SP, SN = dd.dopt_fw_dense_batch(Vs, x0s, 1e-6, 2000, chunk=256,
-                                          refresh_every=500)
+                                          refresh_every=500, device="cpu")
     # launches end at 256, 512, ...: refreshes after 512 (and not again
     # before every instance stopped at 896 rows)
     assert len(calls) == 3 * 2
-    x0, F0, *_ = dd.dopt_fw_dense_batch(Vs, x0s, 1e-6, 2000, chunk=256)
+    x0, F0, *_ = dd.dopt_fw_dense_batch(Vs, x0s, 1e-6, 2000, chunk=256,
+                                        device="cpu")
     assert F.shape == F0.shape
     np.testing.assert_allclose(F, F0, rtol=0, atol=1e-10)
     np.testing.assert_allclose(x.numpy(), x0.numpy(), rtol=0, atol=1e-12)
@@ -230,8 +232,10 @@ def test_d_opt_entry_routes_pallas():
     """u_mode="pallas" through the public entry point is this engine."""
     V = _design((12, 160))
     x0 = np.full(160, 1.0 / 160)
-    a = port.D_opt_FW(V, x0, 1e-8, 70, verbose=False, u_mode="pallas")
-    b = dd.dopt_fw_dense(V, x0, 1e-8, 70, away=False, verbose=False)
+    a = port.D_opt_FW(V, x0, 1e-8, 70, verbose=False, u_mode="pallas",
+                      device="cpu")
+    b = dd.dopt_fw_dense(V, x0, 1e-8, 70, away=False, verbose=False,
+                         device="cpu")
     assert torch.equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
 
@@ -240,7 +244,7 @@ def test_budget_and_chunk(acc_exact):
     """A budget across launches of 64: the exact engine's run."""
     V, x0, xe, Fe = acc_exact
     x, F, SP, SN, T = dd.dopt_fw_dense(V, x0, 1e-8, 150, verbose=False,
-                                       chunk=50)
+                                       chunk=50, device="cpu")
     assert len(F) == 150
     np.testing.assert_allclose(F, Fe, rtol=1e-9)
     np.testing.assert_allclose(x.numpy(), xe, rtol=0, atol=X_ATOL)
@@ -269,7 +273,7 @@ def test_refresh_every_full_refactorization(monkeypatch):
 
     monkeypatch.setattr(dd, "factorize", spy)
     dd.dopt_fw_dense(V, x0, 1e-8, 200, verbose=False, chunk=64,
-                     refresh_every=100)
+                     refresh_every=100, device="cpu")
     # launches end at 64, 128, 192, 200: a refresh after 128, then none
     # before the budget ends
     assert len(calls) == 2
@@ -280,23 +284,25 @@ def test_checkpoint_resume(tmp_path):
     x0 = np.full(160, 1.0 / 160)
     ck = str(tmp_path / "dense.npz")
     a = dd.dopt_fw_dense(V, x0, 1e-8, 128, verbose=False, chunk=64,
-                         checkpoint=ck)
+                         checkpoint=ck, device="cpu")
     b = dd.dopt_fw_dense(V, x0, 1e-8, 256, verbose=False, chunk=64,
-                         checkpoint=ck)
-    full = dd.dopt_fw_dense(V, x0, 1e-8, 256, verbose=False, chunk=64)
+                         checkpoint=ck, device="cpu")
+    full = dd.dopt_fw_dense(V, x0, 1e-8, 256, verbose=False, chunk=64,
+                            device="cpu")
     assert len(b[1]) == 256
     np.testing.assert_array_equal(b[2][:128], a[2])
     np.testing.assert_allclose(b[1], full[1], rtol=1e-9)
     np.testing.assert_allclose(b[0].numpy(), full[0].numpy(), rtol=0,
                                atol=X_ATOL)
     with pytest.raises(ValueError, match="different solve"):
-        dd.dopt_fw_dense(V, x0, 1e-6, 256, verbose=False, checkpoint=ck)
+        dd.dopt_fw_dense(V, x0, 1e-6, 256, verbose=False, checkpoint=ck,
+                         device="cpu")
 
 
 def test_verbose_rows(capsys):
     V = _design((12, 160))
     dd.dopt_fw_dense(V, np.full(160, 1.0 / 160), 1e-8, 10, verbose=True,
-                     verbskip=5)
+                     verbskip=5, device="cpu")
     out = capsys.readouterr().out
     assert "dense block kernel" in out
     rows = [ln for ln in out.splitlines() if ln[:6].strip().isdigit()]
@@ -357,7 +363,7 @@ def test_engine_on_card_matches_cpu(cuda_dev):
     x, F, SP, SN, T = dd.dopt_fw_dense(V, x0, 1e-8, 600, verbose=False,
                                        chunk=128, device=cuda_dev)
     xc, Fc, *_ = dd.dopt_fw_dense(V, x0, 1e-8, 600, verbose=False,
-                                  chunk=128)
+                                  chunk=128, device="cpu")
     assert x.device.type == "cuda" and len(F) == len(Fc)
     np.testing.assert_allclose(F, Fc, rtol=1e-9)
     np.testing.assert_allclose(x.cpu().numpy(), xc.numpy(), rtol=0,

@@ -52,7 +52,7 @@ def test_state_parity_first_200(small, away, tmp_path):
     xj, Fj, SPj, SNj, _ = jax_fn(V, x0, 1e-8, 200, verbose=False, chunk=64,
                                  checkpoint=ck_j)
     xp, Fp, SPp, SNp, _ = port_fn(V, x0, 1e-8, 200, verbose=False, chunk=64,
-                                  checkpoint=ck_p)
+                                  checkpoint=ck_p, device="cpu")
     assert len(Fj) == len(Fp) == 200
     assert isinstance(xp, torch.Tensor) and xp.dtype == torch.float64
     np.testing.assert_allclose(xp.numpy(), np.asarray(xj), rtol=0,
@@ -72,7 +72,8 @@ def test_golden_iterations_to_eps(golden):
     _, Fj, *_ = acc.D_opt_FW_away(V, x0, eps=1e-7, maxitrs=20000,
                                   verbose=False, chunk=1000)
     x, F, SP, SN, T = port.D_opt_FW_away(V, x0, eps=1e-7, maxitrs=20000,
-                                         verbose=False, chunk=1000)
+                                         verbose=False, chunk=1000,
+                                         device="cpu")
     print(f"iterations to eps: jax {len(Fj)}, port {len(F)}, "
           f"difference {len(F) - len(Fj)}")
     assert abs(len(F) - len(Fj)) <= 0.01 * len(Fj)
@@ -90,7 +91,7 @@ def test_truncation_inclusive_stop():
     eps = 1e-3
     _, Fj, *_ = acc.D_opt_FW_away(V, x0, eps, 500, verbose=False, chunk=50)
     x, F, SP, SN, T = port.D_opt_FW_away(V, x0, eps, 500, verbose=False,
-                                         chunk=50)
+                                         chunk=50, device="cpu")
     assert len(F) == len(Fj) < 500
     assert len(F) == len(SP) == len(SN) == len(T)
     assert SP[-1] <= eps and SN[-1] <= eps
@@ -99,8 +100,9 @@ def test_truncation_inclusive_stop():
 
 def test_chunk_size_does_not_change_the_run(small):
     V, x0 = small
-    a = port.D_opt_FW_away(V, x0, 1e-8, 90, verbose=False, chunk=7)
-    b = port.D_opt_FW_away(V, x0, 1e-8, 90, verbose=False)
+    a = port.D_opt_FW_away(V, x0, 1e-8, 90, verbose=False, chunk=7,
+                           device="cpu")
+    b = port.D_opt_FW_away(V, x0, 1e-8, 90, verbose=False, device="cpu")
     assert torch.equal(a[0], b[0])
     for i in (1, 2, 3):
         np.testing.assert_array_equal(a[i], b[i])
@@ -112,13 +114,13 @@ def test_refresh_every_matches_jax(small):
     xj, Fj, *_ = acc.D_opt_FW_away(V, x0, 1e-8, 150, verbose=False,
                                    chunk=25, refresh_every=50)
     xp, Fp, *_ = port.D_opt_FW_away(V, x0, 1e-8, 150, verbose=False,
-                                    chunk=25, refresh_every=50)
+                                    chunk=25, refresh_every=50, device="cpu")
     np.testing.assert_allclose(xp.numpy(), np.asarray(xj), rtol=0,
                                atol=STATE_ATOL)
     np.testing.assert_allclose(Fp, Fj, rtol=0, atol=STATE_ATOL)
     # and a refresh moves the run by rounding only
     x0p, F0p, *_ = port.D_opt_FW_away(V, x0, 1e-8, 150, verbose=False,
-                                      chunk=25)
+                                      chunk=25, device="cpu")
     np.testing.assert_allclose(Fp, F0p, rtol=0, atol=1e-10)
 
 
@@ -133,7 +135,7 @@ def test_refresh_every_calls_factorization(small, monkeypatch):
 
     monkeypatch.setattr(port_dopt, "_dopt_factorize", spy)
     port.D_opt_FW_away(V, x0, 1e-8, 100, verbose=False, chunk=10,
-                       refresh_every=30)
+                       refresh_every=30, device="cpu")
     # initial + refreshes at k = 30, 60, 90 (chunk boundaries)
     assert len(calls) == 4
 
@@ -141,12 +143,13 @@ def test_refresh_every_calls_factorization(small, monkeypatch):
 def test_checkpoint_resume_reproduces_uninterrupted(small, tmp_path):
     V, x0 = small
     ck = str(tmp_path / "exact.npz")
-    full = port.D_opt_FW_away(V, x0, 1e-8, 120, verbose=False, chunk=16)
+    full = port.D_opt_FW_away(V, x0, 1e-8, 120, verbose=False, chunk=16,
+                              device="cpu")
     part = port.D_opt_FW_away(V, x0, 1e-8, 45, verbose=False, chunk=16,
-                              checkpoint=ck)
+                              checkpoint=ck, device="cpu")
     assert len(part[1]) == 45
     resumed = port.D_opt_FW_away(V, x0, 1e-8, 120, verbose=False, chunk=16,
-                                 checkpoint=ck)
+                                 checkpoint=ck, device="cpu")
     assert torch.equal(resumed[0], full[0])
     for i in (1, 2, 3):
         np.testing.assert_array_equal(resumed[i], full[i])
@@ -155,14 +158,16 @@ def test_checkpoint_resume_reproduces_uninterrupted(small, tmp_path):
 def test_checkpoint_refuses_other_solver(small, tmp_path):
     V, x0 = small
     ck = str(tmp_path / "away.npz")
-    port.D_opt_FW_away(V, x0, 1e-8, 20, verbose=False, checkpoint=ck)
+    port.D_opt_FW_away(V, x0, 1e-8, 20, verbose=False, checkpoint=ck,
+                       device="cpu")
     with pytest.raises(ValueError, match="different solver"):
-        port.D_opt_FW(V, x0, 1e-8, 40, verbose=False, checkpoint=ck)
+        port.D_opt_FW(V, x0, 1e-8, 40, verbose=False, checkpoint=ck,
+                      device="cpu")
 
 
 def test_verbose_table(small, capsys):
     V, x0 = small
-    port.D_opt_FW_away(V, x0, 1e-8, 12, verbose=True, verbskip=5)
+    port.D_opt_FW_away(V, x0, 1e-8, 12, verbose=True, verbskip=5, device="cpu")
     out = capsys.readouterr().out
     assert "Frank-Wolfe method with away steps" in out
     assert "pos_slack   neg_slack" in out
@@ -178,8 +183,10 @@ def test_verbose_table(small, capsys):
 @pytest.mark.parametrize("mode", ["ds", "mixed", "auto"])
 def test_u_mode_aliases_resolve_to_exact(small, mode):
     V, x0 = small
-    ref = port.D_opt_FW_away(V, x0, 1e-8, 30, verbose=False, u_mode="exact")
-    got = port.D_opt_FW_away(V, x0, 1e-8, 30, verbose=False, u_mode=mode)
+    ref = port.D_opt_FW_away(V, x0, 1e-8, 30, verbose=False, u_mode="exact",
+                             device="cpu")
+    got = port.D_opt_FW_away(V, x0, 1e-8, 30, verbose=False, u_mode=mode,
+                             device="cpu")
     assert torch.equal(got[0], ref[0])
     np.testing.assert_array_equal(got[1], ref[1])
 
@@ -189,14 +196,16 @@ def test_u_mode_pallas_not_ported(small):
     plain block on the CPU), which follows the exact engine; unknown names
     still raise."""
     V, x0 = small
-    x, F, *_ = port.D_opt_FW(V, x0, 1e-8, 10, verbose=False, u_mode="pallas")
+    x, F, *_ = port.D_opt_FW(V, x0, 1e-8, 10, verbose=False, u_mode="pallas",
+                             device="cpu")
     xe, Fe, *_ = port.D_opt_FW(V, x0, 1e-8, 10, verbose=False,
-                               u_mode="exact")
+                               u_mode="exact", device="cpu")
     np.testing.assert_allclose(F, Fe, rtol=0, atol=STATE_ATOL)
     np.testing.assert_allclose(x.numpy(), xe.numpy(), rtol=0,
                                atol=STATE_ATOL)
     with pytest.raises(ValueError, match="unknown u_mode"):
-        port.D_opt_FW(V, x0, 1e-8, 10, verbose=False, u_mode="fast")
+        port.D_opt_FW(V, x0, 1e-8, 10, verbose=False, u_mode="fast",
+                      device="cpu")
 
 
 @pytest.mark.parametrize("name", ["D_opt_FW", "D_opt_FW_away"])

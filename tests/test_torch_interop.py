@@ -40,11 +40,11 @@ def test_exact_carry_continues(problem, tmp_path):
     V, x0 = problem
     ck = str(tmp_path / "jax.npz")
     acc.D_opt_FW_away(V, x0, 1e-8, K, verbose=False, chunk=25, checkpoint=ck)
-    state = from_jax_carry(_jax_carry(ck))
+    state = from_jax_carry(_jax_carry(ck), device="cpu")
     assert set(state) == {"done", "x", "w", "H", "logdet"}
     assert all(t.dtype in (torch.float64, torch.bool) for t in state.values())
     x, F, SP, SN, T = continue_dopt(V, state, 1e-8, TOTAL, k_start=K,
-                                    chunk=25)
+                                    chunk=25, device="cpu")
     xj, Fj, SPj, SNj, _ = acc.D_opt_FW_away(V, x0, 1e-8, TOTAL,
                                             verbose=False, chunk=25)
     assert len(F) == TOTAL - K
@@ -61,11 +61,12 @@ def test_ds_carry_continues(problem, tmp_path):
                       checkpoint=ck)
     carry = _jax_carry(ck)
     assert "x_hi" in carry
-    state = from_jax_carry(carry)
+    state = from_jax_carry(carry, device="cpu")
     np.testing.assert_array_equal(
         state["x"].numpy(),
         carry["x_hi"].astype(np.float64) + carry["x_lo"].astype(np.float64))
-    x, F, SP, SN, T = continue_dopt(V, state, 1e-8, TOTAL, k_start=K)
+    x, F, SP, SN, T = continue_dopt(V, state, 1e-8, TOTAL, k_start=K,
+                                    device="cpu")
     xj, Fj, SPj, SNj, _ = acc.D_opt_FW_away(V, x0, 1e-8, TOTAL,
                                             verbose=False, chunk=25,
                                             u_mode="ds")
@@ -83,7 +84,7 @@ def test_port_resumes_jax_driver_checkpoint(problem, tmp_path):
     _, Fk, *_ = acc.D_opt_FW_away(V, x0, 1e-8, K, verbose=False, chunk=25,
                                   checkpoint=ck)
     x, F, SP, SN, T = port.D_opt_FW_away(V, x0, 1e-8, TOTAL, verbose=False,
-                                         chunk=25, checkpoint=ck)
+                                         chunk=25, checkpoint=ck, device="cpu")
     xj, Fj, *_ = acc.D_opt_FW_away(V, x0, 1e-8, TOTAL, verbose=False,
                                    chunk=25)
     assert len(F) == TOTAL
@@ -101,12 +102,12 @@ def test_port_resumes_jax_lazy_checkpoint(problem, tmp_path):
                             group=1, checkpoint=ck_j)
     with open(ck_j, "rb") as src, open(ck_p, "wb") as dst:
         dst.write(src.read())
-    state = from_jax_carry(ck_p)
+    state = from_jax_carry(ck_p, device="cpu")
     assert state["k"] == 40
     np.testing.assert_array_equal(state["x"].numpy(), np.asarray(a[0]))
     xp, Fp, SPp, *_ = port.D_opt_FW_away(V, x0, 1e-8, 80, verbose=False,
                                          u_mode="pallas_lazy",
-                                         checkpoint=ck_p)
+                                         checkpoint=ck_p, device="cpu")
     xj, Fj, SPj, *_ = dopt_fw_pallas_lazy(V, x0, 1e-8, 80, verbose=False,
                                           interpret=True, group=1,
                                           checkpoint=ck_j)
@@ -126,7 +127,8 @@ def test_continue_from_lazy_iterate(problem, tmp_path):
     ck = str(tmp_path / "jax.npz")
     dopt_fw_pallas_lazy(V, x0, 1e-8, 40, verbose=False, interpret=True,
                         group=1, checkpoint=ck)
-    x, F, *_ = continue_dopt(V, from_jax_carry(ck), 1e-8, 80, k_start=40)
+    x, F, *_ = continue_dopt(V, from_jax_carry(ck, device="cpu"), 1e-8, 80,
+                             k_start=40, device="cpu")
     xe, Fe, *_ = acc.D_opt_FW_away(V, x0, 1e-8, 80, verbose=False)
     assert len(F) == 40
     np.testing.assert_allclose(F, np.asarray(Fe)[40:], rtol=1e-9)
@@ -145,13 +147,14 @@ def test_dense_checkpoint_resumes_in_either_package(problem, tmp_path,
     if writer == "jax":
         a = dopt_fw_pallas(V, x0, 1e-8, 64, interpret=True, **kw)
     else:
-        a = port.D_opt_FW_away(V, x0, 1e-8, 64, u_mode="pallas", **kw)
-    state = from_jax_carry(ck)
+        a = port.D_opt_FW_away(V, x0, 1e-8, 64, u_mode="pallas",
+                               device="cpu", **kw)
+    state = from_jax_carry(ck, device="cpu")
     assert state["k"] == 64
     np.testing.assert_array_equal(state["x"].numpy(), np.asarray(a[0]))
     with open(ck, "rb") as src:
         saved = src.read()
-    xp, Fp, SPp, *_ = dopt_fw_dense(V, x0, 1e-8, 128, **kw)
+    xp, Fp, SPp, *_ = dopt_fw_dense(V, x0, 1e-8, 128, device="cpu", **kw)
     with open(ck, "wb") as dst:
         dst.write(saved)
     xj, Fj, SPj, *_ = dopt_fw_pallas(V, x0, 1e-8, 128, interpret=True, **kw)
@@ -167,9 +170,9 @@ def test_dense_checkpoint_resumes_in_either_package(problem, tmp_path,
 
 def test_unrecognised_carry_raises(tmp_path):
     with pytest.raises(ValueError, match="unrecognised"):
-        from_jax_carry({"x": np.zeros(3)})
+        from_jax_carry({"x": np.zeros(3)}, device="cpu")
     other = str(tmp_path / "other.npz")
     np.savez(other, __v=np.asarray(1), __fp=np.asarray("something|else"),
              x=np.zeros(3))
     with pytest.raises(ValueError, match="not a block-engine checkpoint"):
-        from_jax_carry(other)
+        from_jax_carry(other, device="cpu")

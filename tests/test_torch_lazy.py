@@ -107,7 +107,8 @@ def _assert_blocks_agree(out, ref):
 
 def test_matches_jax_lazy_kernel_and_exact(problem, acc, jax_lazy):
     V, x0 = problem
-    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, 1e-8, 60, verbose=False)
+    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, 1e-8, 60, verbose=False,
+                                      device="cpu")
     xl, Fl, SPl, SNl, _ = jax_lazy(V, x0, 1e-8, 60, verbose=False,
                                    interpret=True, group=1)
     assert len(F) == len(Fl) == 60
@@ -129,7 +130,7 @@ def test_plain_fw_variant(problem, acc, jax_lazy):
     from the exact engine here, the port ~1e-16)."""
     V, x0 = problem
     x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, 1e-8, 50, away=False,
-                                      verbose=False)
+                                      verbose=False, device="cpu")
     _, Fl, *_ = jax_lazy(V, x0, 1e-8, 50, away=False, verbose=False,
                          interpret=True, group=1)
     xe, Fe, SPe, SNe, _ = acc.D_opt_FW(V, x0, 1e-8, 50, verbose=False,
@@ -144,7 +145,8 @@ def test_plain_fw_variant(problem, acc, jax_lazy):
 
 def test_budget_exact_mid_block(problem):
     V, x0 = problem
-    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, 1e-8, 37, verbose=False)
+    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, 1e-8, 37, verbose=False,
+                                      device="cpu")
     assert len(F) == len(SP) == len(SN) == len(T) == 37
 
 
@@ -155,7 +157,7 @@ def test_multi_block_chain(problem, acc, monkeypatch, kr):
     V, x0 = problem
     monkeypatch.setattr(dl, "_KR", kr)
     launches = dl.LAUNCHES
-    x, F, *_ = dl.dopt_fw_lazy(V, x0, 1e-8, 70, verbose=False)
+    x, F, *_ = dl.dopt_fw_lazy(V, x0, 1e-8, 70, verbose=False, device="cpu")
     assert dl.LAUNCHES == launches  # CPU tensors never launch the kernel
     xe, Fe, *_ = acc.D_opt_FW_away(V, x0, 1e-8, 70, verbose=False, chunk=70)
     assert len(F) == len(Fe) == 70
@@ -168,7 +170,7 @@ def test_budget_above_one_block(acc):
     """300 iterations at the production block size: two blocks."""
     V = np.random.default_rng(4).standard_normal((10, 120))
     x0 = np.full(120, 1.0 / 120)
-    x, F, *_ = dl.dopt_fw_lazy(V, x0, 1e-10, 300, verbose=False)
+    x, F, *_ = dl.dopt_fw_lazy(V, x0, 1e-10, 300, verbose=False, device="cpu")
     xe, Fe, *_ = acc.D_opt_FW_away(V, x0, 1e-10, 300, verbose=False,
                                    chunk=300)
     assert len(F) == len(Fe)
@@ -181,7 +183,8 @@ def test_early_stop_truncation(acc):
     V = np.random.default_rng(11).standard_normal((8, 64))
     x0 = np.full(64, 1.0 / 64)
     eps = 1e-3
-    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, eps, 200, verbose=False)
+    x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, eps, 200, verbose=False,
+                                      device="cpu")
     _, Fe, *_ = acc.D_opt_FW_away(V, x0, eps, 200, verbose=False)
     assert len(F) == len(Fe) < 200
     assert SP[-1] <= eps and SN[-1] <= eps
@@ -198,7 +201,8 @@ def test_away_drop_is_exact_zero(acc):
     ~1e-17 residual at the same coordinates."""
     f, h, L, x0 = acc.D_opt_design(30, 300, randseed=10)
     V = np.asarray(f.H)
-    x, F, *_ = dl.dopt_fw_lazy(V, np.asarray(x0), 1e-8, 256, verbose=False)
+    x, F, *_ = dl.dopt_fw_lazy(V, np.asarray(x0), 1e-8, 256, verbose=False,
+                               device="cpu")
     xe, Fe, *_ = acc.D_opt_FW_away(V, np.asarray(x0), 1e-8, 256,
                                    verbose=False)
     zeros = x.numpy() == 0.0
@@ -219,7 +223,7 @@ def test_refresh_every_rounds_up_to_blocks(problem, acc, monkeypatch):
 
     monkeypatch.setattr(dl, "factorize", spy)
     x, F, *_ = dl.dopt_fw_lazy(V, x0, 1e-8, 64, verbose=False,
-                               refresh_every=20)
+                               refresh_every=20, device="cpu")
     # blocks end at 16, 32, 48, 64: refreshes after 32 and 64 (20 rounded
     # up to a block boundary), plus the initial factorization
     assert len(calls) == 3
@@ -232,9 +236,11 @@ def test_refresh_every_rounds_up_to_blocks(problem, acc, monkeypatch):
 def test_checkpoint_resume(problem, tmp_path):
     V, x0 = problem
     ck = str(tmp_path / "lazy.npz")
-    a = dl.dopt_fw_lazy(V, x0, 1e-8, 40, verbose=False, checkpoint=ck)
-    b = dl.dopt_fw_lazy(V, x0, 1e-8, 80, verbose=False, checkpoint=ck)
-    full = dl.dopt_fw_lazy(V, x0, 1e-8, 80, verbose=False)
+    a = dl.dopt_fw_lazy(V, x0, 1e-8, 40, verbose=False, checkpoint=ck,
+                        device="cpu")
+    b = dl.dopt_fw_lazy(V, x0, 1e-8, 80, verbose=False, checkpoint=ck,
+                        device="cpu")
+    full = dl.dopt_fw_lazy(V, x0, 1e-8, 80, verbose=False, device="cpu")
     assert len(b[1]) == 80
     np.testing.assert_array_equal(b[2][:40], a[2])  # saved rows verbatim
     # resume = a refactorization at the interruption point
@@ -245,7 +251,7 @@ def test_checkpoint_resume(problem, tmp_path):
 
 def test_verbose_rows(problem, capsys):
     V, x0 = problem
-    dl.dopt_fw_lazy(V, x0, 1e-8, 10, verbose=True, verbskip=5)
+    dl.dopt_fw_lazy(V, x0, 1e-8, 10, verbose=True, verbskip=5, device="cpu")
     out = capsys.readouterr().out
     assert "lazy-H block kernel" in out
     rows = [ln for ln in out.splitlines() if ln[:6].strip().isdigit()]
@@ -256,8 +262,9 @@ def test_d_opt_entry_routes_pallas_lazy(problem):
     """u_mode="pallas_lazy" through the public entry point is this engine
     (the plain block on the CPU)."""
     V, x0 = problem
-    a = D_opt_FW_away(V, x0, 1e-8, 45, verbose=False, u_mode="pallas_lazy")
-    b = dl.dopt_fw_lazy(V, x0, 1e-8, 45, verbose=False)
+    a = D_opt_FW_away(V, x0, 1e-8, 45, verbose=False, u_mode="pallas_lazy",
+                      device="cpu")
+    b = dl.dopt_fw_lazy(V, x0, 1e-8, 45, verbose=False, device="cpu")
     assert torch.equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
 
@@ -297,6 +304,75 @@ def test_lazy_block_rejects_bad_arguments(problem):
         dl.lazy_block(V, H0, x, w, eps=1e-8, kmax=dl._KR + 1)
 
 
+SMS, SMEM_LIMIT = 132, 232448  # one H100: SMs, opt-in shared memory per CTA
+
+
+@pytest.mark.parametrize("m,n,K", [
+    (12, 160, 1),
+    (1000, 5000, 1),       # the main path
+    (1000, 2000, 3),       # the large-m sweep
+    (1000, 50, 1),         # fewer columns than CTAs
+    (dl._MAX_M, 20000, 1),  # the largest m: no column fits beside g
+    (100, 1000, 200),      # more instances than SMs: waves of one CTA each
+    (77, 1234, 5),         # ragged everywhere
+], ids=["12x160", "1000x5000", "K3-1000x2000", "n<CTAs", "max-m", "K>SMs",
+        "ragged"])
+def test_launch_plan_covers_the_design(m, n, K):
+    """The kernel's launch plan: every column of V and every row of H0
+    owned by exactly one CTA of the group, the rows' segments covering m,
+    the shared memory within the card's limit, and at least one CTA per
+    instance."""
+    plan = dl.launch_plan(m, n, dl._KR, K, SMS, SMEM_LIMIT)
+    G = plan.group
+    assert G >= 1 and 1 <= plan.wave <= min(K, SMS)
+    assert G * plan.wave <= SMS            # one persistent CTA per SM
+    assert plan.waves * plan.wave >= K > (plan.waves - 1) * plan.wave
+    cols = [j for b in range(G) for j in plan.cols(b)]
+    rows = [i for b in range(G) for i in plan.rows(b)]
+    assert cols == list(range(n)) and rows == list(range(m))
+    sizes = [len(plan.cols(b)) for b in range(G)]
+    assert max(sizes) - min(sizes) <= 1
+    assert plan.seg_len % 32 == 0 and plan.segs * plan.seg_len >= m
+    assert (plan.segs - 1) * plan.seg_len < m or plan.segs == 1
+    # shared memory: one length-m vector, the segment sums, H0 v and beta of
+    # the CTA's rows, then the resident columns with their w and x
+    own_rows = plan.row_base + 1 + -(-dl._KR // G)
+    fixed = 8 * (m + own_rows * plan.segs + own_rows)
+    assert plan.smem_bytes == fixed + 8 * plan.resident * (m + 2)
+    assert plan.smem_bytes + dl._STATIC_SMEM <= SMEM_LIMIT
+    assert 0 <= plan.resident <= max(sizes)
+    # no room is left unused while a column still streams
+    if plan.resident < max(sizes):
+        assert plan.smem_bytes + 8 * (m + 2) + dl._STATIC_SMEM > SMEM_LIMIT
+    assert plan.dwords >= m + dl._KR + 3 * G
+    assert plan.iwords % 32 == 0 and plan.iwords >= 32 + 2 * G
+
+
+def test_launch_plan_known_splits():
+    """The splits at the shapes the card runs: 27 of a CTA's 37-38 columns
+    resident at 1000x5000, none at the largest m, groups of 44 CTAs for
+    three instances, and one CTA per instance in two waves for 200."""
+    main = dl.launch_plan(1000, 5000, 256, 1, SMS, SMEM_LIMIT)
+    assert (main.group, main.wave, main.waves) == (132, 1, 1)
+    assert (main.col_base, main.col_extra) == (37, 116)
+    assert (main.row_base, main.row_extra, main.segs) == (7, 76, 2)
+    assert main.resident == 27
+    assert dl.launch_plan(dl._MAX_M, 20000, 256, 1, SMS,
+                          SMEM_LIMIT).resident == 0
+    sweep = dl.launch_plan(1000, 2000, 256, 3, SMS, SMEM_LIMIT)
+    assert (sweep.group, sweep.wave, sweep.waves) == (44, 3, 1)
+    many = dl.launch_plan(100, 1000, 256, 200, SMS, SMEM_LIMIT)
+    assert (many.group, many.wave, many.waves) == (1, 132, 2)
+    assert many.resident == 274  # of 1000: what 227 KB holds at m = 100
+
+
+def test_launch_plan_rejects_what_cannot_run():
+    with pytest.raises(ValueError, match="positive"):
+        dl.launch_plan(0, 10, 256, 1, SMS, SMEM_LIMIT)
+    with pytest.raises(ValueError, match="shared memory"):
+        dl.launch_plan(1000, 5000, 256, 1, SMS, 8000)
+
+
 @pytest.mark.cuda
 def test_lazy_block_on_cuda_never_takes_the_plain_path(problem, cuda_dev,
                                                        monkeypatch):
@@ -318,9 +394,14 @@ def test_lazy_block_on_cuda_never_takes_the_plain_path(problem, cuda_dev,
 @pytest.mark.parametrize("shape,eps,away", [
     ((30, 300), 1e-8, True),
     ((30, 300), 1e-8, False),
-    ((77, 1234), 1e-8, True),      # ragged column tiles and row chunks
+    ((77, 1234), 1e-8, True),      # ragged panels of columns and rows
     ((8, 64), 1e-3, True),         # stops inside the block
-], ids=["30x300", "30x300-plain", "77x1234", "stop-in-block"])
+    ((120, 133), 1e-8, True),      # one or two columns per CTA
+    ((600, 1300), 1e-8, True),     # every column resident, 3 row segments
+    ((2049, 4200), 1e-8, True),    # 13 of 32 columns resident, long rows
+    ((5, 5000), 1e-8, False),      # m below a warp, fewer rows than CTAs
+], ids=["30x300", "30x300-plain", "77x1234", "stop-in-block", "120x133",
+        "600x1300", "2049x4200", "5x5000-plain"])
 def test_kernel_matches_plain_version_on_card(cuda_dev, shape, eps, away):
     V, H0, x, w = _fresh(np.random.default_rng(11).standard_normal(shape),
                          cuda_dev)
@@ -331,6 +412,47 @@ def test_kernel_matches_plain_version_on_card(cuda_dev, shape, eps, away):
     _assert_blocks_agree(out, ref)
     if eps == 1e-3:
         assert out.misc[0].item() == 1.0 and out.misc[1] < dl._KR
+
+
+@pytest.mark.cuda
+def test_prepared_kernel_chains_blocks_on_card(cuda_dev):
+    """A kernel prepared once, as the drivers use it: the second block
+    starts from the first's x and w (its own output buffers), and a block
+    of no iterations hands its state through."""
+    V, H0, x, w = _fresh(np.random.default_rng(5).standard_normal((64, 2000)),
+                         cuda_dev)
+    run = dict(eps=1e-8, done=False, away=True, xtol=dl.XTOL)
+    kernel = dl._LazyKernel(V.T.contiguous())
+    b1 = kernel.run(H0, x, w, kmax=dl._KR, **run)
+    H1 = dl._lazy_refresh(H0, b1.C, b1.beta, b1.misc[2])
+    r1 = dl.lazy_block_reference(V, H0, x, w, eps=1e-8, kmax=dl._KR)
+    Hr = dl._lazy_refresh(H0, r1.C, r1.beta, r1.misc[2])
+    b2 = kernel.run(H1, b1.x, b1.w, kmax=100, **run)
+    r2 = dl.lazy_block_reference(V, Hr, r1.x, r1.w, eps=1e-8, kmax=100)
+    torch.cuda.synchronize()
+    _assert_blocks_agree(b2, r2)
+    x2, w2 = b2.x.clone(), b2.w.clone()
+    b3 = kernel.run(H1, b2.x, b2.w, kmax=0, **run)
+    torch.cuda.synchronize()
+    assert b3.misc.cpu().tolist() == [0.0, 0.0, 1.0, 0.0]
+    assert torch.equal(b3.x, x2) and torch.equal(b3.w, w2)
+
+
+@pytest.mark.cuda
+def test_kernels_of_two_designs_interleave_on_card(cuda_dev):
+    """Preparing a kernel for a small design does not take the shared
+    memory of one prepared earlier for a large design."""
+    rng = np.random.default_rng(7)
+    big = _fresh(rng.standard_normal((1000, 3000)), cuda_dev)
+    small = _fresh(rng.standard_normal((12, 160)), cuda_dev)
+    run = dict(eps=1e-8, kmax=40, done=False, away=True, xtol=dl.XTOL)
+    kernels = [dl._LazyKernel(s[0].T.contiguous()) for s in (big, small)]
+    assert kernels[0].plan.smem_bytes > kernels[1].plan.smem_bytes
+    for kernel, (V, H0, x, w) in zip(kernels, (big, small)):
+        out = kernel.run(H0, x, w, **run)
+        torch.cuda.synchronize()
+        _assert_blocks_agree(out, dl.lazy_block_reference(
+            V, H0, x, w, eps=1e-8, kmax=40))
 
 
 @pytest.mark.cuda
@@ -348,7 +470,7 @@ def test_exact_engine_on_card_matches_cpu(problem, cuda_dev):
     x, F, SP, SN, T = D_opt_FW_away(V, x0, 1e-8, 200, verbose=False,
                                     u_mode="exact", device=cuda_dev)
     xc, Fc, SPc, SNc, _ = D_opt_FW_away(V, x0, 1e-8, 200, verbose=False,
-                                        u_mode="exact")
+                                        u_mode="exact", device="cpu")
     assert x.device.type == "cuda" and len(F) == len(Fc)
     np.testing.assert_allclose(F, Fc, rtol=0, atol=1e-12)
     np.testing.assert_allclose(SP, SPc, rtol=0, atol=1e-12)
@@ -368,7 +490,8 @@ def test_engine_on_card_matches_cpu(problem, cuda_dev, monkeypatch, eps,
     x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, eps, budget, verbose=False,
                                       device=cuda_dev)
     assert dl.LAUNCHES - before == -(-len(F) // 32)
-    xc, Fc, *_ = dl.dopt_fw_lazy(V, x0, eps, budget, verbose=False)
+    xc, Fc, *_ = dl.dopt_fw_lazy(V, x0, eps, budget, verbose=False,
+                                 device="cpu")
     assert len(F) == len(Fc)
     if eps == 1e-3:
         assert len(F) < budget and SP[-1] <= eps and SN[-1] <= eps

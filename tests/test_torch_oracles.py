@@ -51,7 +51,7 @@ def test_dopt_value_and_grad(design, n_valid):
         H = H.copy()
         H[:, n_valid:] = 0.0  # padded columns
     fj = acc.DOptimalObj(H=jnp.asarray(H), n_valid=n_valid)
-    fp = port.DOptimalObj(H, n_valid=n_valid)
+    fp = port.DOptimalObj(H, n_valid=n_valid, device="cpu")
     vj, gj = fj.value_and_grad(jnp.asarray(x))
     vp, gp = fp.value_and_grad(_t(x))
     _close(vp, vj, ORACLE_RTOL)
@@ -70,7 +70,7 @@ def test_dopt_not_positive_definite_is_nan(design):
     H, _ = design
     x = np.zeros(120)
     x[:10] = 0.1  # rank 10 < m = 40
-    fp = port.DOptimalObj(H)
+    fp = port.DOptimalObj(H, device="cpu")
     assert np.isnan(float(fp.value(_t(x))))
     v, g = fp.value_and_grad(_t(x))
     assert np.isnan(float(v)) and torch.isnan(g).all()
@@ -209,30 +209,35 @@ def test_solve_theta_matches_jax(theta, gamma, ratio):
 
 def test_from_jax_oracle():
     fj, hj, L, x0 = acc.D_opt_design(40, 120, randseed=10)
-    fp = from_jax_oracle(fj)
+    fp = from_jax_oracle(fj, device="cpu")
     assert isinstance(fp, port.DOptimalObj) and fp.H.dtype == torch.float64
     xj = jnp.asarray(np.random.default_rng(15).uniform(0.5, 1.5, 120) / 120)
     vj, gj = fj.value_and_grad(xj)
     vp, gp = fp.value_and_grad(_t(xj))
     _close(vp, vj, 1e-13)
     _close(gp, gj, 1e-13)
-    hp = from_jax_oracle(acc.BurgEntropySimplex(eps=1e-9, use_pallas=True))
+    hp = from_jax_oracle(acc.BurgEntropySimplex(eps=1e-9, use_pallas=True),
+                         device="cpu")
     assert (type(hp) is port.BurgEntropySimplex and hp.eps == 1e-9
             and hp.use_pallas)
-    assert from_jax_oracle(acc.BurgEntropyL1(lamda=0.25)).lamda == 0.25
-    assert type(from_jax_oracle(acc.BurgEntropyL2(lamda=0.5))) is \
+    assert from_jax_oracle(acc.BurgEntropyL1(lamda=0.25),
+                           device="cpu").lamda == 0.25
+    assert type(from_jax_oracle(acc.BurgEntropyL2(lamda=0.5),
+                                device="cpu")) is \
         port.BurgEntropyL2
-    assert type(from_jax_oracle(acc.BurgEntropy())) is port.BurgEntropy
+    assert type(from_jax_oracle(acc.BurgEntropy(),
+                                device="cpu")) is port.BurgEntropy
     with pytest.raises(TypeError, match="no port"):
-        from_jax_oracle(acc.SquaredL2Norm())
+        from_jax_oracle(acc.SquaredL2Norm(), device="cpu")
 
 
 def test_d_opt_design_is_the_jax_instance():
     fj, _, Lj, x0j = acc.D_opt_design(30, 80, randseed=10)
-    fp, hp, Lp, x0p = port.D_opt_design(30, 80, randseed=10, oracle="mixed")
+    fp, hp, Lp, x0p = port.D_opt_design(30, 80, randseed=10, oracle="mixed",
+                                        device="cpu")
     np.testing.assert_array_equal(fp.H.numpy(), np.asarray(fj.H))
     np.testing.assert_array_equal(x0p.numpy(), np.asarray(x0j))
     assert Lp == Lj == 1.0 and type(hp) is port.BurgEntropySimplex
     assert not hp.use_pallas
     with pytest.raises(ValueError, match="oracle"):
-        port.D_opt_design(3, 5, oracle="other")
+        port.D_opt_design(3, 5, oracle="other", device="cpu")

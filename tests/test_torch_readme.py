@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 def test_readme_example_through_the_kernel_route():
     """examples/ex_Dopt_random.py's BPG, ABPG, ABPG_expo and ABPG_gain
     calls at 80x200 seed 10 with ``use_pallas=True``."""
-    f, _, L, x0 = port.D_opt_design(80, 200, randseed=10)
+    f, _, L, x0 = port.D_opt_design(80, 200, randseed=10, device="cpu")
     h = port.BurgEntropySimplex(use_pallas=True)
     n = 900
     F_bpg = port.BPG(f, h, L, x0, maxitrs=n, linesearch=True, ls_ratio=2,
