@@ -13,15 +13,18 @@ F history in f64 from the recorded (tau, tau (w_v - 1)) pairs.  The TPU
 kernels carried double-single pairs because Mosaic has no f64; here every
 block runs in FP64.  ``dense_block`` is the block for B instances: on a
 CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/dopt_dense.cu``, one CTA per instance), on a CPU tensor it runs
-``dense_block_reference``, the plain PyTorch version of the same
-iteration.  ``dopt_fw_dense`` (B = 1) ports ``dopt_fw_pallas`` and
-``dopt_fw_dense_batch`` ports ``dopt_fw_pallas_batch``.
+(``csrc/dopt_dense.cu``: a thread-block cluster per instance, laid out by
+``dense_plan``, with each CTA's columns of V resident in its shared
+memory), on a CPU tensor it runs ``dense_block_reference``, the plain
+PyTorch version of the same iteration.  ``dopt_fw_dense`` (B = 1) ports
+``dopt_fw_pallas`` and ``dopt_fw_dense_batch`` ports
+``dopt_fw_pallas_batch``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -38,7 +41,7 @@ from .dopt_common import (XTOL, check_operands, f_rows, factorize, pivots,
 # lockstep row count is a multiple of 128 (or the launch's kmax).
 _INNER = 64
 _ROW_BLOCK = 128
-_MAX_M = 4096     # the kernel keeps two length-m vectors in shared memory
+_MAX_M = 4096     # the kernel keeps three length-m vectors in shared memory
 
 # Kernel launches made by ``dense_block`` on a CUDA tensor (never by the
 # plain version), so a run can show that it went through the kernel.
@@ -141,8 +144,8 @@ def dense_block(Vs, Hs, xs, ws, *, eps, kmax, done=None, away=True,
     On a CUDA tensor this launches the Hopper kernel and counts the launch
     in ``LAUNCHES``; a launch that fails raises.  On a CPU tensor it runs
     the plain version.  ``VTs`` is ``Vs.transpose(1, 2).contiguous()``,
-    which the kernel reads pivot columns from; pass it to avoid a copy per
-    call."""
+    which the kernel reads pivot columns from where its plan streams V
+    (``dense_plan``: ``resident == 0``); pass it to avoid a copy per call."""
     _check_block_args(Vs, Hs, xs, ws, kmax, done)
     if Vs.device.type == "cpu":
         return dense_block_reference(Vs, Hs, xs, ws, eps=eps, kmax=kmax,
@@ -155,30 +158,180 @@ def dense_block(Vs, Hs, xs, ws, *, eps, kmax, done=None, away=True,
     return out
 
 
+# ---- the kernel's launch plan -----------------------------------------------
+
+_MAX_THREADS = 512
+_CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 needs the non-portable opt-in
+_STATIC_SMEM = 4608  # room left for the kernel's static shared memory
+_MIN_COLS = 96       # fewer columns per CTA are not worth a larger cluster
+_MAX_SLOTS = 64      # warps of a cluster: each has a slot in every CTA
+
+
+class DensePlan(NamedTuple):
+    """How one launch of the dense kernel is laid out on a card (see
+    ``dense_plan``).  The fields after ``n`` are what the C entry takes,
+    in its order."""
+    n: int
+    cluster: int     # CTAs per instance (the grid is B clusters)
+    threads: int     # threads per CTA (a power-of-two number of warps)
+    chunk: int       # CTA r owns columns [r chunk, (r + 1) chunk) below n
+    resident: int    # 1: the CTA's panel of V, w and x live in shared
+                     # memory; 0: one CTA streams V from the L2
+    h_in_smem: int   # 1: every CTA keeps a copy of H in shared memory;
+                     # 0: H stays in global memory
+    smem_bytes: int  # dynamic shared memory per CTA
+
+    def cols(self, r):
+        """The columns of V that CTA ``r`` of a cluster owns."""
+        return range(min(self.n, r * self.chunk),
+                     min(self.n, (r + 1) * self.chunk))
+
+
+def _pow2_warps(work):
+    """Threads for ``work`` parallel items: a power-of-two number of
+    warps, at most ``_MAX_THREADS``."""
+    warps = 1
+    while warps * 32 < _MAX_THREADS and warps * 32 < work:
+        warps *= 2
+    return 32 * warps
+
+
+def dense_plan(B, m, n, sms, smem_limit, max_cluster):
+    """The layout of one dense launch for B instances of an (m, n) design
+    on a card of ``sms`` SMs whose CTAs may take ``smem_limit`` bytes of
+    shared memory and whose largest schedulable cluster is ``max_cluster``
+    CTAs.
+
+    An instance runs on a cluster of C CTAs, the largest power of two with
+    B C <= sms (and at least ``_MIN_COLS`` columns per CTA).  Every CTA
+    keeps three length-m vectors, its own copy of H, and its n / C columns
+    of V with their w and x (the panel's rows padded to an odd stride) in
+    shared memory.  Where H and the panel do not fit together the cluster
+    is halved; where they do not fit in one CTA either, one CTA per
+    instance keeps H and streams V from the L2, and beyond that H stays in
+    global memory as well."""
+    if min(B, m, n, sms) < 1:
+        raise ValueError(f"dense_plan needs positive sizes, got B={B} m={m} "
+                         f"n={n} sms={sms}")
+    if max_cluster not in _CLUSTER_SIZES:
+        raise ValueError(f"max_cluster must be one of {_CLUSTER_SIZES}, got "
+                         f"{max_cluster}")
+    room = smem_limit - _STATIC_SMEM
+    vec = 8 * 3 * m
+    if vec > room:
+        raise ValueError(f"m={m} needs {vec + _STATIC_SMEM} bytes of shared "
+                         f"memory per CTA, the card gives {smem_limit}")
+    cluster = 1
+    while (2 * cluster <= max_cluster and B * 2 * cluster <= sms
+           and n // (2 * cluster) >= _MIN_COLS):
+        cluster *= 2
+    while cluster >= 1:
+        chunk = -(-n // cluster)
+        need = vec + 8 * (m * m + m * (chunk | 1) + 2 * chunk)
+        if need <= room:
+            # a thread per column, or per eight elements of H if that is
+            # more, within the slots that the warps of a cluster have
+            threads = min(_pow2_warps(max(chunk, m * m // 8)),
+                          32 * _MAX_SLOTS // cluster)
+            return DensePlan(n, cluster, threads, chunk, 1, 1, need)
+        cluster //= 2
+    if vec + 8 * m * m <= room:
+        return DensePlan(n, 1, _MAX_THREADS, n, 0, 1, vec + 8 * m * m)
+    return DensePlan(n, 1, _MAX_THREADS, n, 0, 0, vec)
+
+
+# The phases that thread 0 of CTA 0 clocks when a launch is given ``prof``
+# (the kernel's ``Phase``).
+PHASES = ("scan and warp merge", "exchange", "merge", "columns asked, "
+          "slacks and step scalars", "columns staged", "g = H v",
+          "H, u, w, x")
+
+
+class _Kernel(NamedTuple):
+    """The loaded library, bound once per process."""
+    run: object
+    info: object
+    active_clusters: object
+    error_string: object
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel_lib():
     from . import _build
 
     lib = _build.load("dopt_dense")
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.dopt_dense_run.argtypes = [p] * 11 + [d, d] + [i] * 5 + [p]
+    ip = ctypes.POINTER(i)
+    lib.dopt_dense_run.argtypes = [p] * 11 + [d, d] + [i] * 5 + [ip, p, i, p]
     lib.dopt_dense_run.restype = i
+    if lib.dopt_dense_phases() != len(PHASES):
+        raise RuntimeError("the dense kernel's phases differ from PHASES")
+    lib.dopt_dense_info.argtypes = [i, ip]
+    lib.dopt_dense_info.restype = i
+    lib.dopt_dense_active_clusters.argtypes = [i, i, i, i, ip]
+    lib.dopt_dense_active_clusters.restype = i
     lib.dopt_dense_error_string.argtypes = [i]
     lib.dopt_dense_error_string.restype = ctypes.c_char_p
-    return lib
+    return _Kernel(lib.dopt_dense_run, lib.dopt_dense_info,
+                   lib.dopt_dense_active_clusters,
+                   lib.dopt_dense_error_string)
 
 
-def _launch_cuda(Vs, Hs, xs, ws, eps, kmax, done, away, xtol, VTs):
+def _check_err(err, what):
+    if err:
+        raise RuntimeError(f"dopt_dense {what} failed: "
+                           + _kernel_lib().error_string(err).decode())
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_info(device_index):
+    """The kernel as compiled, and the card's limit: ``(registers per
+    thread, static shared bytes, local (spill) bytes per thread, dynamic
+    shared bytes a CTA may ask for)``.  The first call on a device also
+    makes the once-per-device set-up of the function's attributes."""
+    info = (ctypes.c_int * 4)()
+    _check_err(_kernel_lib().info(device_index, info), "set-up")
+    return tuple(info)
+
+
+@functools.lru_cache(maxsize=None)
+def device_plan(B, m, n, device_index):
+    """``dense_plan`` for B instances of (m, n) on CUDA device
+    ``device_index``, with the cluster size taken down to what the card
+    says it can schedule (``cudaOccupancyMaxActiveClusters``).  Returns
+    ``(plan, clusters the card holds at once)``."""
+    limit = kernel_info(device_index)[3] + _STATIC_SMEM
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    active = ctypes.c_int()
+    for max_cluster in reversed(_CLUSTER_SIZES):
+        plan = dense_plan(B, m, n, sms, limit, max_cluster)
+        if plan.cluster < max_cluster and max_cluster > 1:
+            continue  # the same plan comes again under a smaller cap
+        _check_err(_kernel_lib().active_clusters(
+            device_index, plan.cluster, plan.threads, plan.smem_bytes,
+            ctypes.byref(active)), "occupancy query")
+        if active.value >= 1:
+            return plan, active.value
+    raise RuntimeError(f"the card schedules no launch of the dense kernel "
+                       f"for B={B} m={m} n={n}")
+
+
+def _launch_cuda(Vs, Hs, xs, ws, eps, kmax, done, away, xtol, VTs,
+                 prof=None):
+    """``prof``: a zeroed int64 tensor of ``len(PHASES)`` that thread 0 of
+    CTA 0 adds its clocks per phase to."""
     B, m, n = Vs.shape
     if m > _MAX_M:
         raise ValueError(f"the dense kernel takes m <= {_MAX_M}, got {m}")
+    dev = Vs.device
+    plan, _ = device_plan(B, m, n, dev.index)
     if VTs is None:
-        VTs = Vs.transpose(1, 2).contiguous()
+        # a resident plan reads pivot columns from the panels, not from V^T
+        VTs = Vs if plan.resident else Vs.transpose(1, 2).contiguous()
     elif (VTs.dtype != torch.float64 or VTs.device != Vs.device
           or tuple(VTs.shape) != (B, n, m) or not VTs.is_contiguous()):
         raise ValueError("VTs must be Vs.transpose(1, 2).contiguous() "
                          "(float64, same device)")
-    lib = _kernel_lib()
-    dev = Vs.device
     f64 = dict(dtype=torch.float64, device=dev)
     xo = torch.empty((B, n), **f64)
     wo = torch.empty((B, n), **f64)
@@ -188,16 +341,15 @@ def _launch_cuda(Vs, Hs, xs, ws, eps, kmax, done, away, xtol, VTs):
     flags = torch.tensor([0] * B if done is None else [int(bool(d))
                                                        for d in done],
                          dtype=torch.int32).to(dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dopt_dense_run(
-            Vs.data_ptr(), VTs.data_ptr(), Hs.data_ptr(), xs.data_ptr(),
-            ws.data_ptr(), flags.data_ptr(), xo.data_ptr(), wo.data_ptr(),
-            Ho.data_ptr(), misc.data_ptr(), hist.data_ptr(), float(eps),
-            float(xtol), B, m, n, int(kmax), int(bool(away)), stream)
-    if err:
-        raise RuntimeError("dopt_dense kernel launch failed: "
-                           + lib.dopt_dense_error_string(err).decode())
+    err = _kernel_lib().run(
+        Vs.data_ptr(), VTs.data_ptr(), Hs.data_ptr(), xs.data_ptr(),
+        ws.data_ptr(), flags.data_ptr(), xo.data_ptr(), wo.data_ptr(),
+        Ho.data_ptr(), misc.data_ptr(), hist.data_ptr(), float(eps),
+        float(xtol), B, m, n, int(kmax), int(bool(away)),
+        (ctypes.c_int * 6)(*plan[1:]),
+        None if prof is None else prof.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_err(err, "kernel launch")
     return DenseBlock(xo, wo, Ho, misc, hist[:, :, :kmax])
 
 

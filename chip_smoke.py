@@ -2,13 +2,26 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --blocks-only [--root DIR] [--solves N]
+                          [--gain-iters N]
+    python3 chip_smoke.py --micro
+
+With ``--micro`` it builds and runs ``csrc/micro_cluster.cu``: the clocks
+of the primitives the cluster kernels are built from (an exchange across a
+cluster by a store and the cluster barrier or by ``st.async`` and a
+transaction barrier, an IEEE FP64 division, the Newton reciprocal).
 
 With ``--blocks-only`` it prints only the lazy-H kernel's block times
-(1000x5000, and K=3 of 1000x2000) and the walls of ``--solves`` warm
-main-path solves, for the package under ``--root`` (default: this file's
-directory), through the wrappers that every commit of the port has.  That
-is how two commits are compared on one card, in ONE call (two calls may
-land on cards with other power limits):
+(1000x5000, and K=3 of 1000x2000), the dense kernel's block times (B=1 and
+B=32 of 30x1000, and two shapes whose layout streams V: B=1 of 165x1000 and
+B=2 of 200x700), the multiplier's time per call (n = 1000, 10000, 100000:
+by events, the kernel's device time in a trace, and the wrapper's host
+cost), the warm walls of the dense sweep and of one ``u_mode="pallas"``
+solve, of ``ABPG_gain`` 30x10000 over ``--gain-iters`` iterations (0: not
+run) and of ``--solves`` warm main-path solves, for the package under
+``--root`` (default: this file's directory), through the wrappers that
+every commit of the port has.  That is how two commits are compared
+on one card, in ONE call (two calls may land on cards with other power
+limits):
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
     for r in build/parent . . build/parent; do
@@ -31,15 +44,21 @@ and the script exits non-zero without the result line:
    1000x5000 kernel, the clocks of CTA 0 per phase, two cuBLAS DGEMV
    times as yardsticks of its phases, and a launch after a smaller design's
    kernel was prepared in between; the dense kernel (B=4 and B=32 of
-   30x1000, and B=1), the Burg-simplex multiplier (the first prox input of
-   the 30x10000 and 30x1000 paths, n=1 where its bisection moves, and
-   random inputs at n = 1000, 10000, 100000; ms per call);
+   30x1000, and B=1: the launch plan, registers and spills, two launches
+   from one state bit for bit, and thread 0 of CTA 0's clocks per phase),
+   the Burg-simplex multiplier (the first
+   prox input of the 30x10000 and 30x1000 paths, n=1 where its bisection
+   moves, and random inputs at n = 1000, 10000, 100000: the launch plan,
+   ms per call by events, the kernel's device time in a trace, the
+   wrapper's host cost over 1000 unsynchronised calls and thread 0 of CTA
+   0's clocks per stage of a pass);
 4. the paths, each with its kernel's launch count set to 0 just before it
    and read just after:
    a. the dense sweep: ``dopt_fw_batch(precision="pallas")`` on K=32 of
       30x1000 (instance k from ``np.random.seed(k + 1)``), uniform starts,
       FW-away, eps=1e-8, a 20000 budget; every instance must stop and
-      certify by fresh float64 slacks of its final iterate;
+      certify by fresh float64 slacks of its final iterate; one more sweep
+      is traced (the dense kernel's time in its path);
    b. the large-m sweep: ``dopt_fw_batch(precision="auto")`` on K=3 of
       1000x2000 (seeds 1, 2, 3) from ``D_opt_KYinit`` starts, FW-away,
       refresh_every=4096, cut to a 20000 budget and eps=1e-7; it must run
@@ -194,6 +213,43 @@ def trace_line(label, fn, kernel_name):
           f"{kernel_name} {sum(mine):.3f} s in {len(mine)} launches "
           f"({100 * sum(mine) / wall:.1f}% of the wall, "
           f"{1e3 * sum(mine) / max(len(mine), 1):.3f} ms each)", flush=True)
+
+
+def kernel_device_us(fn, kernel_name, reps):
+    """Mean device time (us) of the kernel whose name holds ``kernel_name``
+    over ``reps`` calls of ``fn`` under torch.profiler, or None where the
+    trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e.device_time for e in prof.events()
+            if e.device_type == DeviceType.CUDA and kernel_name in e.name]
+    return sum(mine) / len(mine) if mine else None
+
+
+def host_cost_us(fn, reps=1000):
+    """Host time (us) per call of ``fn`` over ``reps`` unsynchronised
+    calls: what the wrapper costs the caller's thread.  Where the kernel is
+    slower than that, the launch queue fills and this reads the kernel's
+    pace instead."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    cost = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return cost
+
+
+def us_text(value):
+    return "not measured" if value is None else f"{value:.2f} us"
 
 
 def timed_plain(fn):
@@ -438,13 +494,29 @@ def compare_dense(dd, Vs, eps, kmax=256):
         raise AssertionError(f"dense histories: max |kernel - plain| "
                              f"{err:.3e} exceeds atol {ATOL_HIST}")
     errs.append(err)
+    # two launches from one state: the same bits
+    again = dd.dense_block(Vs, Hs, xs, ws, VTs=VTs, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(again, out)):
+        raise AssertionError(f"dense_block B={B}: two launches from one "
+                             f"state differ")
     ms = time_launches(lambda: dd.dense_block(Vs, Hs, xs, ws, VTs=VTs, **kw),
                        5)
     bound_ms, bound_by = dense_bound(B, m, n, kmax, int(misc[:, 1].sum()))
+    plan, active = dd.device_plan(B, m, n, Vs.device.index)
+    regs, _, spill, _ = dd.kernel_info(Vs.device.index)
+    layout = (f"the columns resident in {plan.smem_bytes} B of shared "
+              f"memory" if plan.resident else
+              f"V streamed, H in {'shared' if plan.h_in_smem else 'global'} "
+              f"memory ({plan.smem_bytes} B of shared memory)")
     print(f"[kernel] dense B={B} {m}x{n}: {kmax} iterations each, pivots "
-          f"identical, max |kernel - plain| {max(errs):.3e}; per block "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms (by {bound_by})", flush=True)
+          f"identical, two launches bit for bit, max |kernel - plain| "
+          f"{max(errs):.3e}; per block kernel {ms:.3f} ms "
+          f"({ms * 1e3 / kmax:.2f} us per iteration), plain {plain_ms:.3f} "
+          f"ms, bound {bound_ms:.4f} ms (by {bound_by}); {B} clusters of "
+          f"{plan.cluster} CTAs x {plan.threads} threads ({active} fit the "
+          f"card at once), {plan.chunk} columns per CTA, {layout}; {regs} "
+          f"registers per thread, {spill} B spilled", flush=True)
     return max(errs), ms, plain_ms, bound_ms, bound_by
 
 
@@ -505,6 +577,63 @@ def compare_lazy_batch(dl, Vs, x0s, eps):
           f"memory, the rest streamed; {kernel.regs} registers per thread",
           flush=True)
     return max(errs), ms, plain_ms, bound_ms, bound_by
+
+
+def dense_phases(dd, Vs, eps, ms, kmax=256):
+    """Thread 0 of CTA 0's clocks per phase over one dense block, as shares
+    of the block's time per iteration."""
+    from accbpg_and_fw_tpu_torch.ops.dopt_common import factorize
+
+    B, m, n = Vs.shape
+    xs = torch.full((B, n), 1.0 / n, dtype=torch.float64, device=Vs.device)
+    parts = [factorize(Vs[b], xs[b]) for b in range(B)]
+    Hs = torch.stack([p[0] for p in parts])
+    ws = torch.stack([p[1] for p in parts])
+    prof = torch.zeros(len(dd.PHASES), dtype=torch.int64, device=Vs.device)
+    blk = dd._launch_cuda(Vs, Hs, xs, ws, eps, kmax, None, True, 1e-8, None,
+                          prof=prof)
+    clocks = prof.cpu().numpy().astype(np.float64)
+    nrun = int(blk.misc[0, 2])
+    if not (clocks > 0).all():
+        raise AssertionError(f"the phase clocks were not written: {clocks}")
+    us = clocks / clocks.sum() * ms * 1e3 / max(nrun, 1)
+    parts = "; ".join(f"{name} {t:.2f} us ({c / nrun:.0f} clocks)"
+                      for name, t, c in zip(dd.PHASES, us, clocks))
+    print(f"[phases] dense B={B} {m}x{n} per iteration, thread 0 of CTA 0's "
+          f"clocks scaled to the block time: {parts}", flush=True)
+
+
+def simplex_stages(sm, gg, label):
+    """Thread 0 of CTA 0's clocks per stage of a pass of the multiplier
+    kernel on one input."""
+    prof = torch.zeros(len(sm.STAGES) + 1, dtype=torch.int64,
+                       device=gg.device)
+    sm._launch_cuda(gg, prof=prof)
+    clocks = prof.cpu().numpy().astype(np.float64)
+    passes = int(clocks[-1])
+    if passes < 2:
+        raise AssertionError(f"the stage clocks were not written: {clocks}")
+    parts = "; ".join(f"{name} {c / passes:.0f}"
+                      for name, c in zip(sm.STAGES, clocks[:-1]))
+    print(f"[stages] simplex multiplier {label} n={gg.numel()}: {passes} "
+          f"passes (the min pass and the staging included), "
+          f"{clocks[:-1].sum() / passes:.0f} clocks a pass for thread 0 of "
+          f"CTA 0: {parts}", flush=True)
+
+
+def micro():
+    """``--micro``: build ``csrc/micro_cluster.cu`` and run it."""
+    from accbpg_and_fw_tpu_torch.ops import _build
+
+    src = _build._CSRC / "micro_cluster.cu"
+    out = _build._BUILD_DIR / "micro_cluster"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_build._nvcc(), *flags, "-o", str(out), str(src)],
+                   check=True, timeout=600)
+    print(f"[micro] {card_line()}", flush=True)
+    return subprocess.run([str(out)], timeout=600).returncode
 
 
 def dense_designs():
@@ -572,6 +701,11 @@ def dense_sweep(port, dd, dev):
           f"1e-8 min {min(iters)} median {int(np.median(iters))} max "
           f"{max(iters)} (sum {sum(iters)}); {DENSE_K}/{DENSE_K} "
           f"fresh-certified, worst fresh slack {worst:.4e}", flush=True)
+    trace_line(f"dense sweep K={DENSE_K} of {DENSE_M}x{DENSE_N}",
+               lambda: port.dopt_fw_batch(Vs, x0s, EPS, DENSE_BUDGET,
+                                          away=True, precision="pallas",
+                                          device=dev),
+               "dopt_dense_kernel")
     return launches
 
 
@@ -659,6 +793,11 @@ def single_pallas(port, dd, dev):
           f"({launches} launches); CPU exact engine {len(Fe)} iterations in "
           f"{wall_cpu:.3f} s; F rtol 1e-9 over the first 300 rows; both "
           f"fresh-certified at 1e-8", flush=True)
+    trace_line(f"single pallas {DENSE_M}x{DENSE_N}",
+               lambda: port.D_opt_FW_away(V, x0, EPS, DENSE_BUDGET,
+                                          verbose=False, u_mode="pallas",
+                                          device=dev),
+               "dopt_dense_kernel")
     return launches
 
 
@@ -687,13 +826,31 @@ def compare_simplex(sm, gg, label):
             raise AssertionError(
                 f"simplex {label}: kernel c {c_k!r} (resid {r_k:.3e}) vs "
                 f"plain {c_p!r} (resid {r_p:.3e})")
-    ms = time_launches(lambda: sm.simplex_inv_multiplier_pallas(gg), 50)
+    if len({float(sm.simplex_inv_multiplier_pallas(gg))
+            for _ in range(3)} | {c_k}) != 1:
+        raise AssertionError(f"simplex {label}: launches from one input "
+                             f"differ")
+
+    def call():
+        return sm.simplex_inv_multiplier_pallas(gg)
+
+    ms = time_launches(call, 50)
+    device_us = kernel_device_us(call, "simplex_mult_kernel", 50)
+    host_us = host_cost_us(call)
     plain_ms = time_launches(lambda: sm.simplex_multiplier_reference(gg), 5)
     bound_ms, bound_by = simplex_bound(gg)
+    plan = sm.device_plan(gg.numel(), gg.device.index)
+    regs, _, spill, _ = sm.kernel_info(gg.device.index)
     print(f"[kernel] simplex multiplier {label} n={gg.numel()}: "
-          f"|c kernel - c plain| {err:.3e} (c {c_p:.6e}); per call kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-          f"(by {bound_by})", flush=True)
+          f"|c kernel - c plain| {err:.3e} (c {c_p:.6e}), launches bit for "
+          f"bit; per call kernel {ms:.4f} ms by events, "
+          f"{us_text(device_us)} device time in a trace, host cost "
+          f"{host_us:.2f} us over 1000 unsynchronised calls; plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms (by {bound_by}); one "
+          f"cluster of {plan.cluster} CTAs x {plan.threads} threads, "
+          f"{plan.chunk} elements per CTA, {plan.resident} resident in "
+          f"{plan.smem_bytes} B of shared memory; {regs} registers per "
+          f"thread, {spill} B spilled", flush=True)
     return err, ms, plain_ms, bound_ms, bound_by
 
 
@@ -902,14 +1059,19 @@ def per_iteration_costs(port):
           f"iterations each): " + "; ".join(rows), flush=True)
 
 
-def block_times(root, solves):
+def block_times(root, solves, gain_iters):
     """``--blocks-only``: one 256-iteration block of the lazy-H kernel from
     the uniform start's fresh state, through ``lazy_block`` at 1000x5000 and
     ``lazy_block_batch`` at K=3 of 1000x2000 (each call prepares the kernel
-    anew, as every commit's wrapper does), then warm main-path solves."""
+    anew, as every commit's wrapper does); one 256-iteration block of the
+    dense kernel through ``dense_block`` at B=1 and B=32 of 30x1000; the
+    multiplier through ``simplex_inv_multiplier_pallas`` on random inputs;
+    then warm main-path solves."""
     sys.path.insert(0, root)
     import accbpg_and_fw_tpu_torch as port
+    from accbpg_and_fw_tpu_torch.ops import dopt_dense as dd
     from accbpg_and_fw_tpu_torch.ops import dopt_lazy as dl
+    from accbpg_and_fw_tpu_torch.ops import simplex as sm
     from accbpg_and_fw_tpu_torch.ops.dopt_common import factorize
 
     if pathlib.Path(root) not in pathlib.Path(port.__file__).resolve().parents:
@@ -937,6 +1099,77 @@ def block_times(root, solves):
     print(f"[blocks] {root}: {card_line()}; lazy block {M}x{N} {ms[0]:.3f} "
           f"ms, batch K={LARGE_K} of {LARGE_M}x{LARGE_N} {ms[1]:.3f} ms "
           f"({dl._KR} iterations each)", flush=True)
+
+    dense_Vs = torch.tensor(dense_designs(), device=dev)
+    rng = np.random.default_rng(11)
+    off_path = [torch.tensor(rng.standard_normal(shape), device=dev)
+                for shape in ((1, 165, 1000), (2, 200, 700))]
+    dense_ms = []
+    for W in (dense_Vs[:1].contiguous(), dense_Vs, *off_path):
+        x = torch.full(W.shape[:1] + W.shape[2:], 1.0 / W.shape[2],
+                       dtype=torch.float64, device=dev)
+        parts = [factorize(Wk, xk) for Wk, xk in zip(W, x)]
+        H = torch.stack([p[0] for p in parts])
+        w = torch.stack([p[1] for p in parts])
+        WT = W.transpose(1, 2).contiguous()
+        dense_ms.append(time_launches(
+            lambda: dd.dense_block(W, H, x, w, eps=EPS, kmax=256, VTs=WT),
+            10))
+    print(f"[blocks] {root}: dense block {DENSE_M}x{DENSE_N}, 256 iterations "
+          f"each: B=1 {dense_ms[0]:.3f} ms, B={DENSE_K} {dense_ms[1]:.3f} ms; "
+          f"off the paths: B=1 of 165x1000 {dense_ms[2]:.3f} ms, B=2 of "
+          f"200x700 {dense_ms[3]:.3f} ms", flush=True)
+    parts = []
+    for n in (1000, 10000, 100000):
+        gg = torch.tensor(np.random.default_rng(n).standard_normal(n) * 3.0
+                          + 1.0, device=dev)
+
+        def call():
+            return sm.simplex_inv_multiplier_pallas(gg)
+
+        parts.append(
+            f"n={n} {time_launches(call, 200):.4f} ms by events, "
+            f"{us_text(kernel_device_us(call, 'simplex_mult_kernel', 50))} "
+            f"device time in a trace, host cost {host_cost_us(call):.2f} us")
+    print(f"[blocks] {root}: multiplier per call (random input): "
+          + "; ".join(parts), flush=True)
+
+    def walls(fn, reps=4):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return " ".join(f"{w:.4f}" for w in out[1:])  # the first warms up
+
+    Vs64 = dense_designs()
+    x0s = np.full((DENSE_K, DENSE_N), 1.0 / DENSE_N)
+    sweep = walls(lambda: port.dopt_fw_batch(
+        Vs64, x0s, EPS, DENSE_BUDGET, away=True, precision="pallas",
+        device=dev))
+    single = walls(lambda: port.D_opt_FW_away(
+        Vs64[0], x0s[0], EPS, DENSE_BUDGET, verbose=False, u_mode="pallas",
+        device=dev))
+    print(f"[blocks] {root}: warm walls: dense sweep K={DENSE_K} of "
+          f"{DENSE_M}x{DENSE_N} {sweep} s; one u_mode=pallas solve {single} s",
+          flush=True)
+    if gain_iters:
+        f, _, L, xg = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
+                                        device="cuda")
+        h = port.BurgEntropySimplex(use_pallas=True)
+        port.ABPG_gain(f, h, L, xg, gamma=2, maxitrs=50, verbose=False)
+        sm.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        Fg = port.ABPG_gain(f, h, L, xg, gamma=2, maxitrs=gain_iters,
+                            verbose=False)[1]
+        torch.cuda.synchronize()
+        print(f"[blocks] {root}: ABPG_gain {GAIN_M}x{GAIN_N} use_pallas=True, "
+              f"{gain_iters} iterations: wall {time.perf_counter() - t:.3f} "
+              f"s, {sm.LAUNCHES} kernel launches, F {Fg[-1]:.9f}", flush=True)
+
     x0 = np.full(N, 1.0 / N)
     for rep in range(solves):
         dl.LAUNCHES = 0
@@ -954,11 +1187,17 @@ def block_times(root, solves):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--blocks-only", action="store_true",
-                    help="print only the lazy-H block times and main-path "
-                         "walls of the package under --root")
+                    help="print only the block times of the lazy-H and "
+                         "dense kernels, the multiplier's time per call and "
+                         "the main-path walls of the package under --root")
     ap.add_argument("--root", default=str(pathlib.Path(__file__).parent),
                     help="checkout whose package --blocks-only times")
     ap.add_argument("--solves", type=int, default=3)
+    ap.add_argument("--gain-iters", type=int, default=0,
+                    help="with --blocks-only: also time ABPG_gain 30x10000 "
+                         "over this many iterations")
+    ap.add_argument("--micro", action="store_true",
+                    help="build and run csrc/micro_cluster.cu")
     args = ap.parse_args()
     # ---- 1. the card --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -967,7 +1206,9 @@ def main():
         return 1
     if args.blocks_only:
         return block_times(str(pathlib.Path(args.root).resolve()),
-                           args.solves)
+                           args.solves, args.gain_iters)
+    if args.micro:
+        return micro()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1007,7 +1248,9 @@ def main():
     dense_Vs = torch.tensor(dense_designs(), device=dev)
     compare_dense(dd, dense_Vs[:4].contiguous(), EPS)
     dense_batch = compare_dense(dd, dense_Vs, EPS)
+    dense_phases(dd, dense_Vs, EPS, dense_batch[1])
     dense_one = compare_dense(dd, dense_Vs[:1].contiguous(), EPS)
+    dense_phases(dd, dense_Vs[:1].contiguous(), EPS, dense_one[1])
 
     mid = torch.tensor(np.random.default_rng(5).standard_normal(
         (3, 100, 1000)), device=dev)
@@ -1022,9 +1265,12 @@ def main():
             f"g={g}")[0])
     simplex_errs.append(compare_simplex(
         sm, first_prox_input(port, BPG_M, BPG_N), "BPG 30x1000 first prox")[0])
-    simplex = compare_simplex(sm, first_prox_input(port, GAIN_M, GAIN_N),
-                              "ABPG_gain 30x10000 first prox")
+    gain_gg = first_prox_input(port, GAIN_M, GAIN_N)
+    simplex = compare_simplex(sm, gain_gg, "ABPG_gain 30x10000 first prox")
     simplex_errs.append(simplex[0])
+    simplex_stages(sm, gain_gg, "ABPG_gain 30x10000 first prox")
+    simplex_stages(sm, first_prox_input(port, BPG_M, BPG_N),
+                   "BPG 30x1000 first prox")
     for n in (1000, 10000, 100000):
         gg = torch.tensor(np.random.default_rng(n).standard_normal(n) * 3.0
                           + 1.0, device=dev)

@@ -309,6 +309,121 @@ def test_verbose_rows(capsys):
     assert [int(r[:6]) for r in rows] == [0, 5]
 
 
+# --------------------------------------------------------------------------
+# the kernel's launch plan (plain Python, decided from the shape and the card)
+# --------------------------------------------------------------------------
+
+SMS, SMEM_LIMIT = 132, 232448  # an H100's SMs and shared memory per CTA
+
+
+@pytest.mark.parametrize("max_cluster", [1, 8, 16])
+@pytest.mark.parametrize("B,m,n", [
+    (1, 30, 1000), (4, 30, 1000), (32, 30, 1000), (200, 30, 1000),
+    (1, 100, 1000), (1, 165, 1000), (1, 30, 999), (3, 30, 1003),
+    (2, 200, 700), (3, 8, 64), (1, 12, 400)])
+def test_dense_plan_covers_every_column_once(B, m, n, max_cluster):
+    plan = dd.dense_plan(B, m, n, SMS, SMEM_LIMIT, max_cluster)
+    assert plan == dd.dense_plan(B, m, n, SMS, SMEM_LIMIT, max_cluster)
+    assert plan.n == n
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.cluster <= max_cluster
+    assert plan.threads in (32, 64, 128, 256, 512)
+    # the grid is B clusters of one CTA per SM at most; a lone CTA per
+    # instance may outnumber the SMs (its launches queue)
+    assert plan.cluster == 1 or B * plan.cluster <= SMS
+    # each warp of a cluster has a slot in every CTA
+    assert plan.cluster * plan.threads // 32 <= dd._MAX_SLOTS
+    owned = [j for r in range(plan.cluster) for j in plan.cols(r)]
+    assert owned == list(range(n))
+    assert all(len(plan.cols(r)) <= plan.chunk for r in range(plan.cluster))
+    # what the plan keeps in shared memory fits in what it asks for
+    need = 3 * m
+    if plan.h_in_smem:
+        need += m * m
+    if plan.resident:
+        need += m * (plan.chunk | 1) + 2 * plan.chunk
+    assert 8 * need == plan.smem_bytes
+    assert plan.smem_bytes + dd._STATIC_SMEM <= SMEM_LIMIT
+    # only a lone CTA streams V or leaves H in global memory
+    assert plan.resident or plan.cluster == 1
+    assert plan.h_in_smem or not plan.resident
+
+
+@pytest.mark.parametrize("B,m,n,cluster,resident,h_in_smem", [
+    (1, 30, 1000, 8, 1, 1),     # one instance: 125 columns per CTA
+    (4, 30, 1000, 8, 1, 1),
+    (32, 30, 1000, 4, 1, 1),    # the dense sweep: 128 CTAs, 250 columns each
+    (200, 30, 1000, 1, 0, 1),   # more instances than SMs: one CTA each
+    (1, 100, 1000, 8, 1, 1),
+    (1, 165, 1000, 1, 0, 1),    # H leaves no room for a panel: V streamed
+    (2, 200, 700, 1, 0, 0),     # H does not fit either
+    (3, 8, 64, 1, 1, 1)])       # too few columns for a second CTA
+def test_dense_plan_at_the_paths_shapes(B, m, n, cluster, resident,
+                                        h_in_smem):
+    plan = dd.dense_plan(B, m, n, SMS, SMEM_LIMIT, 16)
+    assert (plan.cluster, plan.resident, plan.h_in_smem) == (
+        cluster, resident, h_in_smem)
+    # under a smaller cap the cluster shrinks (to one CTA where no panel of
+    # half the columns fits beside H)
+    assert dd.dense_plan(B, m, n, SMS, SMEM_LIMIT, 2).cluster in (
+        {1, 2} if m == 100 else {min(cluster, 2)})
+
+
+@pytest.mark.parametrize("B,m,n,sms,limit,max_cluster", [
+    (0, 30, 1000, SMS, SMEM_LIMIT, 16), (1, 0, 1000, SMS, SMEM_LIMIT, 16),
+    (1, 30, 0, SMS, SMEM_LIMIT, 16), (1, 30, 1000, 0, SMEM_LIMIT, 16),
+    (1, 30, 1000, SMS, SMEM_LIMIT, 3), (1, 30, 1000, SMS, SMEM_LIMIT, 32),
+    (1, 20000, 1000, SMS, SMEM_LIMIT, 16), (1, 30, 1000, SMS, 1024, 16)])
+def test_dense_plan_rejects_invalid_sizes(B, m, n, sms, limit, max_cluster):
+    with pytest.raises(ValueError):
+        dd.dense_plan(B, m, n, sms, limit, max_cluster)
+
+
+# --------------------------------------------------------------------------
+# ties across the CTAs' panels: the lowest index wins
+# --------------------------------------------------------------------------
+
+TIE_SHAPE, TIE_BUDGET = (12, 400), 96
+
+
+def _tie_design():
+    """A design whose second half repeats its first: w_j == w_{j+200} in
+    every iteration, so every pivot is a tie between two columns."""
+    V = _design(TIE_SHAPE, seed=17)
+    V[:, 200:] = V[:, :200]
+    return V
+
+
+def test_tie_design_splits_equal_columns_across_panels():
+    plan = dd.dense_plan(1, *TIE_SHAPE, SMS, SMEM_LIMIT, 16)
+    assert plan.cluster > 1
+    owner = {j: r for r in range(plan.cluster) for j in plan.cols(r)}
+    assert all(owner[j] != owner[j + 200] for j in range(200))
+
+
+def test_ties_take_the_lowest_index_as_the_jax_kernel():
+    """The plain block against the JAX kernel in interpret mode, as
+    ``test_single_matches_jax_kernel`` runs it and to its bars."""
+    from accbpg_and_fw_tpu.ops.pallas_dopt import dopt_fw_pallas
+
+    V = _tie_design()
+    x0 = np.full(TIE_SHAPE[1], 1.0 / TIE_SHAPE[1])
+    ref = dopt_fw_pallas(V, x0, EPS, TIE_BUDGET, away=True, verbose=False,
+                         chunk=256, interpret=True)
+    x, F, SP, SN, _ = dd.dopt_fw_dense(V, x0, EPS, TIE_BUDGET, away=True,
+                                       verbose=False, chunk=256,
+                                       device="cpu")
+    _assert_matches_jax((x.numpy(), F, SP, SN), ref[:4])
+    # a Frank-Wolfe step's argmax is a tie between j and j + 200: always j
+    Vs, Hs, xs, ws = _fresh(V[None])
+    assert torch.equal(ws[0, :200], ws[0, 200:])
+    blk = dd.dense_block_reference(Vs, Hs, xs, ws, eps=EPS, kmax=TIE_BUDGET)
+    tau, v = blk.hist[0, 0], blk.hist[0, 4]
+    assert int((tau > 0).sum()) > 10
+    assert bool((v[tau > 0] < 200).all())
+    # an away step's argmin too, while x_j is still in the support
+    assert bool((v[:5] < 200).all())
+
+
 def _assert_blocks_agree(out, ref):
     misc, misc_ref = out.misc.cpu(), ref.misc.cpu()
     assert torch.equal(misc, misc_ref)
@@ -329,7 +444,12 @@ def _assert_blocks_agree(out, ref):
     ((1, 30, 1000), 1e-8, None),
     ((3, 8, 64), 1e-3, [False, True, False]),   # stops and a frozen entry
     ((2, 200, 700), 1e-8, None),                # H in global memory
-], ids=["4x30x1000", "1x30x1000", "stop-and-frozen", "H-global"])
+    ((1, 165, 1000), 1e-8, None),               # H in shared, V streamed
+    ((32, 30, 1000), 1e-8, None),               # the sweep's clusters of 4
+    ((3, 30, 1003), 1e-6, [False, False, True]),  # ragged last panel
+    ((1, 100, 1000), 1e-8, None),
+], ids=["4x30x1000", "1x30x1000", "stop-and-frozen", "H-global",
+        "V-streamed", "32x30x1000", "ragged-and-frozen", "1x100x1000"])
 def test_kernel_matches_plain_version_on_card(cuda_dev, shape, eps, done):
     Vs, Hs, xs, ws = _fresh(_design(shape, seed=11), cuda_dev)
     ref = dd.dense_block_reference(Vs, Hs, xs, ws, eps=eps, kmax=256,
@@ -368,3 +488,31 @@ def test_engine_on_card_matches_cpu(cuda_dev):
     np.testing.assert_allclose(F, Fc, rtol=1e-9)
     np.testing.assert_allclose(x.cpu().numpy(), xc.numpy(), rtol=0,
                                atol=X_ATOL)
+
+
+@pytest.mark.cuda
+def test_kernel_breaks_ties_across_panels_as_plain_version(cuda_dev):
+    """Equal w in different CTAs' panels: the kernel's pivots are the
+    plain version's, row for row."""
+    Vs, Hs, xs, ws = _fresh(_tie_design()[None], cuda_dev)
+    plan, _ = dd.device_plan(1, *TIE_SHAPE, cuda_dev.index or 0)
+    assert plan.cluster > 1
+    ref = dd.dense_block_reference(Vs, Hs, xs, ws, eps=EPS, kmax=TIE_BUDGET)
+    out = dd.dense_block(Vs, Hs, xs, ws, eps=EPS, kmax=TIE_BUDGET)
+    torch.cuda.synchronize()
+    _assert_blocks_agree(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 30, 1000), (32, 30, 1000),
+                                   (1, 165, 1000), (2, 200, 700),
+                                   (3, 30, 1003)],
+                         ids=["1x30x1000", "32x30x1000", "V-streamed",
+                              "H-global", "ragged"])
+def test_two_launches_give_the_same_bits(cuda_dev, shape):
+    Vs, Hs, xs, ws = _fresh(_design(shape, seed=13), cuda_dev)
+    a = dd.dense_block(Vs, Hs, xs, ws, eps=EPS, kmax=192)
+    b = dd.dense_block(Vs, Hs, xs, ws, eps=EPS, kmax=192)
+    torch.cuda.synchronize()
+    for got, again in zip(a, b):
+        assert torch.equal(got, again)

@@ -126,6 +126,60 @@ def test_use_pallas_prox_on_cpu():
 
 
 # --------------------------------------------------------------------------
+# the kernel's launch plan (plain Python, decided from n and the card)
+# --------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448  # bytes of shared memory a CTA may use on an H100
+
+
+@pytest.mark.parametrize("max_cluster", [1, 8, 16])
+@pytest.mark.parametrize("n", [1, 31, 1000, 2048, 2049, 4097, 10000, 16385,
+                               100000, 999983, 10**6, 10**7])
+def test_simplex_plan_covers_every_element_once(n, max_cluster):
+    plan = sm.simplex_plan(n, SMEM_LIMIT, max_cluster)
+    assert plan == sm.simplex_plan(n, SMEM_LIMIT, max_cluster)
+    assert plan.n == n
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.cluster <= max_cluster
+    assert plan.threads in (32, 64, 128, 256)
+    # the CTAs' ranges follow each other and end at n: each element once
+    end = 0
+    for r in range(plan.cluster):
+        own = plan.owned(r)
+        assert own.start == end and own.step == 1 and len(own) <= plan.chunk
+        end = own.stop
+    assert end == n
+    # what a CTA stages fits; the rest of its slice is read from global
+    assert 0 < plan.resident <= plan.chunk
+    assert plan.smem_bytes == 8 * plan.resident
+    assert plan.smem_bytes + sm._STATIC_SMEM <= SMEM_LIMIT
+    if plan.chunk * 8 + sm._STATIC_SMEM <= SMEM_LIMIT:
+        assert plan.resident == plan.chunk
+
+
+@pytest.mark.parametrize("n,cluster,threads", [
+    (1, 1, 32), (1000, 1, 256), (2048, 1, 256), (2049, 8, 128),
+    (4096, 8, 128), (4097, 16, 128), (10000, 16, 256), (100000, 16, 256),
+    (10**6, 16, 256)])
+def test_simplex_plan_at_the_paths_sizes(n, cluster, threads):
+    """One small CTA where the chain of reductions is all there is; the
+    cluster grows with n up to what the card schedules."""
+    plan = sm.simplex_plan(n, SMEM_LIMIT, 16)
+    assert (plan.cluster, plan.threads) == (cluster, threads)
+    assert sm.simplex_plan(n, SMEM_LIMIT, 8).cluster == min(cluster, 8)
+    # past the cluster's shared memory the rest comes from global memory
+    assert (plan.resident < plan.chunk) == (n == 10**6)
+
+
+@pytest.mark.parametrize("n,limit,max_cluster", [
+    (0, SMEM_LIMIT, 16), (-3, SMEM_LIMIT, 16), (2**31, SMEM_LIMIT, 16),
+    (1000, SMEM_LIMIT, 3), (1000, SMEM_LIMIT, 32), (1000, SMEM_LIMIT, 0),
+    (1000, 1024, 8)])
+def test_simplex_plan_rejects_invalid_sizes(n, limit, max_cluster):
+    with pytest.raises(ValueError):
+        sm.simplex_plan(n, limit, max_cluster)
+
+
+# --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
 
@@ -155,12 +209,21 @@ def _kernel_vs_plain(gg, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,inf_every", [
-    (1, 0), (2, 0), (31, 0), (1000, 0), (1023, 5), (1025, 0), (10000, 7),
-    (29000, 0), (40000, 3), (100000, 0)])
+    (1, 0), (2, 0), (31, 0), (128, 0), (129, 3), (512, 0), (513, 0),
+    (1000, 0), (1023, 5), (1025, 0), (2048, 7), (2049, 0), (4096, 0),
+    (4097, 5), (8192, 0), (8193, 0), (10000, 7), (16384, 0), (16385, 3),
+    (29000, 0), (40000, 3), (100000, 0), (461000, 0), (470000, 9),
+    (1000003, 0)])
 def test_kernel_matches_plain(cuda_dev, n, inf_every):
-    """n = 1, non-multiples of the block, +inf entries, and n past the
-    shared-memory limit (about 29,000)."""
-    _kernel_vs_plain(_gg(n, seed=n, inf_every=inf_every), cuda_dev)
+    """n = 1, an n on each side of every boundary of the launch plan (a
+    warp more, a cluster twice as large, a slice past what a CTA's shared
+    memory holds), n that the cluster size does not divide, and +inf
+    entries."""
+    gg = _gg(n, seed=n, inf_every=inf_every)
+    _kernel_vs_plain(gg, cuda_dev)
+    plan = sm.device_plan(n, cuda_dev.index or 0)
+    assert plan == sm.simplex_plan(n, sm.kernel_info(0)[3] + sm._STATIC_SMEM,
+                                   plan.cluster if plan.cluster > 1 else 16)
 
 
 @pytest.mark.cuda
@@ -185,7 +248,9 @@ def test_cuda_never_takes_the_plain_version(cuda_dev, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_kernel_is_deterministic(cuda_dev):
-    g = torch.tensor(_gg(20000, seed=4), device=cuda_dev)
+@pytest.mark.parametrize("n", [1, 1000, 5000, 20000, 500000])
+def test_kernel_is_deterministic(cuda_dev, n):
+    """Launches from one input give the same bits, at every cluster size."""
+    g = torch.tensor(_gg(n, seed=4), device=cuda_dev)
     cs = {float(sm.simplex_inv_multiplier_pallas(g)) for _ in range(5)}
     assert len(cs) == 1
