@@ -4,10 +4,11 @@ The JAX package stays the reference; this package keeps its public names,
 arguments and return tuples so a script moves across by changing its
 import.  Everything computes in ``torch.float64`` (Hopper has FP64 in
 hardware, so the JAX package's double-single and int8-digit layers have no
-counterpart here).  The entry points run on the card unless the caller
-asks for the CPU: with ``device=None`` a tensor input keeps its device and
-a numpy input goes to CUDA, ``device="cpu"`` asks for the CPU, and without
-a card the default raises instead of falling back.
+counterpart here: their ``*Mixed``/``*DS`` names resolve to the FP64
+classes).  The entry points run on the card unless the caller asks for
+the CPU: with ``device=None`` a tensor input keeps its device and a numpy
+input goes to CUDA, ``device="cpu"`` asks for the CPU, and without a card
+the default raises instead of falling back.
 
 Ported so far:
 
@@ -19,29 +20,37 @@ Ported so far:
 * the batched sweep entry point ``dopt_fw_batch`` (``parallel/``), over
   the batched exact engine and both kernels' batch entries;
 * the Bregman proximal-gradient drivers ``BPG``, ``ABPG``, ``ABPG_expo``,
-  ``ABPG_gain`` and ``ABDA`` (``algorithms/bpg.py``), with the oracle layer
-  they need on D-optimal design (``ops/``: ``DOptimalObj``, the Burg
-  h-oracles, the root finders) and the one-kernel Burg-simplex multiplier
-  of ``BurgEntropySimplex(use_pallas=True)`` (``ops/simplex.py`` +
-  ``csrc/simplex_mult.cu``);
-* the factories ``D_opt_design`` and ``D_opt_KYinit`` (``apps/``).
+  ``ABPG_gain`` and ``ABDA`` (``algorithms/bpg.py``), with the one-kernel
+  Burg-simplex multiplier of ``BurgEntropySimplex(use_pallas=True)``
+  (``ops/simplex.py`` + ``csrc/simplex_mult.cu``);
+* the Frank-Wolfe family ``FW_alg_div_step``, ``FW_alg_descent_step``,
+  ``FW_alg_L0_L1_shortest_step``, ``FW_l0l1_log_and_linear_step`` and
+  ``FW_l0l1_log_only`` (``algorithms/fw.py``) with the seven LMOs
+  (``ops/lmo.py``), plain PyTorch as the JAX path was plain XLA;
+* the oracles (``ops/``): every h-oracle but
+  ``SumOf2nd4thPowersDualProxMap``, and the f-oracles ``DOptimalObj``,
+  ``PoissonRegression``, ``KLdivRegression``, ``SVM_fun``,
+  ``FrobeniusSymLoss`` and ``LogisticRegression``;
+* the factories (``apps/``) of D-optimal design, the Poisson/KL
+  regressions, the SVM ball, SymNMF and the (L0,L1) logistic problems,
+  with the numpy helpers they call.
 """
 
 __version__ = "0.1.0"
 
 from .algorithms import (ABDA, ABPG, BPG, ABPG_expo, ABPG_gain, D_opt_FW,
-                         D_opt_FW_away, solve_theta)
-from .apps import D_opt_design, D_opt_KYinit
-from .ops import (BurgEntropy, BurgEntropyL1, BurgEntropyL2,
-                  BurgEntropySimplex, DOptimalObj, LegendreFunction,
-                  LegendreOracle, RSmoothFunction, SmoothOracle,
-                  project_simplex_burg, simplex_inv_multiplier, solve_cubic)
+                         D_opt_FW_away, FW_alg_descent_step, FW_alg_div_step,
+                         FW_alg_L0_L1_shortest_step,
+                         FW_l0l1_log_and_linear_step, FW_l0l1_log_only,
+                         solve_theta)
+from .apps import *  # noqa: F401,F403
+from .apps import __all__ as _apps_all
+from .ops import *  # noqa: F401,F403
+from .ops import __all__ as _ops_all
 from .parallel import dopt_fw_batch
 
-__all__ = ["ABDA", "ABPG", "ABPG_expo", "ABPG_gain", "BPG",
-           "BurgEntropy", "BurgEntropyL1", "BurgEntropyL2",
-           "BurgEntropySimplex", "DOptimalObj", "D_opt_FW", "D_opt_FW_away",
-           "D_opt_KYinit", "D_opt_design", "LegendreFunction",
-           "LegendreOracle", "RSmoothFunction", "SmoothOracle",
-           "dopt_fw_batch", "project_simplex_burg", "simplex_inv_multiplier",
-           "solve_cubic", "solve_theta"]
+__all__ = sorted(set(_apps_all) | set(_ops_all) | {
+    "ABDA", "ABPG", "ABPG_expo", "ABPG_gain", "BPG", "D_opt_FW",
+    "D_opt_FW_away", "FW_alg_L0_L1_shortest_step", "FW_alg_descent_step",
+    "FW_alg_div_step", "FW_l0l1_log_and_linear_step", "FW_l0l1_log_only",
+    "dopt_fw_batch", "solve_theta"})

@@ -8,8 +8,10 @@ scalars it needs come back in the same read (``read``), and the recurrences
 between reads cost no kernel launches.
 
 Python raises where IEEE arithmetic gives inf or NaN (division by zero,
-``math.log(0)``, overflow in ``math.exp``); ``div``, ``power``, ``log`` and
-``exp`` return what the JAX package's float64 arrays give instead.
+``math.log(0)``, overflow in ``math.exp``); ``div``, ``power``, ``log``,
+``exp`` and ``expm1`` return what the JAX package's float64 arrays give
+instead.  Python's ``min`` drops a NaN that ``jnp.minimum`` propagates;
+``minimum`` propagates it.
 """
 
 from __future__ import annotations
@@ -64,3 +66,14 @@ def exp(a):
         return math.exp(a)
     except OverflowError:
         return math.inf
+
+
+def expm1(a):
+    try:
+        return math.expm1(a)
+    except OverflowError:
+        return math.inf
+
+
+def minimum(a, b):
+    return a if math.isnan(a) else b if math.isnan(b) else min(a, b)

@@ -34,6 +34,7 @@ import torch
 
 from .._device import as_f64, resolve_device
 from .._scalar import div, exp, log, power, read
+from ..ops.base import vdot
 from .driver import run_driver
 from .theta import solve_theta
 
@@ -143,7 +144,7 @@ def _bpg_step(cfg, prob, c, k):
 
         def trial(Lt, **extra):
             x1 = h.div_prox_map(x, g, Lt)
-            return x1, _read(f1=f.value(x1), gd=torch.dot(g, x1 - x),
+            return x1, _read(f1=f.value(x1), gd=vdot(g, x1 - x),
                              dv=h.divergence(x1, x), **extra)
 
         Lt = Lk / ls_ratio
@@ -224,7 +225,7 @@ def _abpg_step(cfg, prob, c, k):
     x_new = _comb(theta, x, z_new)
     dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
     s = _read(fx=fx_t, psi=h.extra_psi(x), dxy=dxy, dzz=dzz,
-              gd=torch.dot(g, x_new - x) if _wants_gd(cfg) else 0.0)
+              gd=vdot(g, x_new - x) if _wants_gd(cfg) else 0.0)
     Fk = s["fx"] + s["psi"]
     Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
 
@@ -290,9 +291,9 @@ def _abpg_expo_step(cfg, prob, c, k):
         dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
         q = dict(dxy=dxy, dzz=dzz, **extra)
         if not cfg.checkdiv:
-            q.update(fxn=f.value(x_new), vd=torch.dot(g, x_new - y))
+            q.update(fxn=f.value(x_new), vd=vdot(g, x_new - y))
         if _wants_gd(cfg):
-            q["gd"] = torch.dot(g, x_new - x)
+            q["gd"] = vdot(g, x_new - x)
         return z_new, x_new, _read(**q)
 
     gm = gamma
@@ -394,9 +395,9 @@ def _abpg_gain_step(cfg, prob, c, k):
         dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
         q = dict(fy=fy_t, dxy=dxy, dzz=dzz, **extra)
         if not cfg.checkdiv:
-            q.update(fxn=f.value(x_new), vd=torch.dot(g, x_new - y))
+            q.update(fxn=f.value(x_new), vd=vdot(g, x_new - y))
         if _wants_gd(cfg):
-            q["gd"] = torch.dot(g, x_new - x)
+            q["gd"] = vdot(g, x_new - x)
         s = _read(**q)
         thg = power(theta, gam)
         Gdr = div(div(s["dxy"], s["dzz"]), thg)

@@ -26,7 +26,7 @@ from .._device import as_f64, resolve_device
 from ..ops.dopt_common import ROW, XTOL
 from ..ops.dopt_common import factorize as _dopt_factorize
 from ..ops.dopt_dense import dopt_fw_dense
-from ..ops.dopt_lazy import dopt_fw_lazy
+from ..ops.dopt_lazy import device_limits, dopt_fw_lazy, lazy_fits
 from .driver import run_driver
 
 # "auto" takes the lazy-H block kernel at and above this design size on a
@@ -107,13 +107,22 @@ def _dopt_step(away, V, eps, c, k):
     return c2, dict(F=-logdet, SP=eps_pos, SN=eps_neg, _stop=stop)
 
 
-def _resolve_auto_u_mode(V, u_mode, device):
+def _resolve_auto_u_mode(V, u_mode, device, limits=None):
     """The engine for ``u_mode``: ``"pallas_lazy"`` (the lazy-H block
     kernel), ``"pallas"`` (the dense block kernel; each runs its plain
-    block on the CPU) or ``"exact"`` (this module's FP64 engine)."""
+    block on the CPU) or ``"exact"`` (this module's FP64 engine).
+
+    ``"auto"`` takes the lazy kernel for a design of at least
+    ``_LAZY_MIN_SIZE`` elements on a CUDA device that the kernel takes
+    (``lazy_fits`` on ``limits``, the device's ``(sms, smem_limit)`` when
+    None), and the exact engine otherwise, as the JAX package falls back
+    to its ``"ds"`` engine past its kernel's memory budget.  Without a card
+    to ask, only the kernel's bound on m is applied."""
     if u_mode == "auto":
         if device.type == "cuda" and V.numel() >= _LAZY_MIN_SIZE:
-            return "pallas_lazy"
+            m, n = V.shape
+            if lazy_fits(m, n, 1, limits or device_limits(device)):
+                return "pallas_lazy"
         return "exact"
     if u_mode in ("exact", "ds", "mixed"):
         return "exact"
@@ -184,12 +193,14 @@ def D_opt_FW(V, x0, eps, maxitrs, verbose=True, verbskip=1, chunk=None,
     a float64 tensor on ``device``, the histories numpy arrays.
 
     ``u_mode``: "auto" (the lazy-H block kernel for designs of at least
-    1.8M elements on a CUDA device, the exact engine otherwise), "exact",
+    1.8M elements on a CUDA device, where the kernel takes them: m <= 16384
+    and a launch plan that fits in shared memory; the exact engine
+    otherwise), "exact",
     "pallas_lazy" (the lazy-H engine on any device; the plain block on the
     CPU), "pallas" (the dense block engine, likewise), and "ds"/"mixed" as
     aliases of "exact".
     ``device``: None keeps a tensor ``V``'s device and puts numpy input on
-    the CPU; "cuda" without a card raises.
+    CUDA; "cpu" asks for the CPU; CUDA without a card raises.
     """
     header = ("\nSolving D-opt design problem using Frank-Wolfe method\n"
               "     k      F(x)     pos_slack   neg_slack    time")

@@ -1,19 +1,21 @@
 """Chunked iteration loop for the port's drivers.
 
 The part of ``accbpg_and_fw_tpu/algorithms/driver.py::run_driver`` that the
-D-opt solvers and the Bregman drivers need.  A driver is a step function
-``step(carry, k) -> (carry, hist)``; ``carry`` is a dict that holds a bool
-``done`` and ``hist`` a dict of scalars that holds ``_stop`` (the stopping
-test fired at this iteration, which is the last one recorded, matching the
-reference's ``break``).
+D-opt solvers, the Bregman and the Frank-Wolfe drivers need.  A driver is a
+step function ``step(carry, k) -> (carry, hist)``; ``carry`` is a dict that
+holds a bool ``done`` and ``hist`` a dict of scalars that holds ``_stop``
+(the stopping test fired at this iteration, which is the last one
+recorded, matching the reference's ``break``).
 
 PyTorch runs eagerly, so a chunk is a Python loop of steps, in one of two
 modes chosen by the type of ``carry["done"]``:
 
-* a bool tensor (the D-opt engines): the loop never reads a tensor back
-  inside a chunk; once ``done`` is set the carry freezes through a
-  ``torch.where`` select (as the JAX scan body does), and the host reads
-  the chunk's histories and the ``done`` flag once, at the chunk boundary;
+* a bool tensor (the D-opt engines, ``FW_alg_descent_step``): the loop
+  never reads a tensor back inside a chunk; once ``done`` is set the carry
+  freezes through a ``torch.where`` select (as the JAX scan body does), and
+  the host reads the chunk's histories and the ``done`` flag once, at the
+  chunk boundary (a history of host numbers, such as a step size known in
+  advance, needs no read);
 * a Python bool (the Bregman drivers, whose line searches read each trial's
   decision back anyway): the step keeps its scalars on the host, returns
   host numbers in ``hist``, and the chunk ends at the stop row, which is
@@ -120,7 +122,9 @@ def _device_chunk(step, carry, k0, limit):
         carry = {key: torch.where(done, carry[key], new[key])
                  for key in carry}
         rows.append(h)
-    hist = {name: torch.stack([r[name] for r in rows]).cpu().numpy()
+    hist = {name: (torch.stack([r[name] for r in rows]).cpu().numpy()
+                   if isinstance(rows[0][name], torch.Tensor)
+                   else np.asarray([r[name] for r in rows]))
             for name in rows[0]}
     return carry, hist
 

@@ -1,0 +1,107 @@
+"""Sampling and metric helpers of the problem factories.
+
+The port's own copy of the numpy helpers of
+``accbpg_and_fw_tpu/apps/utils.py`` (reference: accbpg/utils.py): the same
+numpy call sequences, so the same ``np.random`` state gives the same
+arrays bit for bit.  Every function here is numpy in and numpy out.
+``generate_dataset_for_svm`` draws from an unseeded generator, as there.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+try:
+    import scipy.sparse as sparse
+except ImportError:  # pragma: no cover
+    sparse = None
+
+
+def shuffle_data(X, y):
+    """Shuffle rows of X and y together (reference: utils.py:98-107)."""
+    index = np.arange(len(y))
+    np.random.shuffle(index)
+    return X[index, :], y[index]
+
+
+def mnist_2digits(X, y, d1, d2):
+    """Binary +-1 subproblem of two digit classes (reference: utils.py:110-120)."""
+    idx1 = np.nonzero(y == d1)
+    idx2 = np.nonzero(y == d2)
+    yy = y.copy()
+    yy[idx1] = 1
+    yy[idx2] = -1
+    index = np.concatenate((idx1[0], idx2[0]))
+    np.random.shuffle(index)
+    return X[index, :], yy[index]
+
+
+def _dense(a):
+    return a if sparse is not None and sparse.issparse(a) else np.asarray(a)
+
+
+def binary_error_rate(X, y, w, bias=0):
+    """Classification error of sign(Xw + bias) (reference: utils.py:123-129)."""
+    yp = np.sign(_dense(X) @ np.asarray(w) + bias)
+    return (1 - np.dot(yp, y) / len(y)) / 2
+
+
+def rmse(X, y, w, bias=0):
+    """Root-mean-square prediction error (reference: utils.py:132-139)."""
+    yp = _dense(X) @ np.asarray(w) + bias
+    return np.sqrt(np.mean((yp - y) ** 2))
+
+
+def generate_dataset_for_svm(m, n):
+    """Random normal dataset with sign-balance labels, from an unseeded
+    generator (reference: utils.py:161-192)."""
+    rng = np.random.default_rng()
+    data = rng.standard_normal((m, n)) * 100
+    labels = np.where((data > 0).sum(axis=1) < n * 0.53, 1, -1)
+    return data, labels
+
+
+def random_point_in_l2_ball(center, radius, spread_btm=0.1, spread_up=0.99,
+                            pos_dir=False):
+    """Uniform direction, uniform radius in [r*btm, r*up]
+    (reference: utils.py:195-212)."""
+    direction = np.random.randn(len(center))
+    direction /= np.linalg.norm(direction)
+    if pos_dir:
+        direction = np.abs(direction)
+    r = np.random.uniform(radius * spread_btm, radius * spread_up)
+    point = center + r * direction
+    assert np.linalg.norm(point - center) - radius <= 1e-15
+    return point
+
+
+def random_point_on_simplex(n, radius=1, center=False):
+    """Uniform-gap point on the radius-simplex (reference: utils.py:252-268)."""
+    if center:
+        return np.ones(n) / n
+    cuts = np.sort(np.random.uniform(0.01, radius, size=n - 1))
+    cuts = np.concatenate([[0.0], cuts, [radius]])
+    return np.diff(cuts)
+
+
+def edge_point_on_simplex(edge_index, n, radius=1, tol=1e-5):
+    """Near-vertex point on the simplex (reference: utils.py:271-275)."""
+    x = np.full(n, tol)
+    x[edge_index] = radius - tol * (n - 1)
+    return x
+
+
+def get_random_float(var=1):
+    """Uniform draw in (0, var]; 0 when var == 0 (reference: utils.py:278-285)."""
+    if var == 0:
+        return 0
+    assert var > 0, "The range must be positive."
+    return var * np.random.random_sample()
+
+
+def get_random_vector(size, range=1):  # noqa: A002 - reference kwarg name
+    """Uniform vector in (0, range]^size (reference: utils.py:288-295)."""
+    if range == 0:
+        return np.zeros(size)
+    assert range > 0, "The range must be positive."
+    return range * np.random.random_sample(size=size)

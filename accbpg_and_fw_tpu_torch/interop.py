@@ -18,34 +18,84 @@ import torch
 
 from ._device import as_f64, resolve_device
 from .algorithms.d_opt import _dopt_factorize, _run_exact
-from .ops import h_oracles
+from .ops import f_oracles, h_oracles
 from .ops.dopt_common import _CKPT_VERSION
 from .ops.f_oracles import DOptimalObj
 
 _DS_NAMES = (("x", "x"), ("w", "w"), ("H", "H"), ("logdet", "ld"))
 
 
+# h-oracles: the port's class and the scalar fields read off the JAX one
+# (every JAX field of these classes is a number or None; ``center`` may be
+# an array)
+_H_FIELDS = {
+    "BurgEntropy": (), "BurgEntropyL1": ("lamda",),
+    "BurgEntropyL2": ("lamda",),
+    "BurgEntropyL2Ball": ("lamda", "radius", "center", "delta"),
+    "BurgEntropySimplex": ("eps",), "ShannonEntropy": ("delta",),
+    "ShannonEntropyL1": ("delta", "lamda"),
+    "ShannonEntropySimplex": ("delta",),
+    "SumOf2nd4thPowers": ("alpha", "sigma"),
+    "SumOf2nd4thPowersPositiveOrthant": ("alpha", "sigma", "upper_bound"),
+    "SumOf2nd4thPowersPositiveOrthantDS": ("alpha", "sigma", "upper_bound"),
+    "SumOf2nd4thPowersOnSimplex": ("alpha", "sigma", "radius", "eps"),
+    "SquaredL2Norm": (), "PowerNeg1": (), "L2L1Linf": ("lamda", "B"),
+    "PolyDiv": ("DS_mean", "DS_mean_quad", "lamda", "radius"),
+}
+
+# f-oracles: the port's class and the JAX fields passed to its constructor
+_F_FIELDS = {
+    "PoissonRegression": ("A", "b"), "KLdivRegression": ("A", "b"),
+    "SVM_fun": ("lamda", "A", "y"), "LogisticRegression": ("X", "y", "alpha"),
+    "FrobeniusSymLoss": ("M", "M_norm", "noise_level"),
+}
+
+
+def _field(obj, name):
+    v = getattr(obj, name)
+    if v is None:
+        return None
+    a = np.asarray(v, np.float64)
+    return float(a) if a.ndim == 0 else a
+
+
 def from_jax_oracle(obj, device=None):
-    """The port's counterpart of the JAX oracle ``obj``: a ``DOptimalObj``
-    (its design ``H`` and ``n_valid``, H as float64 on ``device``, CUDA
-    for None) or a Burg-family h-oracle (``BurgEntropy``,
-    ``BurgEntropyL1``/``L2`` with their ``lamda``, ``BurgEntropySimplex``
-    with its ``eps`` and ``use_pallas``).  Other oracles are not ported
-    yet and raise ``TypeError``.  The JAX object is read through its
-    attributes; this module does not import JAX."""
+    """The port's counterpart of the JAX oracle ``obj``, read through its
+    fields (this module does not import JAX):
+
+    * f-oracles: ``DOptimalObj`` (``H``, ``n_valid``), ``PoissonRegression``
+      and ``KLdivRegression`` (``A``, ``b``), ``SVM_fun`` (``lamda``,
+      ``A``, ``y``), ``LogisticRegression`` (``X``, ``y``, ``alpha``) and
+      ``FrobeniusSymLoss`` (``M``, ``M_norm``, ``noise_level``), with their
+      data as float64 on ``device`` (CUDA for None);
+    * every h-oracle the port has, with its scalar fields (``lamda``,
+      ``eps``, ``delta``, ``alpha``, ``sigma``, ``upper_bound``,
+      ``radius``, ``center``, ``B``, ``DS_mean``, ``DS_mean_quad``) and
+      ``BurgEntropySimplex``'s ``use_pallas``;
+      ``SumOf2nd4thPowersPositiveOrthantDS`` gives the FP64 class.
+
+    Raises ``TypeError`` for ``SumOf2nd4thPowersWithFrankWolfe`` (its LMO
+    is a JAX closure, which cannot be read back: build the port's with a
+    port LMO) and for the oracles the port has not ported, the JAX
+    ``*Mixed``/``*DS`` f-oracles among them (their data are digit planes:
+    convert the plain oracle of the same data instead)."""
     name = type(obj).__name__
     if name == "DOptimalObj":
         return DOptimalObj(np.asarray(obj.H, np.float64),
                            n_valid=(None if obj.n_valid is None
                                     else int(np.asarray(obj.n_valid))),
                            device=resolve_device(device))
-    if name == "BurgEntropySimplex":
-        return h_oracles.BurgEntropySimplex(
-            eps=float(np.asarray(obj.eps)), use_pallas=bool(obj.use_pallas))
-    if name in ("BurgEntropyL1", "BurgEntropyL2"):
-        return getattr(h_oracles, name)(lamda=float(np.asarray(obj.lamda)))
-    if name == "BurgEntropy":
-        return h_oracles.BurgEntropy()
+    if name in _F_FIELDS:
+        kw = {k: _field(obj, k) for k in _F_FIELDS[name]}
+        return getattr(f_oracles, name)(**kw, device=resolve_device(device))
+    if name == "SumOf2nd4thPowersWithFrankWolfe":
+        raise TypeError(f"{name} carries a JAX LMO closure, which cannot be "
+                        "read back; build the port's with a port LMO")
+    if name in _H_FIELDS:
+        kw = {k: _field(obj, k) for k in _H_FIELDS[name]}
+        if name == "BurgEntropySimplex":
+            kw["use_pallas"] = bool(obj.use_pallas)
+        return getattr(h_oracles, name)(**kw)
     raise TypeError(f"no port of the oracle {name} yet")
 
 

@@ -1,20 +1,45 @@
 """Operator layer of the port (counterpart of ``accbpg_and_fw_tpu/ops``):
-the oracle interfaces, the Burg h-oracles, the D-optimal design f-oracle,
-the root finders, the one-kernel simplex multiplier and the D-opt engines'
-kernels."""
+the oracle interfaces, the h- and f-oracles, the LMOs, the root finders,
+the one-kernel simplex multiplier and the D-opt engines' kernels."""
 
 from .base import (LegendreFunction, LegendreOracle, RSmoothFunction,
                    SmoothOracle)
-from .f_oracles import DOptimalObj
+from .f_oracles import (DOptimalObj, FrobeniusSymLoss, FrobeniusSymLossDS,
+                        FrobeniusSymLossMixed, KLdivRegression,
+                        KLdivRegressionDS, KLdivRegressionMixed,
+                        LogisticRegression, PoissonRegression,
+                        PoissonRegressionDS, PoissonRegressionMixed, SVM_fun,
+                        SVMfunMixed)
 from .h_oracles import (BurgEntropy, BurgEntropyL1, BurgEntropyL2,
-                        BurgEntropySimplex)
+                        BurgEntropyL2Ball, BurgEntropySimplex, L2L1Linf,
+                        PolyDiv, PowerNeg1, ShannonEntropy, ShannonEntropyL1,
+                        ShannonEntropySimplex, SquaredL2Norm,
+                        SumOf2nd4thPowers, SumOf2nd4thPowersOnSimplex,
+                        SumOf2nd4thPowersPositiveOrthant,
+                        SumOf2nd4thPowersPositiveOrthantDS,
+                        SumOf2nd4thPowersWithFrankWolfe)
+from .lmo import (lmo_l2_ball, lmo_l2_ball_positive_orthant, lmo_linf_ball,
+                  lmo_matrix_box, lmo_matrix_simplex, lmo_nuclear_norm_ball,
+                  lmo_simplex)
 from .roots import (bisect_monotone, newton_scalar, project_simplex_burg,
                     simplex_inv_multiplier, solve_cubic)
 from .simplex import simplex_inv_multiplier_pallas
 
 __all__ = ["BurgEntropy", "BurgEntropyL1", "BurgEntropyL2",
-           "BurgEntropySimplex", "DOptimalObj", "LegendreFunction",
-           "LegendreOracle", "RSmoothFunction", "SmoothOracle",
-           "bisect_monotone", "newton_scalar", "project_simplex_burg",
+           "BurgEntropyL2Ball", "BurgEntropySimplex", "DOptimalObj",
+           "FrobeniusSymLoss", "FrobeniusSymLossDS", "FrobeniusSymLossMixed",
+           "KLdivRegression", "KLdivRegressionDS", "KLdivRegressionMixed",
+           "L2L1Linf", "LegendreFunction", "LegendreOracle",
+           "LogisticRegression", "PoissonRegression", "PoissonRegressionDS",
+           "PoissonRegressionMixed", "PolyDiv", "PowerNeg1",
+           "RSmoothFunction", "SVM_fun", "SVMfunMixed", "ShannonEntropy",
+           "ShannonEntropyL1", "ShannonEntropySimplex", "SmoothOracle",
+           "SquaredL2Norm", "SumOf2nd4thPowers",
+           "SumOf2nd4thPowersOnSimplex", "SumOf2nd4thPowersPositiveOrthant",
+           "SumOf2nd4thPowersPositiveOrthantDS",
+           "SumOf2nd4thPowersWithFrankWolfe", "bisect_monotone",
+           "lmo_l2_ball", "lmo_l2_ball_positive_orthant", "lmo_linf_ball",
+           "lmo_matrix_box", "lmo_matrix_simplex", "lmo_nuclear_norm_ball",
+           "lmo_simplex", "newton_scalar", "project_simplex_burg",
            "simplex_inv_multiplier", "simplex_inv_multiplier_pallas",
            "solve_cubic"]

@@ -15,6 +15,17 @@ from __future__ import annotations
 import torch
 
 
+def vdot(a, b):
+    """<a, b> over every entry (``jnp.vdot`` for real tensors of any
+    shape; ``torch.dot`` takes 1-d tensors only)."""
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def fnorm(a):
+    """2-norm of a vector, Frobenius norm of a matrix (any rank)."""
+    return torch.linalg.vector_norm(a)
+
+
 class SmoothOracle:
     """f-oracle for min f(x) + Psi(x): query value / gradient / both."""
 
@@ -76,7 +87,7 @@ class LegendreOracle:
 
     def divergence(self, x, y):
         gy = self.grad(y)
-        return self.value(x) - self.value(y) - torch.dot(gy, x - y)
+        return self.value(x) - self.value(y) - vdot(gy, x - y)
 
     def prox_map(self, g, L):
         raise NotImplementedError(type(self).__name__ + ".prox_map")

@@ -222,6 +222,31 @@ def launch_plan(m, n, kr, K, sms, smem_limit):
                       m + kr + 3 * group, iwords, -(-K // wave))
 
 
+def device_limits(device):
+    """``(sms, smem_limit)`` of a CUDA device, the inputs of
+    ``launch_plan``; None where there is no card to ask."""
+    if not torch.cuda.is_available():
+        return None
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def lazy_fits(m, n, K, limits):
+    """Whether the kernel takes K instances of an (m, n) design on a card of
+    ``limits = (sms, smem_limit)``: m within ``_MAX_M`` and a launch plan
+    that fits in shared memory (for ``limits`` None, the bound on m
+    alone)."""
+    if m > _MAX_M:
+        return False
+    if limits is None:
+        return True
+    try:
+        launch_plan(m, n, _KR, K, *limits)
+    except ValueError:
+        return False
+    return True
+
+
 def _kernel_lib():
     from . import _build
 
@@ -267,9 +292,7 @@ class _LazyKernel:
         if m > _MAX_M:
             raise ValueError(f"the lazy kernel takes m <= {_MAX_M}, got {m}")
         dev = self.dev = VT.device
-        props = torch.cuda.get_device_properties(dev)
-        self.plan = launch_plan(m, n, kr, K, props.multi_processor_count,
-                                props.shared_memory_per_block_optin)
+        self.plan = launch_plan(m, n, kr, K, *device_limits(dev))
         self.lib = _kernel_lib()
         n_plan = self.lib.dopt_lazy_plan_len()
         self._plan = (ctypes.c_int * n_plan)(*self.plan[:n_plan])

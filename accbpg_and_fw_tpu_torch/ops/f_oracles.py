@@ -1,9 +1,19 @@
-"""Relatively-smooth f-oracles of the port: D-optimal design.
+"""Relatively-smooth f-oracles of the port.
 
-Port of ``accbpg_and_fw_tpu/ops/f_oracles.py:33-108`` (reference:
-functions.py:27-82).  The JAX package's fast-Gram protocol (``gram``,
-``logdet_full``, ``inv_seed``, ``grad_from_inv``) belongs to the
-``fast_gram`` drivers and is not ported yet, nor are the other f-oracles.
+Port of ``accbpg_and_fw_tpu/ops/f_oracles.py`` (reference:
+functions.py:27-194, 908-1104): ``DOptimalObj``, ``PoissonRegression``,
+``KLdivRegression``, ``SVM_fun``, ``FrobeniusSymLoss`` and
+``LogisticRegression``.  Each holds its data as float64 tensors on
+``device`` (for None a tensor's own device, else CUDA) and reports it as
+``device``, where the drivers put their start.
+
+The JAX package's ``*Mixed`` and ``*DS`` oracles (int8-digit and
+double-single GEMVs, TPU workarounds for slow f64) name the FP64 classes
+here; their ``from_data`` accepts ``levels`` and ignores it.  Not ported
+yet: the fast-Gram protocol of the ``fast_gram`` drivers, ``AX_b``,
+``calculate_tse_constant`` and stochastic (noisy-gradient) evaluation: a
+``FrobeniusSymLoss`` with ``noise_level`` reports ``stochastic`` and the
+drivers refuse it.
 """
 
 from __future__ import annotations
@@ -11,7 +21,15 @@ from __future__ import annotations
 import torch
 
 from .._device import as_f64, resolve_device
-from .base import SmoothOracle
+from .base import SmoothOracle, fnorm, vdot
+
+
+class _DataOracle(SmoothOracle):
+    """An oracle over float64 data tensors on one device."""
+
+    def _data(self, device, *arrays):
+        self.device = resolve_device(device, like=arrays[0])
+        return [as_f64(a, self.device) for a in arrays]
 
 
 class DOptimalObj(SmoothOracle):
@@ -60,3 +78,177 @@ class DOptimalObj(SmoothOracle):
         g = -torch.sum(W * W, dim=0)
         return (torch.where(ok, f, torch.nan),
                 self._mask_pads(torch.where(ok, g, torch.nan)))
+
+
+class PoissonRegression(_DataOracle):
+    """f(x) = D_KL(b, Ax) for the linear inverse problem Ax ~ b
+    (reference: functions.py:85-120)."""
+
+    def __init__(self, A, b, device=None):
+        self.A, self.b = self._data(device, A, b)
+
+    @classmethod
+    def from_data(cls, A, b, levels=None, max_diag=None, device=None):
+        """The JAX ``*Mixed``/``*DS`` constructor; ``levels`` and
+        ``max_diag`` (digit planes) have no meaning in FP64."""
+        return cls(A, b, device=device)
+
+    def value(self, x, key=None):
+        Ax = self.A @ x
+        return torch.sum(self.b * torch.log(self.b / Ax) + Ax - self.b)
+
+    def grad(self, x, key=None):
+        return (1.0 - self.b / (self.A @ x)) @ self.A
+
+    def value_and_grad(self, x, key=None):
+        Ax = self.A @ x
+        f = torch.sum(self.b * torch.log(self.b / Ax) + Ax - self.b)
+        return f, (1.0 - self.b / Ax) @ self.A
+
+
+class KLdivRegression(PoissonRegression):
+    """f(x) = D_KL(Ax, b) (reference: functions.py:123-158)."""
+
+    def value(self, x, key=None):
+        Ax = self.A @ x
+        return torch.sum(Ax * torch.log(Ax / self.b) - Ax + self.b)
+
+    def grad(self, x, key=None):
+        return torch.log((self.A @ x) / self.b) @ self.A
+
+    def value_and_grad(self, x, key=None):
+        Ax = self.A @ x
+        r = torch.log(Ax / self.b)
+        return torch.sum(Ax * r - Ax + self.b), r @ self.A
+
+
+class SVM_fun(_DataOracle):
+    """Mean hinge loss + (lamda/2)||x||^2 with its subgradient
+    (reference: functions.py:161-194)."""
+
+    def __init__(self, lamda=0.5, A=None, y=None, device=None):
+        self.lamda = float(lamda)
+        self.A, self.y = self._data(device, A, y)
+
+    @classmethod
+    def from_data(cls, A, y, lamda=0.5, levels=None, device=None):
+        """The JAX ``SVMfunMixed`` constructor; ``levels`` is ignored."""
+        return cls(lamda=lamda, A=A, y=y, device=device)
+
+    def hinge_loss(self, x):
+        return torch.mean(torch.clamp_min(1.0 - self.y * (self.A @ x), 0.0))
+
+    def value(self, x, key=None):
+        return self.hinge_loss(x) + (self.lamda / 2.0) * vdot(x, x)
+
+    def subgradient_loss(self, x):
+        active = (self.y * (self.A @ x) < 1.0).to(x.dtype)
+        return (active * self.y) @ self.A / self.A.shape[0]
+
+    def grad(self, x, key=None):
+        return self.lamda * x - self.subgradient_loss(x)
+
+    def value_and_grad(self, x, key=None):
+        margin = self.y * (self.A @ x)
+        f = (torch.mean(torch.clamp_min(1.0 - margin, 0.0))
+             + (self.lamda / 2.0) * vdot(x, x))
+        active = (margin < 1.0).to(x.dtype)
+        g = self.lamda * x - (active * self.y) @ self.A / self.A.shape[0]
+        return f, g
+
+
+class FrobeniusSymLoss(_DataOracle):
+    """SymNMF loss f(X) = 0.5*||M - X X^T||_F^2 (reference:
+    functions.py:908-1034), in the expanded form
+    0.5*(||M||^2 + ||X^T X||^2) - <X, M X>, so the large products are M X
+    (n x n x r) and X^T X (r x r), never the n x n outer product.
+
+    ``noise_level`` marks the oracle stochastic (the JAX package adds
+    keyed gradient noise); the port's drivers refuse such an oracle."""
+
+    def __init__(self, M, M_norm=None, noise_level=None, device=None):
+        (self.M,) = self._data(device, M)
+        self.M_norm = (fnorm(self.M) if M_norm is None
+                       else as_f64(M_norm, self.M.device))
+        self.noise_level = noise_level
+        self.stochastic = noise_level is not None
+
+    @classmethod
+    def create(cls, M, X_init=None, noise_level=None, device=None):
+        """The reference's constructor (``X_init`` only sized its scratch
+        buffers there)."""
+        del X_init
+        return cls(M, noise_level=noise_level, device=device)
+
+    @classmethod
+    def from_data(cls, M, levels=None, device=None):
+        """The JAX ``FrobeniusSymLossMixed``/``DS`` constructor; ``levels``
+        is ignored."""
+        return cls(M, device=device)
+
+    def value(self, x, key=None):
+        XtX = x.T @ x
+        nrm = torch.linalg.vector_norm(XtX)
+        return (0.5 * (self.M_norm * self.M_norm + nrm * nrm)
+                - vdot(x, self.M @ x))
+
+    def grad(self, x, key=None):
+        return 2.0 * (x @ (x.T @ x) - self.M @ x)
+
+    def value_and_grad(self, x, key=None):
+        XtX = x.T @ x
+        MX = self.M @ x
+        nrm = torch.linalg.vector_norm(XtX)
+        f = 0.5 * (self.M_norm * self.M_norm + nrm * nrm) - vdot(x, MX)
+        return f, 2.0 * (x @ XtX - MX)
+
+
+class LogisticRegression(_DataOracle):
+    """Mean logistic loss f(w) = mean_i log(1 + exp(-y_i x_i^T w))
+    (reference: functions.py:1068-1104).
+
+    The value is ``logaddexp(0, -z)``, which is ``jax.nn.softplus``;
+    ``torch.nn.functional.softplus`` returns its input past its threshold
+    of 20, which misses the log1p(exp(-z)) tail that ill-conditioned
+    logits reach.  The gradient is -X^T (y sigmoid(-z)) / m."""
+
+    def __init__(self, X, y, alpha=0.01, device=None):
+        self.X, self.y = self._data(device, X, y)
+        self.alpha = float(alpha)
+
+    def _z(self, x):
+        return self.y * (self.X @ x)
+
+    @staticmethod
+    def _softplus(a):
+        return torch.logaddexp(torch.zeros_like(a), a)
+
+    def value(self, x, key=None):
+        return torch.mean(self._softplus(-self._z(x)))
+
+    def f(self, x):  # reference alias
+        return self.value(x)
+
+    def grad(self, x, key=None):
+        w = torch.sigmoid(-self._z(x)) * self.y
+        return -(w @ self.X) / self.X.shape[0]
+
+    def value_and_grad(self, x, key=None):
+        z = self._z(x)
+        w = torch.sigmoid(-z) * self.y
+        return (torch.mean(self._softplus(-z)),
+                -(w @ self.X) / self.X.shape[0])
+
+    def hessian(self, x):
+        s = torch.sigmoid(-self._z(x))
+        d = s * (1.0 - s)  # y_i^2 = 1
+        return (self.X.T * d) @ self.X / self.X.shape[0]
+
+
+# The JAX package's int8-digit (Mixed) and double-single (DS) oracles are
+# TPU workarounds for slow f64; on the card the FP64 classes are those
+# oracles, exact (no ``accept_tol``).
+PoissonRegressionMixed = PoissonRegressionDS = PoissonRegression
+KLdivRegressionMixed = KLdivRegressionDS = KLdivRegression
+SVMfunMixed = SVM_fun
+FrobeniusSymLossMixed = FrobeniusSymLossDS = FrobeniusSymLoss

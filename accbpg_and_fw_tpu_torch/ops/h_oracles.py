@@ -1,10 +1,21 @@
-"""Legendre kernels (h-oracles) of the port: the Burg-entropy family.
+"""Legendre kernels (h-oracles) of the port.
 
-Port of ``accbpg_and_fw_tpu/ops/h_oracles.py:41-196`` (reference:
-functions.py:238-356): ``BurgEntropy``, ``BurgEntropyL1``,
-``BurgEntropyL2`` and ``BurgEntropySimplex``, float64 tensors in and out,
-scalars (``L``, ``lamda``, a multiplier) as Python floats.  The other
-h-oracles of the JAX package are not ported yet.
+Port of ``accbpg_and_fw_tpu/ops/h_oracles.py`` (reference:
+functions.py:238-905): float64 tensors in and out, the kernels' scalars
+(``L``, ``lamda``, ``alpha``, ``sigma``, a radius, a multiplier) as Python
+floats.  Ported: the Burg-entropy family (``BurgEntropy``,
+``BurgEntropyL1``, ``BurgEntropyL2``, ``BurgEntropySimplex``,
+``BurgEntropyL2Ball``), the Shannon-entropy family, the 2nd+4th-power
+kernels but ``SumOf2nd4thPowersDualProxMap`` (whose prox is a 7000-step
+inner loop with a gap test per step), ``SquaredL2Norm``, ``PowerNeg1``,
+``L2L1Linf`` and ``PolyDiv``.  ``SumOf2nd4thPowersPositiveOrthantDS`` (the
+JAX package's double-single prox, a TPU workaround for slow f64) names the
+FP64 class.  Inner products and norms run over every entry, so matrix
+iterates (SymNMF's n x r factor) work as vectors do.
+
+The JAX package's deviations from the reference stay: log-sum-exp in the
+Shannon simplex proxes, ``PolyDiv``'s prox on the true KKT equation (64
+bisection steps on the device) and its ``grad`` with lamda**2.
 
 Out-of-domain inputs give NaN or inf instead of raising, as in JAX; the
 drivers' line searches count a NaN trial as a failure.
@@ -14,8 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from .base import LegendreOracle
-from .roots import simplex_inv_multiplier
+from .base import LegendreOracle, fnorm, vdot
+from .roots import (bisect_monotone, project_simplex_burg,
+                    simplex_inv_multiplier, solve_cubic)
 from .simplex import simplex_inv_multiplier_pallas
 
 
@@ -66,7 +78,7 @@ class BurgEntropyL2(BurgEntropy):
         self.lamda = float(lamda)
 
     def extra_psi(self, x):
-        return (self.lamda / 2.0) * torch.dot(x, x)
+        return (self.lamda / 2.0) * vdot(x, x)
 
     def prox_map(self, g, L):
         # x solves lamda*x^2 + g*x - L = 0 per coordinate (positive root);
@@ -112,3 +124,313 @@ class BurgEntropySimplex(BurgEntropy):
 
     def div_prox_map_warm(self, y, g, L, c_prev):
         return self.prox_map_warm(g + torch.div(L, y), L, c_prev)
+
+
+class BurgEntropyL2Ball(BurgEntropy):
+    """Burg entropy over an L2 ball on the positive side (reference
+    :359-395): the Burg step, projected radially onto the ball, then
+    floored at ``delta`` inside the domain."""
+
+    def __init__(self, lamda=0.0, radius=1.0, center=None, delta=1e-30):
+        self.lamda = float(lamda)
+        self.radius = float(radius)
+        self.center = center
+        self.delta = float(delta)
+
+    def div_prox_map(self, y, g, L):
+        x = torch.div(L, g + torch.div(L, y))
+        center = (torch.zeros_like(x) if self.center is None else
+                  torch.as_tensor(self.center, dtype=x.dtype,
+                                  device=x.device).expand(x.shape))
+        x = x - center
+        x = x / torch.clamp_min(fnorm(x), self.radius)
+        x = x * self.radius
+        x = x + center
+        return torch.where(x == 0, self.delta, x)
+
+
+# ---------------------------------------------------------------------------
+# Shannon entropy family: h(x) = sum x_i log x_i (reference :398-490)
+# ---------------------------------------------------------------------------
+
+
+class ShannonEntropy(LegendreOracle):
+    """h(x) = sum_i x_i log(x_i), h(0) = 0 (reference :398-438)."""
+
+    def __init__(self, delta=1e-20):
+        self.delta = float(delta)
+
+    def value(self, x):
+        xx = torch.clamp_min(x, self.delta)
+        return torch.sum(xx * torch.log(xx))
+
+    def grad(self, x):
+        return 1.0 + torch.log(torch.clamp_min(x, self.delta))
+
+    def divergence(self, x, y):
+        d = self.delta
+        return (torch.sum(x * torch.log((x + d) / (y + d)))
+                + (torch.sum(y) - torch.sum(x)))
+
+    def prox_map(self, g, L):
+        # argmin_{x>=0} <g,x> + L*h(x)  =>  x = exp(-g/L - 1)
+        return torch.exp(-g / L - 1.0)
+
+    def div_prox_map(self, y, g, L):
+        # multiplicative / entropic mirror step
+        return y * torch.exp(-g / L)
+
+
+class ShannonEntropyL1(ShannonEntropy):
+    """Shannon entropy with Psi(x) = lamda*||x||_1 (reference :441-466)."""
+
+    def __init__(self, delta=1e-20, lamda=0.0):
+        super().__init__(delta)
+        self.lamda = float(lamda)
+
+    def extra_psi(self, x):
+        return self.lamda * torch.sum(x)
+
+    def prox_map(self, g, L):
+        return ShannonEntropy.prox_map(self, self.lamda + g, L)
+
+    def div_prox_map(self, y, g, L):
+        return ShannonEntropy.div_prox_map(self, y, self.lamda + g, L)
+
+
+class ShannonEntropySimplex(ShannonEntropy):
+    """Shannon entropy on the unit simplex (reference :469-490): both
+    proxes are softmaxes over the last axis.  Exactly-zero coordinates of
+    y stay zero in ``div_prox_map`` (their logit is -inf)."""
+
+    def prox_map(self, g, L):
+        return torch.softmax(-g / L, dim=-1)
+
+    def div_prox_map(self, y, g, L):
+        logits = torch.where(
+            y > 0, torch.log(torch.clamp_min(y, self.delta)) - g / L,
+            -torch.inf)
+        return torch.softmax(logits, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# 2nd+4th power kernels: h(x) = (sigma/2)||x||^2 + (alpha/4)||x||^4
+# (reference :493-735)
+# ---------------------------------------------------------------------------
+
+
+class SumOf2nd4thPowers(LegendreOracle):
+    """h(x) = (sigma/2)||x||^2 + (alpha/4)||x||^4 (reference :493-555).
+    The proxes solve grad h(x) = u: x = u / z with z the real root of the
+    cubic z^3 - sigma z^2 = alpha ||u||^2 (``roots.solve_cubic``)."""
+
+    def __init__(self, alpha=1.0, sigma=1.0):
+        self.alpha = float(alpha)
+        self.sigma = float(sigma)
+
+    def value(self, x):
+        n2 = vdot(x, x)
+        return (self.alpha / 4.0) * n2 * n2 + (self.sigma / 2.0) * n2
+
+    def grad(self, x):
+        n2 = vdot(x, x)
+        return (self.sigma + self.alpha * n2) * x
+
+    def _mirror_point(self, y, g, L):
+        """u = grad h(y) - g/L, the point whose grad-h-inverse is the prox."""
+        z = self.alpha * vdot(y, y) + self.sigma
+        return z * y - g / L
+
+    def _grad_inverse(self, u):
+        return u / solve_cubic(self.alpha * vdot(u, u), self.sigma)
+
+    def prox_map(self, g, L):
+        return self._grad_inverse(-g / L)
+
+    def div_prox_map(self, y, g, L):
+        return self._grad_inverse(self._mirror_point(y, g, L))
+
+
+class SumOf2nd4thPowersPositiveOrthant(SumOf2nd4thPowers):
+    """Same kernel, the mirror point clipped to [0, upper_bound] before the
+    cubic solve (reference :558-577)."""
+
+    def __init__(self, alpha=1.0, sigma=1.0, upper_bound=None):
+        super().__init__(alpha, sigma)
+        self.upper_bound = None if upper_bound is None else float(upper_bound)
+
+    def _clip(self, u):
+        return torch.clamp(u, 0.0, self.upper_bound)
+
+    def prox_map(self, g, L):
+        return self._grad_inverse(self._clip(-g / L))
+
+    def div_prox_map(self, y, g, L):
+        return self._grad_inverse(self._clip(self._mirror_point(y, g, L)))
+
+
+# The JAX package's double-single prox existed because the TPU has no fast
+# f64; on the card the FP64 class is that prox.
+SumOf2nd4thPowersPositiveOrthantDS = SumOf2nd4thPowersPositiveOrthant
+
+
+class SumOf2nd4thPowersOnSimplex(SumOf2nd4thPowers):
+    """Same kernel on the simplex (reference :580-636): the unconstrained
+    cubic prox, then the Burg-Newton map x = 1/(y + c) onto sum(x) = 1."""
+
+    def __init__(self, alpha=1.0, sigma=1.0, radius=1.0, eps=1e-4):
+        super().__init__(alpha, sigma)
+        self.radius = float(radius)
+        self.eps = float(eps)
+
+    def div_prox_map(self, y, g, L):
+        x = SumOf2nd4thPowers.div_prox_map(self, y, g, L)
+        return project_simplex_burg(x, self.eps)
+
+
+class SumOf2nd4thPowersWithFrankWolfe(SumOf2nd4thPowers):
+    """Same kernel; ``div_prox_map`` delegates to an LMO (reference
+    :701-735)."""
+
+    def __init__(self, alpha=1.0, sigma=1.0, lmo=None):
+        super().__init__(alpha, sigma)
+        self.lmo = lmo
+
+    def div_prox_map(self, y, g, L):
+        return self.lmo(g)
+
+
+# ---------------------------------------------------------------------------
+# Euclidean and other kernels (reference :738-905)
+# ---------------------------------------------------------------------------
+
+
+class SquaredL2Norm(LegendreOracle):
+    """h(x) = (1/2)||x||^2, plain Euclidean geometry (reference :738-759)."""
+
+    def value(self, x):
+        return 0.5 * vdot(x, x)
+
+    def grad(self, x):
+        return x
+
+    def divergence(self, x, y):
+        xy = x - y
+        return 0.5 * vdot(xy, xy)
+
+    def prox_map(self, g, L):
+        return -(1.0 / L) * g
+
+    def div_prox_map(self, y, g, L):
+        return y - (1.0 / L) * g
+
+
+class PowerNeg1(LegendreOracle):
+    """h(x) = sum_i 1/x_i on x > 0 (reference :762-779; the value is the
+    sum, which the reference's own divergence integrates)."""
+
+    def value(self, x):
+        return torch.sum(torch.div(1.0, x))
+
+    def grad(self, x):
+        return torch.div(-1.0, x * x)
+
+    def divergence(self, x, y):
+        xy = x - y
+        return torch.sum(xy * xy / (x * y * y))
+
+    def prox_map(self, g, L):
+        return torch.sqrt(torch.div(L, g))
+
+    def div_prox_map(self, y, g, L):
+        return self.prox_map(g + torch.div(L, y * y), L)
+
+
+class L2L1Linf(LegendreOracle):
+    """h = (1/2)||x||^2 with Psi = lamda*||x||_1 and the box
+    ||x||_inf <= B (reference :782-835): soft-threshold, then clip."""
+
+    def __init__(self, lamda=0.0, B=1.0):
+        self.lamda = float(lamda)
+        self.B = float(B)
+
+    def value(self, x):
+        return 0.5 * vdot(x, x)
+
+    def extra_psi(self, x):
+        return self.lamda * torch.sum(torch.abs(x))
+
+    def grad(self, x):
+        return x
+
+    def divergence(self, x, y):
+        xy = x - y
+        return 0.5 * vdot(xy, xy)
+
+    def prox_map(self, g, L):
+        x = -(1.0 / L) * g
+        thr = self.lamda / L
+        x = torch.sign(x) * torch.clamp_min(torch.abs(x) - thr, 0.0)
+        return torch.clamp(x, -self.B, self.B)
+
+    def div_prox_map(self, y, g, L):
+        return self.prox_map(g - L * y, L)
+
+
+class PolyDiv(LegendreOracle):
+    """Data-dependent polynomial kernel over an L2 ball (arXiv:1710.04718
+    eq. 27; reference :838-905):
+
+        h(x) = (lamda^2/4)||x||^4 + (2 lamda Dbar/3)||x||^3 + (Dbar2/2)||x||^2
+
+    with Dbar, Dbar2 the mean row norm and mean squared row norm of the
+    dataset.  The prox over the ball is radial, x = -t g/||g||, with t the
+    root of L (lamda^2 t^3 + 2 lamda Dbar t^2 + Dbar2 t) = ||g|| clamped
+    to [0, radius]: 64 bisection steps on the device (the JAX package's
+    form; the reference rescales ||g|| first and calls a conic solver)."""
+
+    def __init__(self, DS_mean=0.0, DS_mean_quad=0.0, lamda=0.0, radius=1.0):
+        self.DS_mean = float(DS_mean)
+        self.DS_mean_quad = float(DS_mean_quad)
+        self.lamda = float(lamda)
+        self.radius = float(radius)
+
+    @classmethod
+    def from_data(cls, DS, lamda=0.0, radius=1.0):
+        DS = (DS.to(torch.float64) if isinstance(DS, torch.Tensor)
+              else torch.as_tensor(DS, dtype=torch.float64))
+        row_norms = torch.linalg.vector_norm(DS, dim=1)
+        return cls(DS_mean=float(torch.mean(row_norms)),
+                   DS_mean_quad=float(torch.mean(row_norms**2)),
+                   lamda=lamda, radius=radius)
+
+    def value(self, x):
+        r = fnorm(x)
+        return (self.lamda**2 * 0.25 * r**4
+                + 2.0 * self.lamda * self.DS_mean / 3.0 * r**3
+                + self.DS_mean_quad * 0.5 * r**2)
+
+    def grad(self, x):
+        r2 = vdot(x, x)
+        r = torch.sqrt(r2)
+        return (self.lamda**2 * r2 + 2.0 * self.lamda * self.DS_mean * r
+                + self.DS_mean_quad) * x
+
+    def prox_map(self, g, L):
+        gnorm = torch.clamp_min(fnorm(g), 1e-12)
+        lam, dbar, dbar2 = self.lamda, self.DS_mean, self.DS_mean_quad
+
+        def phi_prime(t):
+            return L * (lam**2 * t**3 + 2.0 * lam * dbar * t**2
+                        + dbar2 * t) - gnorm
+
+        t = bisect_monotone(phi_prime, torch.zeros((), dtype=g.dtype,
+                                                   device=g.device),
+                            self.radius)
+        # an unconstrained root past the ball sits on the boundary
+        radius = torch.full_like(t, self.radius)
+        t = torch.where(phi_prime(radius) <= 0, radius, t)
+        return -(t / gnorm) * g
+
+    def div_prox_map(self, y, g, L):
+        return self.prox_map(g - L * self.grad(y), L)

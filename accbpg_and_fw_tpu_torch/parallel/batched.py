@@ -21,7 +21,7 @@ import torch
 from .._device import as_f64, resolve_device
 from ..ops.dopt_common import XTOL, factorize
 from ..ops.dopt_dense import dopt_fw_dense_batch
-from ..ops.dopt_lazy import dopt_fw_lazy_batch
+from ..ops.dopt_lazy import device_limits, dopt_fw_lazy_batch, lazy_fits
 
 # "auto" takes the lazy-H batch kernel on a CUDA device from this m up.
 # The threshold is the TPU's (the JAX package's on-chip A/B, BASELINE.md
@@ -149,15 +149,18 @@ def dopt_fw_batch_exact(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
     return c["x"], hist[0], hist[1], hist[2]
 
 
-def _resolve_auto_batch_precision(Vs, device):
+def _resolve_auto_batch_precision(Vs, device, limits=None):
     """The engine for ``precision="auto"``: the lazy-H batch kernel for
-    instances with m >= 64 on a CUDA device, the exact engine otherwise.
-    (The JAX rule also bounded the TPU's VMEM, which has no counterpart
-    here.)"""
+    instances with m >= 64 on a CUDA device that the kernel takes
+    (``lazy_fits`` on ``limits``, the device's ``(sms, smem_limit)`` when
+    None), the exact engine otherwise, as the JAX rule falls back past
+    its kernel's memory budget."""
     shape = getattr(Vs, "shape", None)
     if (device.type == "cuda" and shape is not None and len(shape) == 3
             and shape[1] >= _LAZY_MIN_M):
-        return "pallas_lazy"
+        K, m, n = shape
+        if lazy_fits(m, n, K, limits or device_limits(device)):
+            return "pallas_lazy"
     return "native"
 
 
@@ -175,11 +178,12 @@ def dopt_fw_batch(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
     ``"pallas"`` the dense block kernel (rows to the lockstep stop);
     ``"pallas_lazy"`` the lazy-H block kernel (rows to the last
     instance's stop); ``"auto"`` the lazy-H kernel for m >= 64 on a CUDA
-    device and the exact engine otherwise.  ``refresh_every`` keeps each
+    device where the kernel takes the shape (m <= 16384 and a launch plan
+    that fits in shared memory), the exact engine otherwise.  ``refresh_every`` keeps each
     engine's JAX meaning: a full refactorization every R rows for the
     exact and dense engines, the w-only refresh for the lazy one.
     ``device``: None keeps a tensor ``Vs``'s device and puts numpy input
-    on the CPU.
+    on CUDA; "cpu" asks for the CPU.
     """
     dev = resolve_device(device, like=Vs)
     if precision == "auto":

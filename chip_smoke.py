@@ -93,6 +93,24 @@ and the script exits non-zero without the result line:
    h. per-iteration costs of the five Bregman drivers at 30x1000 on the
       card, with each h: host syncs (``torch.cuda.set_sync_debug_mode``)
       and device operations (``torch.profiler``) per iteration;
+   i. the Frank-Wolfe paths, which launch none of the kernels (their
+      counts must stay 0): the five FW drivers on the ``"illcond"``
+      logistic problem of ``examples/ex_fw_l0l1.py`` at 1000x1000 (rho
+      0.99, 20% flipped labels, l2 ball of radius 25, the port's torch
+      generator from seed 63, ``run_regime``'s 2000 iterations and
+      ls_ratio 2.2): finite F that ends below F[0], LOG_STEPS that never
+      decrease (``FW_l0l1_log_only``: at least rows - 1), the first 200
+      rows of F within rtol 1e-9 of the port on the CPU on the same
+      arrays, the cold run's F bit for bit, and per driver the warm wall,
+      the rows, host syncs and
+      device operations per iteration; ``FW_alg_div_step`` on the three
+      ``examples/ex_fw_rs.py`` panels (500 iterations) and
+      ``FW_alg_descent_step`` on SymNMF n=200, r=20 with both kernels
+      (``examples/ex_params_free_symnmf.py``), each against the CPU on the
+      same arrays (rtol 1e-9); and ``examples/ex_fw_rs.py`` and
+      ``examples/ex_params_free_symnmf.py`` run with their import changed
+      to the port's (``examples/ex_fw_l0l1.py`` is left out: it imports
+      JAX for its PRNG key, and this script runs without JAX);
 5. the kernels' JSON line (launches on the path, error against the plain
    version, kernel and plain times, the bound from this run's inputs and
    the time of a PyTorch call for the same function where one exists), the
@@ -131,6 +149,16 @@ BPG_M, BPG_N, BPG_ITERS, BPG_F_REF, BPG_F_TOL = 30, 1000, 9000, \
 README_M, README_N, README_ITERS = 80, 200, 900
 # the multiplier kernel's Newton stall threshold
 SIMPLEX_STALL = 1e-8
+# the Frank-Wolfe paths: the "illcond" regime of examples/ex_fw_l0l1.py at
+# its 1000x1000 config with run_regime's defaults (2000 iterations,
+# ls_ratio 2.2), its first FW_CPU_ROWS rows held against the port on the
+# CPU; the examples/ex_fw_rs.py panels (500 iterations) and the
+# examples/ex_params_free_symnmf.py run (n=200, r=20, 600 iterations)
+FW_ILL = dict(seed=63, radius=25.0, rho=0.99, col_scale=1.0, flip_y=0.2,
+              noise=0.1)
+FW_NS, FW_NF, FW_ITERS, FW_LS_RATIO = 1000, 1000, 2000, 2.2
+FW_CPU_ROWS, FW_COST_ITERS, FW_RTOL = 200, 200, 1e-9
+FW_RS_ITERS, FW_SYM_N, FW_SYM_R, FW_SYM_ITERS = 500, 200, 20, 600
 # kernel vs plain version on the card, over one 256-iteration block: x, w
 # and C to rtol 1e-11 (each array's max-abs scales the atol, for entries
 # that cancel to near zero); SP, SN, tau, tau (w_v - 1) to atol 1e-12.
@@ -1059,6 +1087,247 @@ def per_iteration_costs(port):
           f"iterations each): " + "; ".join(rows), flush=True)
 
 
+def fw_syncs_and_ops(run):
+    """Host syncs (``torch.cuda.set_sync_debug_mode``), device operations
+    and the device's idle share (``torch.profiler``; the traced wall
+    includes the profiler's own cost) of one call of ``run``, and its
+    rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rows = len(run()[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time for e in events) * 1e-6
+    return syncs, len(events), 1.0 - busy / wall, rows
+
+
+def fw_against_cpu(label, F_card, F_cpu, rows=None):
+    """The card's F history against the CPU's on the same arrays: the same
+    number of rows (``rows`` None), then rtol FW_RTOL over the first
+    ``rows`` (all for None); returns the largest relative error."""
+    F_card, F_cpu = np.asarray(F_card), np.asarray(F_cpu)
+    if rows is None and len(F_card) != len(F_cpu):
+        raise AssertionError(f"{label}: {len(F_card)} rows on the card, "
+                             f"{len(F_cpu)} on the CPU")
+    n = len(F_cpu) if rows is None else rows
+    err = float(np.max(np.abs(F_card[:n] - F_cpu[:n]) / np.abs(F_cpu[:n])))
+    if not err <= FW_RTOL:
+        raise AssertionError(f"{label}: card vs CPU F rel err {err:.3e} > "
+                             f"{FW_RTOL} over {n} rows")
+    return err
+
+
+def fw_illcond(port, card):
+    """Phase 4i, the full-width path: the five FW drivers on the 1000x1000
+    ill-conditioned logistic problem; returns its line."""
+    f, h, L, L0, L1, x0, X, y = port.hard_FW_log_reg_jax(
+        FW_ILL["seed"], FW_NS, FW_NF, domain="l2", device="cuda",
+        **{k: v for k, v in FW_ILL.items() if k != "seed"})
+    f_cpu = port.LogisticRegression(X.cpu(), y.cpu(), device="cpu")
+    L, L0, L1 = float(L), max(float(L0), 1e-9), float(L1)
+    radius = FW_ILL["radius"]
+    drivers = {
+        "FW_l0l1_log_and_linear_step": lambda f, x0, lmo, it:
+            port.FW_l0l1_log_and_linear_step(f, h, L0, L1, x0, it, lmo=lmo,
+                                             ls_ratio=FW_LS_RATIO,
+                                             verbose=False),
+        "FW_l0l1_log_only": lambda f, x0, lmo, it:
+            port.FW_l0l1_log_only(f, h, L0, L1, x0, it, lmo=lmo,
+                                  ls_ratio=FW_LS_RATIO, verbose=False),
+        "FW_alg_div_step": lambda f, x0, lmo, it:
+            port.FW_alg_div_step(f, h, L, x0, it, gamma=2.0, lmo=lmo,
+                                 ls_ratio=FW_LS_RATIO, verbose=False),
+        "FW_alg_L0_L1_shortest_step": lambda f, x0, lmo, it:
+            port.FW_alg_L0_L1_shortest_step(f, h, L0, L1, x0, it, gamma=2.0,
+                                            lmo=lmo, verbose=False),
+        "FW_alg_descent_step": lambda f, x0, lmo, it:
+            port.FW_alg_descent_step(f, h, x0, it, lmo, verbose=False),
+    }
+    lmo, lmo_cpu = port.lmo_l2_ball(radius), port.lmo_l2_ball(radius)
+    out = []
+    for name, run in drivers.items():
+        first = run(f, x0, lmo, FW_ITERS)  # cold: the first call
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = run(f, x0, lmo, FW_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        F = np.asarray(res[1])
+        if not (np.all(np.isfinite(F)) and F[-1] < F[0]):
+            raise AssertionError(f"{name}: F[0] {F[0]} F[-1] {F[-1]}")
+        np.testing.assert_array_equal(F, np.asarray(first[1]))
+        if "log" in name:
+            steps = np.asarray(res[3])
+            if np.any(np.diff(steps) < 0):
+                raise AssertionError(f"{name}: LOG_STEPS decreased")
+            if name == "FW_l0l1_log_only" and steps[-1] < len(F) - 1:
+                raise AssertionError(f"{name}: LOG_STEPS[-1] {steps[-1]} < "
+                                     f"rows - 1 = {len(F) - 1}")
+        cpu = run(f_cpu, x0.cpu(), lmo_cpu, FW_CPU_ROWS)
+        held = min(FW_CPU_ROWS, len(F))
+        err = fw_against_cpu(name, F, cpu[1], rows=held)
+        syncs, ops, idle, rows = fw_syncs_and_ops(
+            lambda: run(f, x0, lmo, FW_COST_ITERS))
+        ops_txt = (f"{ops / rows:.1f} device ops per iteration (device "
+                   f"idle {100 * idle:.1f}% of a traced run)" if ops else
+                   "device ops not measured (no device events in the trace)")
+        out.append(f"{name}: warm wall {wall:.3f} s, {len(F)} rows, "
+                   f"F {F[0]:.6e} -> {F[-1]:.6e}, {syncs / rows:.2f} syncs "
+                   f"and {ops_txt}, card vs CPU {err:.1e} over {held} rows")
+    print(f"[fw] illcond {FW_NS}x{FW_NF} l2 ball {radius} on cuda "
+          f"({FW_ITERS} iterations, ls_ratio {FW_LS_RATIO}; {card}): "
+          + "; ".join(out), flush=True)
+
+
+def fw_rs_panels(port):
+    """Phase 4i: FW_alg_div_step on the three examples/ex_fw_rs.py panels,
+    the card against the CPU on the same arrays."""
+    def dopt(dev):
+        f, h, L, x0 = port.D_opt_design(80, 200, randseed=10, device=dev)
+        return f, h, L, x0, port.lmo_simplex()
+
+    def poisson(dev):
+        np.random.seed(1)
+        h, sc = port.Poisson_regr_simplex(200, 100, device=dev)
+        f, L, _, x0 = sc["x0_center_sol_center"]
+        return f, h, L, x0, port.lmo_simplex()
+
+    np.random.seed(3)
+    svm = port.svm_digits_ds_divs_ball(device="cuda")
+
+    def svm_panel(dev):
+        f, (poly_h, _), L, x0, radius = svm
+        if dev == "cpu":
+            f = port.SVM_fun(lamda=f.lamda, A=f.A.cpu(), y=f.y.cpu(),
+                             device="cpu")
+        return f, poly_h, L, x0.to(dev), port.lmo_l2_ball(radius)
+
+    out = []
+    for label, make in (("D-opt 80x200", dopt), ("Poisson 200x100", poisson),
+                        ("SVM ball 700x2000", svm_panel)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            f, h, L, x0, lmo = make(dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runs[dev] = port.FW_alg_div_step(f, h, L, x0, FW_RS_ITERS,
+                                             gamma=2.0, lmo=lmo, ls_ratio=2,
+                                             verbose=False)
+            torch.cuda.synchronize()
+            runs[dev + "_wall"] = time.perf_counter() - t
+        F = np.asarray(runs["cuda"][1])
+        if not (np.all(np.isfinite(F)) and F[-1] < F[0]):
+            raise AssertionError(f"{label}: F[0] {F[0]} F[-1] {F[-1]}")
+        err = fw_against_cpu(label, F, runs["cpu"][1])
+        out.append(f"{label}: {len(F)} rows, F[-1] {F[-1]:.6e}, card vs CPU "
+                   f"{err:.1e}, wall {runs['cuda_wall']:.3f} s (CPU "
+                   f"{runs['cpu_wall']:.3f} s)")
+    print(f"[fw] ex_fw_rs panels, FW_alg_div_step {FW_RS_ITERS} iterations: "
+          + "; ".join(out), flush=True)
+
+
+def symnmf_matrix(n):
+    """The similarity matrix of examples/ex_params_free_symnmf.py (seed 0)."""
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((4, 8)) * 2.0
+    pts = np.concatenate([c + 0.3 * rng.standard_normal((n // 4, 8))
+                          for c in centers])[:n]
+    d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+    return np.exp(-d2 / d2.mean())
+
+
+def fw_symnmf(port):
+    """Phase 4i: FW_alg_descent_step on SymNMF with both kernels, the card
+    against the CPU on the same arrays."""
+    M = symnmf_matrix(FW_SYM_N)
+    out = []
+    for which in (0, 1):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            np.random.seed(0)
+            f, hs, _, X0 = port.FrobeniusSymLossResMeasEx(M, FW_SYM_R,
+                                                          device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runs[dev] = port.FW_alg_descent_step(
+                f, hs[which], X0, FW_SYM_ITERS,
+                port.lmo_linf_ball(radius=1, center=1), epsilon=1e-9,
+                verbose=False)
+            torch.cuda.synchronize()
+            runs[dev + "_wall"] = time.perf_counter() - t
+        F = np.asarray(runs["cuda"][1])
+        if not (np.all(np.isfinite(F)) and F[-1] < F[0]):
+            raise AssertionError(f"SymNMF: F[0] {F[0]} F[-1] {F[-1]}")
+        err = fw_against_cpu("SymNMF", F, runs["cpu"][1])
+        out.append(f"{type(hs[which]).__name__}: {len(F)} rows, F[-1] "
+                   f"{F[-1]:.6e}, card vs CPU {err:.1e}, wall "
+                   f"{runs['cuda_wall']:.3f} s")
+    print(f"[fw] SymNMF n={FW_SYM_N} r={FW_SYM_R}, FW_alg_descent_step "
+          f"{FW_SYM_ITERS} iterations: " + "; ".join(out), flush=True)
+
+
+def fw_examples():
+    """Phase 4i: examples/ex_fw_rs.py and examples/ex_params_free_symnmf.py
+    with their import of the JAX package changed to the port's, and
+    nothing else, on the card."""
+    root = pathlib.Path(__file__).parent / "examples"
+    out = []
+    for name, call in (("ex_fw_rs", lambda m: m.start(maxitrs=FW_RS_ITERS,
+                                                      verbose=False)),
+                       ("ex_params_free_symnmf",
+                        lambda m: m.start(verbose=False))):
+        src = (root / f"{name}.py").read_text()
+        old = "import accbpg_and_fw_tpu as acc"
+        if src.count(old) != 1:
+            raise AssertionError(f"{name}.py: expected one '{old}'")
+        module = type(sys)(name)
+        module.__file__ = str(root / f"{name}.py")
+        exec(compile(src.replace(old, "import accbpg_and_fw_tpu_torch as acc"),
+                     module.__file__, "exec"), module.__dict__)
+        t = time.perf_counter()
+        res = call(module)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        curves = (res.values() if name == "ex_params_free_symnmf" else
+                  [F for panel in res.values() for F in panel.values()])
+        if not all(np.all(np.isfinite(np.asarray(F))) for F in curves):
+            raise AssertionError(f"{name}: a curve is not finite")
+        out.append(f"{name}.start() {wall:.2f} s, {len(list(curves))} "
+                   "finite curves")
+    print("[fw] examples with the import changed, on cuda: "
+          + "; ".join(out), flush=True)
+
+
+def fw_paths(port, card, counters):
+    """Phase 4i: the Frank-Wolfe paths; they launch none of the kernels."""
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    t = time.perf_counter()
+    fw_illcond(port, card)
+    fw_rs_panels(port)
+    fw_symnmf(port)
+    fw_examples()
+    launched = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}":
+                getattr(mod, name) for mod, name in counters}
+    if any(launched.values()):
+        raise AssertionError(f"the FW paths launched a kernel: {launched}")
+    print(f"[fw] phase 4i in {time.perf_counter() - t:.1f} s; kernel "
+          f"launches on the FW paths: {launched}", flush=True)
+
+
 def block_times(root, solves, gain_iters):
     """``--blocks-only``: one 256-iteration block of the lazy-H kernel from
     the uniform start's fresh state, through ``lazy_block`` at 1000x5000 and
@@ -1338,6 +1607,8 @@ def main():
     bpg_path(port, sm)
     readme_path(port, sm)
     per_iteration_costs(port)
+    fw_paths(port, card, [(dl, "LAUNCHES"), (dl, "BATCH_LAUNCHES"),
+                          (dd, "LAUNCHES"), (sm, "LAUNCHES")])
 
     # ---- 5. the record ------------------------------------------------------
     def entry(name, source, replaces, launches, measured):

@@ -228,7 +228,7 @@ def test_from_jax_oracle():
     assert type(from_jax_oracle(acc.BurgEntropy(),
                                 device="cpu")) is port.BurgEntropy
     with pytest.raises(TypeError, match="no port"):
-        from_jax_oracle(acc.SquaredL2Norm(), device="cpu")
+        from_jax_oracle(acc.SumOf2nd4thPowersDualProxMap(), device="cpu")
 
 
 def test_d_opt_design_is_the_jax_instance():
