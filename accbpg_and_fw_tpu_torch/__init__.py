@@ -27,21 +27,32 @@ Ported so far:
   ``FW_alg_L0_L1_shortest_step``, ``FW_l0l1_log_and_linear_step`` and
   ``FW_l0l1_log_only`` (``algorithms/fw.py``) with the seven LMOs
   (``ops/lmo.py``), plain PyTorch as the JAX path was plain XLA;
-* the oracles (``ops/``): every h-oracle but
-  ``SumOf2nd4thPowersDualProxMap``, and the f-oracles ``DOptimalObj``,
+* the inexact-oracle and constrained drivers ``AIBM``, ``AdaptFGM``,
+  ``UniversalGM`` and ``PrimalDualSwitchingGradientMethod``
+  (``algorithms/extras.py``), and the stochastic-oracle protocol: noise
+  drawn from a chain of keys seeded by each driver's ``seed``
+  (``_rng.py``);
+* the oracles (``ops/``): every h-oracle, the f-oracles ``DOptimalObj``,
   ``PoissonRegression``, ``KLdivRegression``, ``SVM_fun``,
-  ``FrobeniusSymLoss`` and ``LogisticRegression``;
-* the factories (``apps/``) of D-optimal design, the Poisson/KL
-  regressions, the SVM ball, SymNMF and the (L0,L1) logistic problems,
-  with the numpy helpers they call.
+  ``FrobeniusSymLoss``, ``LogisticRegression`` and ``AX_b``, and
+  ``calculate_tse_constant``;
+* the factories (``apps/``) of D-optimal design (random and LIBSVM), the
+  Poisson/KL regressions, the SVM ball, SymNMF (with and without linear
+  constraints) and the (L0,L1) logistic problems (synthetic and a9a),
+  with the numpy helpers and the LIBSVM loader they call.
+
+Not ported yet: ``fast_gram``, sharding (``parallel/mesh.py``) and
+``diagnostics.py``.
 """
 
 __version__ = "0.1.0"
 
-from .algorithms import (ABDA, ABPG, BPG, ABPG_expo, ABPG_gain, D_opt_FW,
-                         D_opt_FW_away, FW_alg_descent_step, FW_alg_div_step,
+from .algorithms import (AIBM, ABDA, ABPG, BPG, ABPG_expo, ABPG_gain,
+                         AdaptFGM, D_opt_FW, D_opt_FW_away,
+                         FW_alg_descent_step, FW_alg_div_step,
                          FW_alg_L0_L1_shortest_step,
                          FW_l0l1_log_and_linear_step, FW_l0l1_log_only,
+                         PrimalDualSwitchingGradientMethod, UniversalGM,
                          solve_theta)
 from .apps import *  # noqa: F401,F403
 from .apps import __all__ as _apps_all
@@ -50,7 +61,8 @@ from .ops import __all__ as _ops_all
 from .parallel import dopt_fw_batch
 
 __all__ = sorted(set(_apps_all) | set(_ops_all) | {
-    "ABDA", "ABPG", "ABPG_expo", "ABPG_gain", "BPG", "D_opt_FW",
-    "D_opt_FW_away", "FW_alg_L0_L1_shortest_step", "FW_alg_descent_step",
-    "FW_alg_div_step", "FW_l0l1_log_and_linear_step", "FW_l0l1_log_only",
+    "ABDA", "ABPG", "ABPG_expo", "ABPG_gain", "AIBM", "AdaptFGM", "BPG",
+    "D_opt_FW", "D_opt_FW_away", "FW_alg_L0_L1_shortest_step",
+    "FW_alg_descent_step", "FW_alg_div_step", "FW_l0l1_log_and_linear_step",
+    "FW_l0l1_log_only", "PrimalDualSwitchingGradientMethod", "UniversalGM",
     "dopt_fw_batch", "solve_theta"})

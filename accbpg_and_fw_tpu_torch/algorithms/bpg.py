@@ -22,8 +22,11 @@ default h).
 Checkpoints use the JAX drivers' carry keys, history names and
 fingerprints, so a run saved by either package resumes in the other.
 
-Not ported yet: ``fast_gram=True`` / ``"ds"`` (the stateful linear-Gram
-steps) and stochastic f-oracles; both raise ``NotImplementedError``.
+Stochastic f-oracles get a fresh draw key per gradient evaluation from the
+driver's ``seed``, where the JAX drivers split theirs (``_rng``: the same
+chain of keys; the carry holds the key as JAX's does).  Not ported yet:
+``fast_gram=True`` / ``"ds"`` (the stateful linear-Gram steps), which
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _rng
 from .._device import as_f64, resolve_device
 from .._scalar import div, exp, log, power, read
 from ..ops.base import vdot
@@ -46,15 +50,43 @@ def _fingerprint(step, cfg):
     return f"accbpg_and_fw_tpu.algorithms.bpg.{step.__name__}|{cfg!r}"
 
 
-def _check_supported(f, fast_gram):
+def _check_supported(fast_gram):
     if fast_gram:
         raise NotImplementedError(
             f"fast_gram={fast_gram!r} is not ported yet (ROADMAP.md queue A: "
             "fast_gram in FP64); use fast_gram=False")
-    if getattr(f, "stochastic", False):
-        raise NotImplementedError(
-            "stochastic f-oracles are not ported yet (ROADMAP.md queue A: "
-            "the other f-oracles)")
+
+
+def _draw(cfg, c, fn, x):
+    """``(carry entries, fn(x))`` for one gradient evaluation: a
+    stochastic f-oracle gets a fresh draw key split from the carry's (the
+    JAX drivers' per-gradient split), and the next key comes back as
+    ``{"key": ...}`` for the step's carry; an exact one gets none."""
+    if getattr(cfg, "stochastic", False):
+        key, sub = _rng.split(c["key"])
+        return {"key": key}, fn(x, key=sub)
+    return {}, fn(x)
+
+
+def _stoch_carry(f, carry, seed):
+    """Add the noise key to the initial carry when the f-oracle is
+    stochastic (``PRNGKey(seed)``, seed None as 0); returns whether it
+    is."""
+    stoch = bool(getattr(f, "stochastic", False))
+    if stoch:
+        carry["key"] = _rng.key(0 if seed is None else seed)
+    return stoch
+
+
+def _trial_draw(cfg, fn, x, key):
+    """``(key, fn(x))`` for one line-search trial: a stochastic f-oracle
+    gets a fresh draw key split from the trials' chain ``key`` (the JAX
+    drivers split one per trial: each trial has its own point), an exact
+    one none."""
+    if cfg.stochastic:
+        key, sub = _rng.split(key)
+        return key, fn(x, key=sub)
+    return key, fn(x)
 
 
 def _start(f, x0):
@@ -126,8 +158,8 @@ def _run(step, cfg, prob, carry, maxitrs, title, columns, names, verbose,
 # ---------------------------------------------------------------------------
 
 
-# The configs keep the JAX drivers' fields and defaults (stochastic and
-# gamma2 are never set here): their repr is the checkpoint fingerprint.
+# The configs keep the JAX drivers' fields and defaults (gamma2 is never
+# set here): their repr is the checkpoint fingerprint.
 class _BPGCfg(NamedTuple):
     linesearch: bool
     stochastic: bool = False
@@ -136,7 +168,7 @@ class _BPGCfg(NamedTuple):
 def _bpg_step(cfg, prob, c, k):
     f, h = prob["f"], prob["h"]
     x, Lk = c["x"], c["L"]
-    fx_t, g = f.value_and_grad(x)
+    kc, (fx_t, g) = _draw(cfg, c, f.value_and_grad, x)
     psi_t = h.extra_psi(x)
 
     if cfg.linesearch:
@@ -166,7 +198,7 @@ def _bpg_step(cfg, prob, c, k):
 
     Fk = fx + psi
     stop = k > 0 and abs(Fk - c["F_prev"]) < prob["eps"]
-    return (dict(done=c["done"], x=x_new, L=Lk, F_prev=Fk),
+    return (dict(done=c["done"], x=x_new, L=Lk, F_prev=Fk, **kc),
             dict(F=Fk, Ls=Lk, _stop=stop))
 
 
@@ -180,13 +212,13 @@ def BPG(f, h, L, x0, maxitrs, epsilon=1e-14, linesearch=True, ls_ratio=1.2,
     with optional backtracking on the relative smoothness constant L
     (reference: algorithms.py:11-72).  Returns ``(x, F, Ls, T)``: ``x`` a
     float64 tensor on the f-oracle's device, the histories numpy arrays.
-    ``seed`` is accepted for the JAX signature (it seeds stochastic
-    oracles, which are not ported)."""
-    _check_supported(f, fast_gram)
+    ``seed`` seeds a stochastic f-oracle's noise (None as 0)."""
+    _check_supported(fast_gram)
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, eps=float(epsilon), ls_ratio=float(ls_ratio))
     carry = dict(done=False, x=x0, L=float(L), F_prev=float("inf"))
-    cfg = _BPGCfg(linesearch=bool(linesearch))
+    cfg = _BPGCfg(linesearch=bool(linesearch),
+                  stochastic=_stoch_carry(f, carry, seed))
     carry, hist, T = _run(_bpg_step, cfg, prob, carry, maxitrs,
                           "BPG_LS method for min_{x in C} F(x) = f(x) + Psi(x)",
                           "       Lk       time", ["F", "Ls"], verbose,
@@ -220,7 +252,7 @@ def _abpg_step(cfg, prob, c, k):
     fx_t = f.value(x)
     theta = _abpg_theta(cfg, gam, c)
     y = _comb(theta, x, z)
-    g = f.grad(y)
+    kc, g = _draw(cfg, c, f.grad, y)
     z_new = h.div_prox_map(z, g, power(theta, gam - 1.0) * L)
     x_new = _comb(theta, x, z_new)
     dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
@@ -232,7 +264,7 @@ def _abpg_step(cfg, prob, c, k):
     theta_c, kk, z_new = _restart(cfg, c["F_prev"], k, Fk, s["gd"], x_new,
                                   z_new, theta, c["kk"] + 1, k_guard=True)
     return (dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
-                 F_prev=Fk),
+                 F_prev=Fk, **kc),
             dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
                  _stop=s["dzz"] < prob["eps"]))
 
@@ -245,14 +277,15 @@ def ABPG(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=False,
     Triple-sequence update with TSE gamma; theta from gamma/(k+gamma) or the
     Newton equality; optional function ('f') / gradient ('g') restart.
     Returns ``(x, F, G, T)`` with G the triangle-scaling gains."""
-    _check_supported(f, fast_gram)
+    _check_supported(fast_gram)
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
                 eps=float(epsilon))
     carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
                  F_prev=float("inf"))
     cfg = _ABPGCfg(theta_eq=bool(theta_eq), restart=bool(restart),
-                   restart_rule=str(restart_rule))
+                   restart_rule=str(restart_rule),
+                   stochastic=_stoch_carry(f, carry, seed))
     carry, hist, T = _run(
         _abpg_step, cfg, prob, carry, maxitrs,
         "ABPG method for minimize_{x in C} F(x) = f(x) + Psi(x)",
@@ -283,7 +316,7 @@ def _abpg_expo_step(cfg, prob, c, k):
     fx = c["fx"]
     theta = _abpg_theta(cfg, gamma, c)
     y = _comb(theta, x, z)
-    fy_t, g = f.value_and_grad(y)
+    kc, (fy_t, g) = _draw(cfg, c, f.value_and_grad, y)
 
     def attempt(gm, **extra):
         z_new = h.div_prox_map(z, g, power(theta, gm - 1.0) * L)
@@ -320,7 +353,7 @@ def _abpg_expo_step(cfg, prob, c, k):
                                   x_new, z_new, theta, kk + 1,
                                   k_guard=False)
     return (dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
-                 gamma=gm, F_prev=Fk, fx=fx_new),
+                 gamma=gm, F_prev=Fk, fx=fx_new, **kc),
             dict(F=Fk, Gamma=gm, G=Gdr, theta=theta, dxy=dxy, dzz=dzz,
                  _stop=dzz < prob["eps"]))
 
@@ -336,7 +369,7 @@ def ABPG_expo(f, h, L, x0, gamma0, maxitrs, epsilon=1e-14, delta=0.2,
     As in JAX, with ``restart=True, restart_rule='f'`` F_prev starts at
     +inf, so the k=0 comparison never restarts (the reference compares
     against an uninitialized history slot, algorithms.py:268)."""
-    _check_supported(f, fast_gram)
+    _check_supported(fast_gram)
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, L=float(L), eps=float(epsilon), delta=float(delta),
                 Gmargin=float(Gmargin))
@@ -344,7 +377,8 @@ def ABPG_expo(f, h, L, x0, gamma0, maxitrs, epsilon=1e-14, delta=0.2,
                  gamma=float(gamma0), F_prev=float("inf"),
                  fx=read(f.value(x0))[0])
     cfg = _ABPGExpoCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
-                       restart=bool(restart), restart_rule=str(restart_rule))
+                       restart=bool(restart), restart_rule=str(restart_rule),
+                       stochastic=_stoch_carry(f, carry, seed))
     carry, hist, T = _run(
         _abpg_expo_step, cfg, prob, carry, maxitrs,
         "ABPG_expo method for min_{x in C} F(x) = f(x) + Psi(x)",
@@ -379,7 +413,7 @@ def _abpg_gain_step(cfg, prob, c, k):
     fx = c["fx"]
     psi_t = h.extra_psi(x)
 
-    def attempt(G, **extra):
+    def attempt(G, key, **extra):
         if kk == 0:
             theta = theta_1
         elif cfg.theta_eq:
@@ -389,7 +423,7 @@ def _abpg_gain_step(cfg, prob, c, k):
             theta = theta_1 * ((1.0 + alpha * (gam - 1.0))
                                / (gam * alpha + theta_1))
         y = _comb(theta, x, z)
-        fy_t, g = f.value_and_grad(y)
+        key, (fy_t, g) = _trial_draw(cfg, f.value_and_grad, y, key)
         z_new = h.div_prox_map(z, g, power(theta, gam - 1.0) * G * L)
         x_new = _comb(theta, x, z_new)
         dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
@@ -408,14 +442,14 @@ def _abpg_gain_step(cfg, prob, c, k):
                         + _accept_delta(f, s["fy"]))
         early = s["dzz"] < eps
         return dict(s, G=G, theta=theta, z=z_new, x=x_new, Gdr=Gdr,
-                    fail=fail and not early)
+                    fail=fail and not early, key=key)
 
-    s = attempt(G_1 / ls_dec, psi=psi_t)
+    s = attempt(G_1 / ls_dec, c.get("key"), psi=psi_t)
     psi = s["psi"]
     t = 0
     while s["fail"] and t < _LS_MAX:
         t += 1
-        s = attempt(s["G"] * ls_inc)
+        s = attempt(s["G"] * ls_inc, s["key"])
     G, theta, z_new, x_new = s["G"], s["theta"], s["z"], s["x"]
     fx_new = read(f.value(x_new))[0] if cfg.checkdiv else s["fxn"]
 
@@ -426,8 +460,9 @@ def _abpg_gain_step(cfg, prob, c, k):
     theta_c, kk, z_new = _restart(cfg, c["F_prev"], k, Fk, s.get("gd"),
                                   x_new, z_new, theta, kk + 1,
                                   k_guard=False)
+    kc = {"key": s["key"]} if cfg.stochastic else {}
     return (dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
-                 G=G, sumlogG=sumlogG, F_prev=Fk, fx=fx_new),
+                 G=G, sumlogG=sumlogG, F_prev=Fk, fx=fx_new, **kc),
             dict(F=Fk, Gain=G, Gdiv=s["Gdr"], Gavg=Gavg, theta=theta,
                  dxy=s["dxy"], dzz=s["dzz"], _stop=s["dzz"] < eps))
 
@@ -445,7 +480,7 @@ def ABPG_gain(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, G0=1,
     As in JAX, with ``restart=True, restart_rule='f'`` F_prev starts at
     +inf, so the k=0 comparison never restarts (the reference compares
     against an uninitialized history slot, algorithms.py:404-405)."""
-    _check_supported(f, fast_gram)
+    _check_supported(fast_gram)
     x0 = _start(f, x0)
     gam, G0 = float(gamma), float(G0)
     prob = dict(f=f, h=h, L=float(L), gamma=gam, eps=float(epsilon),
@@ -454,7 +489,8 @@ def ABPG_gain(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, G0=1,
                  sumlogG=gam * log(G0), F_prev=float("inf"),
                  fx=read(f.value(x0))[0])
     cfg = _ABPGGainCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
-                       restart=bool(restart), restart_rule=str(restart_rule))
+                       restart=bool(restart), restart_rule=str(restart_rule),
+                       stochastic=_stoch_carry(f, carry, seed))
     carry, hist, T = _run(
         _abpg_gain_step, cfg, prob, carry, maxitrs,
         "ABPG_gain method for min_{x in C} F(x) = f(x) + Psi(x)",
@@ -483,7 +519,7 @@ def _abda_step(cfg, prob, c, k):
     fx_t = f.value(x)
     theta = _abpg_theta(cfg, gam, c)
     y = _comb(theta, x, z)
-    g = f.grad(y)
+    kc, g = _draw(cfg, c, f.grad, y)
     w = power(theta, 1.0 - gam)
     gavg = c["gavg"] + w * g
     csum = c["csum"] + w
@@ -494,7 +530,7 @@ def _abda_step(cfg, prob, c, k):
     Fk = s["fx"] + s["psi"]
     Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
     return (dict(done=c["done"], x=x_new, z=z_new, theta=theta, kk=kk + 1,
-                 gavg=gavg, csum=csum, F_prev=Fk),
+                 gavg=gavg, csum=csum, F_prev=Fk, **kc),
             dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
                  _stop=s["dzz"] < prob["eps"]))
 
@@ -506,13 +542,14 @@ def ABDA(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=True,
     average and uses the *primal* prox_map (reference: algorithms.py:423-514;
     restart is intentionally unsupported, :445-446).
     Returns ``(x, F, G, T)``."""
-    _check_supported(f, fast_gram)
+    _check_supported(fast_gram)
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
                 eps=float(epsilon))
     carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
                  gavg=torch.zeros_like(x0), csum=0.0, F_prev=float("inf"))
-    cfg = _ABDACfg(theta_eq=bool(theta_eq))
+    cfg = _ABDACfg(theta_eq=bool(theta_eq),
+                   stochastic=_stoch_carry(f, carry, seed))
     carry, hist, T = _run(
         _abda_step, cfg, prob, carry, maxitrs,
         "ABDA method for min_{x in C} F(x) = f(x) + Psi(x)",

@@ -10,9 +10,10 @@ The exact engine keeps the JAX engine's deviations from the upstream
 reference: log-space determinant (log1p increments), the ``u[i] = w[i]``
 consistency pin, the away-branch logdet through ``w[j]``, the stop test
 before the update, and optional ``refresh_every`` refactorization at chunk
-boundaries.  Large problems on a CUDA device route to the lazy-H block
-kernel (``ops/dopt_lazy.py``); ``u_mode="pallas"`` takes the dense block
-kernel (``ops/dopt_dense.py``).
+boundaries.  On a CUDA device ``u_mode="auto"`` routes to the lazy-H
+block kernel (``ops/dopt_lazy.py``) or the dense block kernel
+(``ops/dopt_dense.py``) by the design's shape (``_kernel_engine``);
+``u_mode="pallas"`` takes the dense block kernel on any device.
 
 The JAX ``u_mode`` names stay accepted: ``"ds"`` and ``"mixed"`` existed
 because the TPU has no fast f64, and resolve here to the FP64 exact engine.
@@ -25,14 +26,14 @@ import torch
 from .._device import as_f64, resolve_device
 from ..ops.dopt_common import ROW, XTOL
 from ..ops.dopt_common import factorize as _dopt_factorize
-from ..ops.dopt_dense import dopt_fw_dense
+from ..ops.dopt_dense import dense_layout, dopt_fw_dense
 from ..ops.dopt_lazy import device_limits, dopt_fw_lazy, lazy_fits
 from .driver import run_driver
 
 # "auto" takes the lazy-H block kernel at and above this design size on a
 # CUDA device (the JAX package's threshold for its lazy kernel,
-# accbpg_and_fw_tpu/algorithms/d_opt.py _OZAKI_U_MIN_SIZE; not yet
-# re-derived on the GPU).
+# accbpg_and_fw_tpu/algorithms/d_opt.py _OZAKI_U_MIN_SIZE).  Below it,
+# ``_kernel_engine`` decides.
 _LAZY_MIN_SIZE = 1_800_000
 
 
@@ -107,22 +108,45 @@ def _dopt_step(away, V, eps, c, k):
     return c2, dict(F=-logdet, SP=eps_pos, SN=eps_neg, _stop=stop)
 
 
+def _kernel_engine(m, n, K, limits):
+    """The kernel for K instances of an (m, n) design on a card of
+    ``limits = (sms, smem_limit)``: the dense kernel where its layout
+    keeps V and H in shared memory, else the lazy kernel where it takes
+    the design, else the dense kernel where it takes m, else None (the
+    exact engine).  The order is the walls' on an "NVIDIA H100 80GB HBM3,
+    700.00 W" (PERF.md, chip_smoke.py [auto], two runs): 30x1000 and
+    100x1000 solve 1.4-3.3x faster on the dense kernel than on the lazy
+    one, 200x1000, where the dense layout streams V, 4.2-4.5x slower; the
+    FP64 exact engine took 148-573x the faster kernel's time."""
+    layout = dense_layout(K, m, n, limits)
+    if layout == "resident":
+        return "pallas"
+    if lazy_fits(m, n, K, limits):
+        return "pallas_lazy"
+    return "pallas" if layout else None
+
+
 def _resolve_auto_u_mode(V, u_mode, device, limits=None):
     """The engine for ``u_mode``: ``"pallas_lazy"`` (the lazy-H block
     kernel), ``"pallas"`` (the dense block kernel; each runs its plain
     block on the CPU) or ``"exact"`` (this module's FP64 engine).
 
-    ``"auto"`` takes the lazy kernel for a design of at least
-    ``_LAZY_MIN_SIZE`` elements on a CUDA device that the kernel takes
-    (``lazy_fits`` on ``limits``, the device's ``(sms, smem_limit)`` when
-    None), and the exact engine otherwise, as the JAX package falls back
-    to its ``"ds"`` engine past its kernel's memory budget.  Without a card
-    to ask, only the kernel's bound on m is applied."""
+    ``"auto"`` on a CUDA device (``limits``: its ``(sms, smem_limit)``,
+    the device's own when None) takes the lazy kernel for a design of at
+    least ``_LAZY_MIN_SIZE`` elements that it takes (``lazy_fits``), and
+    ``_kernel_engine``'s choice below that size; the exact engine where no
+    kernel takes the design, as the JAX package falls back to its ``"ds"``
+    engine past its kernel's memory budget.  Without a card to ask, only
+    the lazy kernel's bound on m is applied, and only above the size.  On
+    the CPU ``"auto"`` is the exact engine."""
     if u_mode == "auto":
-        if device.type == "cuda" and V.numel() >= _LAZY_MIN_SIZE:
+        if device.type == "cuda":
             m, n = V.shape
-            if lazy_fits(m, n, 1, limits or device_limits(device)):
+            limits = limits or device_limits(device)
+            if V.numel() >= _LAZY_MIN_SIZE and lazy_fits(m, n, 1, limits):
                 return "pallas_lazy"
+            if limits is not None:
+                return _kernel_engine(m, n, 1, limits) or "exact"
         return "exact"
     if u_mode in ("exact", "ds", "mixed"):
         return "exact"
@@ -192,10 +216,12 @@ def D_opt_FW(V, x0, eps, maxitrs, verbose=True, verbskip=1, chunk=None,
     (reference: D_opt_alg.py:9-88).  Returns ``(x, F, SP, SN, T)``: ``x``
     a float64 tensor on ``device``, the histories numpy arrays.
 
-    ``u_mode``: "auto" (the lazy-H block kernel for designs of at least
-    1.8M elements on a CUDA device, where the kernel takes them: m <= 16384
-    and a launch plan that fits in shared memory; the exact engine
-    otherwise), "exact",
+    ``u_mode``: "auto" (on a CUDA device: the lazy-H block kernel for
+    designs of at least 1.8M elements, where the kernel takes them: m <=
+    16384 and a launch plan that fits in shared memory; below that size the
+    dense block kernel where its layout keeps V in shared memory, as at
+    30x1000 and 100x1000, else the lazy-H kernel; the exact engine where no
+    kernel takes the design, and on the CPU), "exact",
     "pallas_lazy" (the lazy-H engine on any device; the plain block on the
     CPU), "pallas" (the dense block engine, likewise), and "ds"/"mixed" as
     aliases of "exact".

@@ -100,6 +100,8 @@ def _load_checkpoint(path, carry_proto, fp):
             if isinstance(proto, torch.Tensor):
                 carry[k] = torch.as_tensor(saved).to(device=proto.device,
                                                      dtype=proto.dtype)
+            elif isinstance(proto, np.ndarray):  # a host array: the key
+                carry[k] = saved.astype(proto.dtype)
             else:  # a host scalar: bool, int or float, as the proto
                 carry[k] = type(proto)(saved.item())
         hist_names = [n[3:] for n in z.files if n.startswith("h::")]
@@ -110,8 +112,11 @@ def _load_checkpoint(path, carry_proto, fp):
 
 def _device_chunk(step, carry, k0, limit):
     """Iterations ``k0 <= k < limit`` with tensor scalars: the carry
-    freezes through ``torch.where`` once done, histories are read once."""
-    rows = []
+    freezes through ``torch.where`` once done, histories are read once.
+    A host leaf (the noise key) cannot freeze without a read: each step's
+    value is kept, and the one after the last valid row is the carry's."""
+    rows, host = [], [{key: v for key, v in carry.items()
+                       if not isinstance(v, torch.Tensor)}]
     for k in range(k0, limit):
         done = carry["done"]
         new, h = step(carry, k)
@@ -119,13 +124,16 @@ def _device_chunk(step, carry, k0, limit):
         h["_valid"] = torch.logical_not(done)
         new = dict(new)
         new["done"] = done | new["done"] | h["_stop"]
-        carry = {key: torch.where(done, carry[key], new[key])
+        host.append({key: new[key] for key in host[0]})
+        carry = {key: (torch.where(done, carry[key], new[key])
+                       if key not in host[0] else new[key])
                  for key in carry}
         rows.append(h)
     hist = {name: (torch.stack([r[name] for r in rows]).cpu().numpy()
                    if isinstance(rows[0][name], torch.Tensor)
                    else np.asarray([r[name] for r in rows]))
             for name in rows[0]}
+    carry.update(host[int(hist["_valid"].sum())])
     return carry, hist
 
 

@@ -26,7 +26,9 @@ with <g, d> > delta) and raise after the run, the port raises the same
 ``ValueError`` as soon as the host reads it, before any host step is
 computed from it.  Checkpoints use the JAX fingerprints, carry keys and
 history names, so a run saved by either package resumes in the other.
-Stochastic f-oracles are not ported and raise ``NotImplementedError``.
+``FW_alg_div_step`` and ``FW_alg_descent_step`` give a stochastic
+f-oracle a fresh draw key per gradient from their ``seed``, as the JAX
+drivers do; the three (L0,L1) drivers pass none, as there.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 
 from .. import _scalar
 from ..ops.base import fnorm, vdot
-from .bpg import _accept_delta, _check_supported, _read, _start
+from .bpg import _accept_delta, _draw, _read, _start, _stoch_carry
 from .driver import run_driver
 
 _LS_MAX = 200
@@ -128,7 +130,7 @@ def _fw_div_step(cfg, prob, c, k):
     f, h = prob["f"], prob["h"]
     gamma, ls_ratio = prob["gamma"], prob["ls_ratio"]
     x, Lk = c["x"], c["L"]
-    fx_t, g = f.value_and_grad(x)
+    kc, (fx_t, g) = _draw(cfg, c, f.value_and_grad, x)
     d, gdp_t, dv_t = _direction(cfg, h, x, g, prob["delta"])
 
     Lt = Lk / ls_ratio if cfg.linesearch else Lk
@@ -156,7 +158,7 @@ def _fw_div_step(cfg, prob, c, k):
 
     Fk = fx + q["psi"]
     stop = k > 0 and abs(Fk - c["F_prev"]) < prob["eps"]
-    return (dict(done=c["done"], x=x_new, L=Lk, F_prev=Fk),
+    return (dict(done=c["done"], x=x_new, L=Lk, F_prev=Fk, **kc),
             dict(F=Fk, Ls=Lk, bad=False, _stop=stop))
 
 
@@ -170,8 +172,8 @@ def FW_alg_div_step(f, h, L, x0, maxitrs, gamma, lmo, epsilon=1e-14,
     and backtracking on L with acceptance
     f(x+ad) <= f(x) + a<g,d> + a^gamma L D  (reference: algorithms_fw.py:6-75).
     Returns ``(x, F, Ls, T)``: ``x`` a float64 tensor on the f-oracle's
-    device, the histories numpy arrays.  ``seed`` is accepted for the JAX
-    signature (it seeds stochastic oracles, which are not ported).
+    device, the histories numpy arrays.  ``seed`` seeds a stochastic
+    f-oracle's noise (None as 0).
     """
     if ls_ratio < 1:
         raise ValueError("ls_ratio must be >= 1")
@@ -179,12 +181,12 @@ def FW_alg_div_step(f, h, L, x0, maxitrs, gamma, lmo, epsilon=1e-14,
         raise ValueError("Initial L must be positive")
     if epsilon <= 0:
         raise ValueError("epsilon must be positive")
-    _check_supported(f, False)
 
     prob = dict(f=f, h=h, gamma=float(gamma), eps=float(epsilon), delta=1e-6,
                 ls_ratio=float(ls_ratio))
     carry = dict(done=False, x=_start(f, x0), L=float(L),
                  F_prev=float("inf"))
+    stoch = _stoch_carry(f, carry, seed)
     header = "\nFW adaptive algorithm\n     k      F(x)         Lk       time"
 
     def row(k, r, t):
@@ -192,7 +194,8 @@ def FW_alg_div_step(f, h, L, x0, maxitrs, gamma, lmo, epsilon=1e-14,
             k, r["F"], r["Ls"], t))
 
     carry, hist, T = _run(_fw_div_step,
-                          _FWDivCfg(lmo=lmo, linesearch=bool(linesearch)),
+                          _FWDivCfg(lmo=lmo, linesearch=bool(linesearch),
+                                    stochastic=stoch),
                           prob, carry, maxitrs, header, row, verbose,
                           verbskip, chunk, checkpoint)
     return carry["x"], hist["F"], hist["Ls"], T
@@ -213,10 +216,10 @@ def _fw_descent_step(cfg, prob, c, k):
     d = cfg.lmo(c["g"]) - c["x"]
     alpha = 2.0 / (k + 2.0)
     x = c["x"] + alpha * d
-    fx, g = f.value_and_grad(x)
+    kc, (fx, g) = _draw(cfg, c, f.value_and_grad, x)
     Fk = fx + h.extra_psi(x)
     stop = (torch.abs(Fk - c["F_prev"]) < eps) | (fnorm(g) < eps)
-    return (dict(done=c["done"], x=x, g=g, F_prev=Fk),
+    return (dict(done=c["done"], x=x, g=g, F_prev=Fk, **kc),
             dict(F=Fk, alpha=alpha, _stop=stop))
 
 
@@ -225,10 +228,10 @@ def FW_alg_descent_step(f, h, x0, maxitrs, lmo, epsilon=1e-14, verbose=True,
     """Classic Frank-Wolfe with the parameter-free step alpha_k = 2/(k+2)
     (reference: algorithms_fw.py:210-247).  Returns ``(x, F, T, G)``, the
     reference's (unusual) return order, with G an all-zeros placeholder.
-    The k = 0 evaluation runs once before the loop; a chunk reads nothing
-    back until its end.
+    The k = 0 evaluation runs once before the loop, without noise (as in
+    JAX); a chunk reads nothing back until its end.  ``seed`` seeds a
+    stochastic f-oracle's noise (None as 0).
     """
-    _check_supported(f, False)
     x0 = _start(f, x0)
     fx, g = f.value_and_grad(x0)
     F0 = fx + h.extra_psi(x0)
@@ -246,7 +249,8 @@ def FW_alg_descent_step(f, h, x0, maxitrs, lmo, epsilon=1e-14, verbose=True,
         print(header)  # the reference prints no k=0 row for this driver
     if maxitrs <= 1:
         return carry["x"], np.array([F0]), np.zeros(1), np.zeros(1)
-    cfg, prob = _FWDescentCfg(lmo=lmo), dict(f=f, h=h, eps=float(epsilon))
+    cfg = _FWDescentCfg(lmo=lmo, stochastic=_stoch_carry(f, carry, seed))
+    prob = dict(f=f, h=h, eps=float(epsilon))
     carry, hist, T = run_driver(
         lambda c, k: _fw_descent_step(cfg, prob, c, k), carry, maxitrs,
         verbose=verbose, verbskip=verbskip, header=None, print_row=row,
@@ -340,7 +344,6 @@ def FW_alg_L0_L1_shortest_step(f, h, L0, L1, x0, maxitrs, gamma, lmo,
         raise ValueError("Initial L must be positive")
     if epsilon <= 0:
         raise ValueError("epsilon must be positive")
-    _check_supported(f, False)
 
     prob = dict(f=f, h=h, gamma=float(gamma), eps=float(epsilon), delta=1e-8,
                 ls_ratio=float(ls_ratio), e_const=math.e)
@@ -455,7 +458,6 @@ def _l0l1_log_driver(f, h, L0, L1, x0, maxitrs, lmo, ls_ratio, epsilon,
         raise ValueError("Initial L0 and L1 must be positive")
     if epsilon <= 0:
         raise ValueError("epsilon must be positive")
-    _check_supported(f, False)
 
     prob = dict(f=f, h=h, eps=float(epsilon), delta=1e-8,
                 ls_ratio=float(ls_ratio),

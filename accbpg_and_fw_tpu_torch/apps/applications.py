@@ -19,8 +19,9 @@ one
 instance, hand JAX's ``X`` and ``y`` to the port's
 ``LogisticRegression``.
 
-Not ported yet: ``D_opt_libsvm``, the a9a loaders and
-``FrobeniusSymLossExWithLinearCnstrnts`` (it needs ``AX_b``).
+``D_opt_libsvm`` and the a9a loaders read LIBSVM files with the port's
+own parser (``utils.load_libsvm_file``); ``L0L1_FW_log_reg_a9a`` draws its
+start from ``np.random``, as there.
 """
 
 from __future__ import annotations
@@ -32,19 +33,33 @@ import numpy as np
 import torch
 
 from .._device import DTYPE, as_f64, resolve_device
-from ..ops.f_oracles import (DOptimalObj, FrobeniusSymLoss, KLdivRegression,
-                             LogisticRegression, PoissonRegression, SVM_fun)
+from ..ops.f_oracles import (AX_b, DOptimalObj, FrobeniusSymLoss,
+                             KLdivRegression, LogisticRegression,
+                             PoissonRegression, SVM_fun)
 from ..ops.h_oracles import (BurgEntropyL1, BurgEntropyL2,
                              BurgEntropySimplex, PolyDiv, ShannonEntropyL1,
                              SquaredL2Norm, SumOf2nd4thPowers,
                              SumOf2nd4thPowersPositiveOrthant)
 from .utils import (edge_point_on_simplex, generate_dataset_for_svm,
-                    random_point_in_l2_ball, random_point_on_simplex)
+                    load_libsvm_file, random_point_in_l2_ball,
+                    random_point_on_simplex)
 
 
 def _numpy(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else \
         np.asarray(a)
+
+
+def D_opt_libsvm(filename, device=None):
+    """D-optimal design from a LIBSVM dataset, transposed so m < n
+    (reference: applications.py:17-33).  Returns ``(f, h, L, x0)`` with H
+    and x0 float64 on ``device`` (CUDA for None)."""
+    dev = resolve_device(device)
+    X, _ = load_libsvm_file(filename)
+    H = X.T.toarray("C") if X.shape[0] > X.shape[1] else X.toarray("C")
+    n = H.shape[1]
+    return (DOptimalObj(H, device=dev), BurgEntropySimplex(), 1.0,
+            torch.full((n,), 1.0 / n, dtype=DTYPE, device=dev))
 
 
 def D_opt_design(m, n, randseed=-1, oracle=None, device=None):
@@ -313,8 +328,8 @@ def FrobeniusSymLossResMeasEx(M, r, noise=0.0, oracle=None, device=None):
 
     Every ``oracle`` of the JAX package (None, "mixed", "ds", "auto")
     gives the FP64 ``FrobeniusSymLoss``; "mixed" and "ds" refuse a
-    ``noise``, as there.  A ``noise`` makes the oracle stochastic, which
-    the port's drivers refuse."""
+    ``noise``, as there.  A ``noise`` makes the oracle stochastic: the
+    drivers pass it a draw key per gradient."""
     if oracle not in (None, "mixed", "ds", "auto"):
         raise ValueError(f"unknown oracle={oracle!r} "
                          "(None, 'mixed', 'ds' or 'auto')")
@@ -328,6 +343,23 @@ def FrobeniusSymLossResMeasEx(M, r, noise=0.0, oracle=None, device=None):
     h = SumOf2nd4thPowersPositiveOrthant(
         alpha=6.0, sigma=2 * np.linalg.norm(M, 2), upper_bound=None)
     return f, [h, SquaredL2Norm()], 1.0, as_f64(X0, dev)
+
+
+def FrobeniusSymLossExWithLinearCnstrnts(M, r, noise=0, device=None):
+    """SymNMF with a linear constraint function for the primal-dual method
+    (reference: applications.py:418-429).  Returns ``(f, g, h, L, X0)``
+    with g the ``AX_b`` constraint; the numpy draws (X0, then A and b) are
+    the JAX factory's, in its order."""
+    dev = resolve_device(device)
+    M = _numpy(M)
+    X0 = np.random.rand(M.shape[0], r)
+    f = FrobeniusSymLoss.create(M, X0, noise_level=noise if noise else None,
+                                device=dev)
+    h = SumOf2nd4thPowersPositiveOrthant(alpha=6.0,
+                                         sigma=2 * np.linalg.norm(M, 2))
+    g = AX_b(A=np.random.rand(r), b=np.random.rand(M.shape[0]) + 0.5,
+             device=dev)
+    return f, g, h, 1.0, as_f64(X0, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -468,3 +500,36 @@ def hard_FW_log_reg_jax(key, n_samples, n_features, radius=1.0, domain="l1",
 
     L, L1 = _logistic_constants(X)
     return LogisticRegression(X, y), SquaredL2Norm(), L, 1e-12, L1, x0, X, y
+
+
+def load_a9a_data(path, bias=True):
+    """Load the a9a LIBSVM dataset as dense numpy ``(X, y)`` with y in
+    {-1, 1} (reference: applications.py:661-672)."""
+    X, y = load_libsvm_file(path)
+    X = X.toarray()
+    if bias:
+        X = np.hstack([X, np.ones((X.shape[0], 1))])
+    y = np.where(y <= 0, -1, 1)
+    return X, y
+
+
+def L0L1_FW_log_reg_a9a(ball_constrnt_radius, path, device=None):
+    """Real-data (L0,L1) logistic regression on a9a with standardized
+    features (reference: applications.py:675-701).  Returns
+    ``(f, h, L, L0, L1, x0)``: the data and x0 float64 on ``device`` (CUDA
+    for None), the constants Python floats; x0 is drawn from
+    ``np.random``, as in JAX."""
+    dev = resolve_device(device)
+    X, y = load_a9a_data(path=path)
+    X = (X - X.mean(axis=0)) / np.maximum(X.std(axis=0), 1e-12)
+
+    n_features = X.shape[1]
+    x0 = np.random.uniform(-0.5, 0.5, size=n_features)
+    x0 = x0 / max(np.linalg.norm(x0, 2) / ball_constrnt_radius,
+                  np.linalg.norm(x0, np.inf) / ball_constrnt_radius, 1.0)
+
+    f = LogisticRegression(X, y, device=dev)
+    row_norms = np.linalg.norm(X, axis=1)
+    L = float(np.max(row_norms) ** 2)
+    return (f, SquaredL2Norm(), L, 1e-9, float(np.max(row_norms)),
+            as_f64(x0, dev))

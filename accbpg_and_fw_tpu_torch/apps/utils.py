@@ -1,13 +1,17 @@
-"""Sampling and metric helpers of the problem factories.
+"""Data loading, sampling and metric helpers of the problem factories.
 
 The port's own copy of the numpy helpers of
 ``accbpg_and_fw_tpu/apps/utils.py`` (reference: accbpg/utils.py): the same
 numpy call sequences, so the same ``np.random`` state gives the same
 arrays bit for bit.  Every function here is numpy in and numpy out.
 ``generate_dataset_for_svm`` draws from an unseeded generator, as there.
+``load_libsvm_file`` is the JAX package's single-pass Python parse (its
+C++ parser is a build of the JAX package, which the port does not use).
 """
 
 from __future__ import annotations
+
+import os.path
 
 import numpy as np
 
@@ -15,6 +19,88 @@ try:
     import scipy.sparse as sparse
 except ImportError:  # pragma: no cover
     sparse = None
+
+
+def _open_maybe_compressed(filename):
+    _, ext = os.path.splitext(filename)
+    if ext == ".gz":
+        import gzip
+
+        return gzip.open(filename, "rt")
+    if ext == ".bz2":
+        import bz2
+
+        return bz2.open(filename, "rt")
+    return open(filename, "r")
+
+
+def load_libsvm_file(filename, dtype=np.float64, n_features=None,
+                     zero_based="auto"):
+    """Parse an svmlight/LIBSVM file (plain, ``.gz`` or ``.bz2``) into
+    ``(CSR matrix, labels)`` (reference: utils.py:22-95).  Comments
+    (``#``) are stripped; indices must be sorted and unique per row, and
+    positive unless ``zero_based`` (``"auto"``: zero-based when an index 0
+    occurs)."""
+    labels, data, indices, indptr = [], [], [], [0]
+
+    with _open_maybe_compressed(filename) as fh:
+        for line in fh:
+            hash_pos = line.find("#")
+            if hash_pos >= 0:
+                line = line[:hash_pos]
+            parts = line.split()
+            if not parts:
+                continue
+            labels.append(float(parts[0]))
+            prev = -1
+            for tok in parts[1:]:
+                idx_s, val_s = tok.split(":", 1)
+                idx = int(idx_s)
+                if idx < 0 or (zero_based is False and idx == 0):
+                    raise ValueError(
+                        f"Invalid index {idx} in LibSVM data file.")
+                if idx <= prev:
+                    raise ValueError(
+                        "Feature indices in LibSVM data file should be "
+                        "sorted and unique.")
+                indices.append(idx)
+                data.append(dtype(val_s))
+                prev = idx
+            indptr.append(len(data))
+
+    data = np.asarray(data, dtype=dtype)
+    indices = np.asarray(indices, dtype=np.int64)
+    indptr = np.asarray(indptr, dtype=np.int64)
+
+    if zero_based is False or (zero_based == "auto" and indices.min() > 0):
+        indices = indices - 1
+    nf = int(indices.max()) + 1
+    if n_features is None:
+        n_features = nf
+    elif n_features < nf:
+        n_features = nf
+        print("Warning: n_features increased to match data.")
+
+    X = sparse.csr_matrix((data, indices, indptr),
+                          shape=(len(labels), n_features))
+    X.sort_indices()
+    return X, np.asarray(labels)
+
+
+def row_norm_squared(X):
+    """Squared 2-norm of every row of a CSR matrix (reference:
+    utils.py:142-145)."""
+    X2 = sparse.csr_matrix((X.data**2, X.indices, X.indptr), X.shape)
+    return np.squeeze(np.asarray(X2.sum(1)))
+
+
+def load_sido(filename):
+    """Load the sido0 npz-packed CSR dataset (reference: utils.py:148-158)."""
+    with np.load(filename) as D:
+        X = sparse.csr_matrix((D["Xdata"], D["Xindices"], D["Xindptr"]),
+                              D["shape"])
+        y = D["y"]
+    return X, y
 
 
 def shuffle_data(X, y):

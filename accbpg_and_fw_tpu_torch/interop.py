@@ -39,6 +39,8 @@ _H_FIELDS = {
     "SumOf2nd4thPowersPositiveOrthant": ("alpha", "sigma", "upper_bound"),
     "SumOf2nd4thPowersPositiveOrthantDS": ("alpha", "sigma", "upper_bound"),
     "SumOf2nd4thPowersOnSimplex": ("alpha", "sigma", "radius", "eps"),
+    "SumOf2nd4thPowersDualProxMap": ("alpha", "sigma", "num_iters",
+                                     "eta_base", "tolerance", "radius"),
     "SquaredL2Norm": (), "PowerNeg1": (), "L2L1Linf": ("lamda", "B"),
     "PolyDiv": ("DS_mean", "DS_mean_quad", "lamda", "radius"),
 }
@@ -48,6 +50,7 @@ _F_FIELDS = {
     "PoissonRegression": ("A", "b"), "KLdivRegression": ("A", "b"),
     "SVM_fun": ("lamda", "A", "y"), "LogisticRegression": ("X", "y", "alpha"),
     "FrobeniusSymLoss": ("M", "M_norm", "noise_level"),
+    "AX_b": ("A", "b"),
 }
 
 
@@ -65,12 +68,14 @@ def from_jax_oracle(obj, device=None):
 
     * f-oracles: ``DOptimalObj`` (``H``, ``n_valid``), ``PoissonRegression``
       and ``KLdivRegression`` (``A``, ``b``), ``SVM_fun`` (``lamda``,
-      ``A``, ``y``), ``LogisticRegression`` (``X``, ``y``, ``alpha``) and
-      ``FrobeniusSymLoss`` (``M``, ``M_norm``, ``noise_level``), with their
-      data as float64 on ``device`` (CUDA for None);
+      ``A``, ``y``), ``LogisticRegression`` (``X``, ``y``, ``alpha``),
+      ``FrobeniusSymLoss`` (``M``, ``M_norm``, ``noise_level``) and
+      ``AX_b`` (``A``, ``b``), with their data as float64 on ``device``
+      (CUDA for None);
     * every h-oracle the port has, with its scalar fields (``lamda``,
       ``eps``, ``delta``, ``alpha``, ``sigma``, ``upper_bound``,
-      ``radius``, ``center``, ``B``, ``DS_mean``, ``DS_mean_quad``) and
+      ``radius``, ``center``, ``B``, ``DS_mean``, ``DS_mean_quad``,
+      ``num_iters``, ``eta_base``, ``tolerance``) and
       ``BurgEntropySimplex``'s ``use_pallas``;
       ``SumOf2nd4thPowersPositiveOrthantDS`` gives the FP64 class.
 

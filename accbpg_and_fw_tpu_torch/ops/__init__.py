@@ -4,17 +4,18 @@ the one-kernel simplex multiplier and the D-opt engines' kernels."""
 
 from .base import (LegendreFunction, LegendreOracle, RSmoothFunction,
                    SmoothOracle)
-from .f_oracles import (DOptimalObj, FrobeniusSymLoss, FrobeniusSymLossDS,
+from .f_oracles import (AX_b, DOptimalObj, FrobeniusSymLoss, FrobeniusSymLossDS,
                         FrobeniusSymLossMixed, KLdivRegression,
                         KLdivRegressionDS, KLdivRegressionMixed,
                         LogisticRegression, PoissonRegression,
                         PoissonRegressionDS, PoissonRegressionMixed, SVM_fun,
-                        SVMfunMixed)
+                        SVMfunMixed, calculate_tse_constant)
 from .h_oracles import (BurgEntropy, BurgEntropyL1, BurgEntropyL2,
                         BurgEntropyL2Ball, BurgEntropySimplex, L2L1Linf,
                         PolyDiv, PowerNeg1, ShannonEntropy, ShannonEntropyL1,
                         ShannonEntropySimplex, SquaredL2Norm,
-                        SumOf2nd4thPowers, SumOf2nd4thPowersOnSimplex,
+                        SumOf2nd4thPowers, SumOf2nd4thPowersDualProxMap,
+                        SumOf2nd4thPowersOnSimplex,
                         SumOf2nd4thPowersPositiveOrthant,
                         SumOf2nd4thPowersPositiveOrthantDS,
                         SumOf2nd4thPowersWithFrankWolfe)
@@ -25,7 +26,7 @@ from .roots import (bisect_monotone, newton_scalar, project_simplex_burg,
                     simplex_inv_multiplier, solve_cubic)
 from .simplex import simplex_inv_multiplier_pallas
 
-__all__ = ["BurgEntropy", "BurgEntropyL1", "BurgEntropyL2",
+__all__ = ["AX_b", "BurgEntropy", "BurgEntropyL1", "BurgEntropyL2",
            "BurgEntropyL2Ball", "BurgEntropySimplex", "DOptimalObj",
            "FrobeniusSymLoss", "FrobeniusSymLossDS", "FrobeniusSymLossMixed",
            "KLdivRegression", "KLdivRegressionDS", "KLdivRegressionMixed",
@@ -35,9 +36,11 @@ __all__ = ["BurgEntropy", "BurgEntropyL1", "BurgEntropyL2",
            "RSmoothFunction", "SVM_fun", "SVMfunMixed", "ShannonEntropy",
            "ShannonEntropyL1", "ShannonEntropySimplex", "SmoothOracle",
            "SquaredL2Norm", "SumOf2nd4thPowers",
+           "SumOf2nd4thPowersDualProxMap",
            "SumOf2nd4thPowersOnSimplex", "SumOf2nd4thPowersPositiveOrthant",
            "SumOf2nd4thPowersPositiveOrthantDS",
            "SumOf2nd4thPowersWithFrankWolfe", "bisect_monotone",
+           "calculate_tse_constant",
            "lmo_l2_ball", "lmo_l2_ball_positive_orthant", "lmo_linf_ball",
            "lmo_matrix_box", "lmo_matrix_simplex", "lmo_nuclear_norm_ball",
            "lmo_simplex", "newton_scalar", "project_simplex_burg",

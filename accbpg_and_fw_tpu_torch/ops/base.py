@@ -8,6 +8,10 @@ reference's names are kept as aliases (``__call__``, ``gradient``,
 ``func_grad(x, flag)``, ``extra_Psi``, ``RSmoothFunction``,
 ``LegendreFunction``), so code written against the reference ports with an
 import change.
+
+Stochastic (inexact) oracles take an optional ``key``, a draw key of
+``_rng``; the class attribute ``stochastic`` tells the drivers to pass a
+fresh one per gradient evaluation.
 """
 
 from __future__ import annotations
@@ -29,8 +33,7 @@ def fnorm(a):
 class SmoothOracle:
     """f-oracle for min f(x) + Psi(x): query value / gradient / both."""
 
-    #: a stochastic (inexact) oracle draws noise per call; the port's
-    #: drivers do not support one yet
+    #: drivers split and pass a key (``_rng``) per gradient when True
     stochastic: bool = False
 
     # --- primary API -----------------------------------------------------

@@ -240,6 +240,22 @@ def dense_plan(B, m, n, sms, smem_limit, max_cluster):
     return DensePlan(n, 1, _MAX_THREADS, n, 0, 0, vec)
 
 
+def dense_layout(B, m, n, limits):
+    """How the kernel would lay out B instances of (m, n) on a card of
+    ``limits = (sms, smem_limit)`` (clusters of at most 8 CTAs, the size
+    every card schedules): ``"resident"`` where each CTA keeps its panel of
+    V and a copy of H in shared memory, ``"streamed"`` where V (and maybe
+    H) streams from the L2, None where the kernel does not take m or there
+    is no card to ask (``limits`` None)."""
+    if limits is None or m > _MAX_M:
+        return None
+    try:
+        plan = dense_plan(B, m, n, limits[0], limits[1], 8)
+    except ValueError:
+        return None
+    return "resident" if plan.resident else "streamed"
+
+
 # The phases that thread 0 of CTA 0 clocks when a launch is given ``prof``
 # (the kernel's ``Phase``).
 PHASES = ("scan and warp merge", "exchange", "merge", "columns asked, "

@@ -9,17 +9,20 @@ functions.py:27-194, 908-1104): ``DOptimalObj``, ``PoissonRegression``,
 
 The JAX package's ``*Mixed`` and ``*DS`` oracles (int8-digit and
 double-single GEMVs, TPU workarounds for slow f64) name the FP64 classes
-here; their ``from_data`` accepts ``levels`` and ignores it.  Not ported
-yet: the fast-Gram protocol of the ``fast_gram`` drivers, ``AX_b``,
-``calculate_tse_constant`` and stochastic (noisy-gradient) evaluation: a
-``FrobeniusSymLoss`` with ``noise_level`` reports ``stochastic`` and the
-drivers refuse it.
+here; their ``from_data`` accepts ``levels`` and ignores it.  Also here:
+``AX_b`` (the primal-dual driver's constraint) and
+``calculate_tse_constant``.  A ``FrobeniusSymLoss`` with ``noise_level``
+is stochastic: its gradient adds noise drawn from the key the driver
+passes (``_rng``).  Not ported yet: the fast-Gram protocol of the
+``fast_gram`` drivers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import _rng
 from .._device import as_f64, resolve_device
 from .base import SmoothOracle, fnorm, vdot
 
@@ -163,8 +166,10 @@ class FrobeniusSymLoss(_DataOracle):
     0.5*(||M||^2 + ||X^T X||^2) - <X, M X>, so the large products are M X
     (n x n x r) and X^T X (r x r), never the n x n outer product.
 
-    ``noise_level`` marks the oracle stochastic (the JAX package adds
-    keyed gradient noise); the port's drivers refuse such an oracle."""
+    ``noise_level`` marks the oracle stochastic: a gradient evaluated with
+    a draw key adds ``(normal - 0.5) * noise_level`` (``_rng.normal`` on
+    the oracle's device), as the JAX oracle adds ``jax.random.normal``'s;
+    without a key it is exact."""
 
     def __init__(self, M, M_norm=None, noise_level=None, device=None):
         (self.M,) = self._data(device, M)
@@ -192,15 +197,20 @@ class FrobeniusSymLoss(_DataOracle):
         return (0.5 * (self.M_norm * self.M_norm + nrm * nrm)
                 - vdot(x, self.M @ x))
 
+    def _noise(self, x, key):
+        if self.noise_level is None or key is None:
+            return 0.0
+        return (_rng.normal(key, x.shape, x.device) - 0.5) * self.noise_level
+
     def grad(self, x, key=None):
-        return 2.0 * (x @ (x.T @ x) - self.M @ x)
+        return 2.0 * (x @ (x.T @ x) - self.M @ x) + self._noise(x, key)
 
     def value_and_grad(self, x, key=None):
         XtX = x.T @ x
         MX = self.M @ x
         nrm = torch.linalg.vector_norm(XtX)
         f = 0.5 * (self.M_norm * self.M_norm + nrm * nrm) - vdot(x, MX)
-        return f, 2.0 * (x @ XtX - MX)
+        return f, 2.0 * (x @ XtX - MX) + self._noise(x, key)
 
 
 class LogisticRegression(_DataOracle):
@@ -243,6 +253,47 @@ class LogisticRegression(_DataOracle):
         s = torch.sigmoid(-self._z(x))
         d = s * (1.0 - s)  # y_i^2 = 1
         return (self.X.T * d) @ self.X / self.X.shape[0]
+
+
+class AX_b(_DataOracle):
+    """Affine map f(X) = X A - b, the constraint function of the
+    primal-dual switching method (reference: functions.py:1037-1065).
+    Its gradient is the constant A.  As in JAX, value and value_and_grad
+    both compute X @ A - b (the reference's flag=0 orientation, the one the
+    primal-dual driver uses)."""
+
+    def __init__(self, A=None, b=None, device=None):
+        self.A, self.b = self._data(device, A, b)
+
+    def value(self, x, key=None):
+        return x @ self.A - self.b
+
+    def grad(self, x, key=None):
+        return self.A
+
+    def value_and_grad(self, x, key=None):
+        return self.value(x), self.A
+
+
+def calculate_tse_constant(h, x_next, y, z_next, z, alpha):
+    """Empirical maximal triangle-scaling exponent gamma with
+    D(x+, y) <= alpha^gamma * D(z+, z)  (reference: functions.py:1107-1152).
+
+    The JAX function's vectorised scan of the reference's downward
+    1e-5-step grid from 2.5: alpha in (0, 1) makes the feasible set a
+    down-set, so the answer is its largest grid point (1.01 - 2e-5 when
+    none is feasible, the reference's ``gamma < 1.01`` exit).  Returns a
+    0-d tensor on the divergences' device."""
+    if not (0 < alpha < 1):
+        raise ValueError("Step size alpha must be in the interval (0, 1)")
+    lhs = h.divergence(x_next, y)
+    rhs = h.divergence(z_next, z)
+    # numpy's grid is jnp.arange's, point for point
+    gammas = torch.from_numpy(np.arange(2.5, 1.01 - 1e-5, -1e-5)).to(
+        lhs.device)
+    ok = lhs <= torch.pow(alpha, gammas) * rhs
+    idx = torch.argmax(ok.to(torch.uint8))  # the first feasible point
+    return torch.where(ok.any(), gammas[idx], gammas[-1] - 1e-5)
 
 
 # The JAX package's int8-digit (Mixed) and double-single (DS) oracles are

@@ -22,10 +22,10 @@ from .._device import as_f64, resolve_device
 from ..ops.dopt_common import XTOL, factorize
 from ..ops.dopt_dense import dopt_fw_dense_batch
 from ..ops.dopt_lazy import device_limits, dopt_fw_lazy_batch, lazy_fits
+from ..algorithms.d_opt import _kernel_engine
 
-# "auto" takes the lazy-H batch kernel on a CUDA device from this m up.
-# The threshold is the TPU's (the JAX package's on-chip A/B, BASELINE.md
-# round 5); the crossover on the H100 is not measured yet.
+# Without a card to ask about its shared memory, "auto" takes the lazy-H
+# batch kernel from this m up (the TPU's threshold, BASELINE.md round 5).
 _LAZY_MIN_M = 64
 
 # the engine's all-done check runs at most this many iterations apart
@@ -150,16 +150,20 @@ def dopt_fw_batch_exact(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
 
 
 def _resolve_auto_batch_precision(Vs, device, limits=None):
-    """The engine for ``precision="auto"``: the lazy-H batch kernel for
-    instances with m >= 64 on a CUDA device that the kernel takes
-    (``lazy_fits`` on ``limits``, the device's ``(sms, smem_limit)`` when
-    None), the exact engine otherwise, as the JAX rule falls back past
-    its kernel's memory budget."""
+    """The engine for ``precision="auto"`` on a CUDA device (``limits``:
+    its ``(sms, smem_limit)``, the device's own when None):
+    ``algorithms.d_opt._kernel_engine``'s choice for the batch (the dense
+    kernel where its layout keeps each instance's V and H in shared memory,
+    else the lazy-H kernel where it takes the shape), the exact engine
+    where no kernel takes it.  Without a card to ask, the lazy kernel from
+    m = 64 within its bound on m.  On the CPU, the exact engine."""
     shape = getattr(Vs, "shape", None)
-    if (device.type == "cuda" and shape is not None and len(shape) == 3
-            and shape[1] >= _LAZY_MIN_M):
+    if device.type == "cuda" and shape is not None and len(shape) == 3:
         K, m, n = shape
-        if lazy_fits(m, n, K, limits or device_limits(device)):
+        limits = limits or device_limits(device)
+        if limits is not None:
+            return _kernel_engine(m, n, K, limits) or "native"
+        if m >= _LAZY_MIN_M and lazy_fits(m, n, K, None):
             return "pallas_lazy"
     return "native"
 
@@ -177,9 +181,11 @@ def dopt_fw_batch(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
     runs the batched FP64 exact engine for ``num_iters`` rows;
     ``"pallas"`` the dense block kernel (rows to the lockstep stop);
     ``"pallas_lazy"`` the lazy-H block kernel (rows to the last
-    instance's stop); ``"auto"`` the lazy-H kernel for m >= 64 on a CUDA
-    device where the kernel takes the shape (m <= 16384 and a launch plan
-    that fits in shared memory), the exact engine otherwise.  ``refresh_every`` keeps each
+    instance's stop); ``"auto"`` on a CUDA device the dense kernel where
+    its layout keeps each instance's V and H in shared memory (as for the
+    K=32 30x1000 sweep), else the lazy-H kernel where it takes the shape
+    (m <= 16384 and a launch plan that fits in shared memory), else the
+    exact engine; on the CPU the exact engine.  ``refresh_every`` keeps each
     engine's JAX meaning: a full refactorization every R rows for the
     exact and dense engines, the w-only refresh for the lazy one.
     ``device``: None keeps a tensor ``Vs``'s device and puts numpy input

@@ -111,6 +111,30 @@ and the script exits non-zero without the result line:
       ``examples/ex_params_free_symnmf.py`` run with their import changed
       to the port's (``examples/ex_fw_l0l1.py`` is left out: it imports
       JAX for its PRNG key, and this script runs without JAX);
+   j. "auto": the engine it picks for each D-opt shape this script solves,
+      and the walls that set its rule below the lazy size (one warm
+      ``D_opt_FW_away`` at 30x1000, 100x1000 and 200x1000 on the exact
+      engine, the dense kernel and the lazy kernel; "auto" must pick the
+      fastest), then a 30x1000 solve and the K=32 30x1000 sweep under
+      "auto", which must run the dense kernel and certify;
+   k. the inexact-oracle and constrained drivers at the examples' sizes,
+      where only kernel 5 may launch: AIBM (noiseless and with noise
+      1e-6), AdaptFGM and UniversalGM on the 2000x1000 Poisson problem of
+      ``examples/ex_aibm_poisson.py`` (seed 1, gamma 2, 1000 iterations,
+      ``BurgEntropySimplex(eps=1e-7, use_pallas=True)``: kernel 5's
+      launches, the first 100 rows of F against the port on the CPU at
+      rtol 1e-8), the three on the synthetic 700x2000 SVM ball with
+      PolyDiv (200 iterations), the primal-dual study of
+      ``examples/ex_primal_dual.py`` (n=400, r=10, 200 iterations, without
+      and with the line search, against the CPU; its wall by the inner
+      ascent's block length), UniversalGM through the FW-as-prox adapter
+      on the noisy SymNMF of ``examples/ex_universal_fw.py`` (noise 0.1
+      and 10: the same seed twice bit for bit, the noise reaching the
+      run), one ``SumOf2nd4thPowersDualProxMap.div_prox_map`` at 400x10
+      (steps, blocks read, time); per driver the warm
+      wall, host syncs and device operations per iteration and the device
+      idle share of a traced run; and the four examples' ``start()`` with
+      their import changed to the port's;
 5. the kernels' JSON line (launches on the path, error against the plain
    version, kernel and plain times, the bound from this run's inputs and
    the time of a PyTorch call for the same function where one exists), the
@@ -159,6 +183,23 @@ FW_ILL = dict(seed=63, radius=25.0, rho=0.99, col_scale=1.0, flip_y=0.2,
 FW_NS, FW_NF, FW_ITERS, FW_LS_RATIO = 1000, 1000, 2000, 2.2
 FW_CPU_ROWS, FW_COST_ITERS, FW_RTOL = 200, 200, 1e-9
 FW_RS_ITERS, FW_SYM_N, FW_SYM_R, FW_SYM_ITERS = 500, 200, 20, 600
+# the single-solve shapes whose walls on the three engines set "auto"
+AUTO_SHAPES = ((30, 1000), (100, 1000), (200, 1000))
+# the [extras] phase, at the examples' own sizes: examples/ex_aibm_poisson.py
+# (Poisson_regr_simplex_acc(2000, 1000, noise=0.001) after seed 1, gamma 2,
+# 1000 iterations, its first EX_HELD_ROWS rows held against the port on the
+# CPU at EX_RTOL, the error over EX_CPU_ROWS reported beside the row where
+# a 1e-14 relative change of every prox multiplier moves the CPU's own run
+# past EX_RTOL), examples/ex_aibm_svm.py (the synthetic 700x2000 SVM
+# ball), examples/ex_primal_dual.py's figure (n=400, r=10) and
+# examples/ex_universal_fw.py (n=400, r=1, noise 0.1 and 10), 200
+# iterations each; the costs over EX_COST_ITERS iterations
+EXP_M, EXP_N, EXP_ITERS, EXP_GAMMA = 2000, 1000, 1000, 2.0
+EX_ITERS, EX_CPU_ROWS, EX_HELD_ROWS, EX_RTOL = 200, 100, 30, 1e-8
+EX_COST_ITERS = 100
+PD_N, PD_R, UFW_N, UFW_R, UFW_NOISES = 400, 10, 400, 1, (0.1, 10.0)
+# the block lengths of the primal-dual ascent timed for h_oracles.DUAL_BLOCK
+DUAL_BLOCKS = (8, 32, 128)
 # kernel vs plain version on the card, over one 256-iteration block: x, w
 # and C to rtol 1e-11 (each array's max-abs scales the atol, for entries
 # that cancel to near zero); SP, SN, tau, tau (w_v - 1) to atol 1e-12.
@@ -707,9 +748,28 @@ def dense_sweep(port, dd, dev):
     launches = dd.LAUNCHES
     if launches < 1:
         raise AssertionError("the dense sweep made no dense kernel launch")
+    iters, worst = certify_dense_sweep(Vs, x, SP, SN)
+    print(f"[dense sweep] K={DENSE_K} of {DENSE_M}x{DENSE_N} "
+          f"precision=pallas on cuda: wall {wall:.3f} s, {launches} "
+          f"kernel launches, {F.shape[1]} lockstep rows, iterations to "
+          f"1e-8 min {min(iters)} median {int(np.median(iters))} max "
+          f"{max(iters)} (sum {sum(iters)}); {DENSE_K}/{DENSE_K} "
+          f"fresh-certified, worst fresh slack {worst:.4e}", flush=True)
+    trace_line(f"dense sweep K={DENSE_K} of {DENSE_M}x{DENSE_N}",
+               lambda: port.dopt_fw_batch(Vs, x0s, EPS, DENSE_BUDGET,
+                                          away=True, precision="pallas",
+                                          device=dev),
+               "dopt_dense_kernel")
+    return launches
+
+
+def certify_dense_sweep(Vs, x, SP, SN):
+    """Every instance of a dense sweep stopped and certifies by fresh
+    float64 slacks at its recorded stop row; returns (iterations to eps
+    per instance, the worst fresh slack)."""
     xs = x.cpu().numpy()
     iters, worst = [], 0.0
-    for k in range(DENSE_K):
+    for k in range(len(Vs)):
         r = stop_row(SP[k], SN[k], EPS)
         if r < 0:
             raise AssertionError(f"dense sweep instance {k} did not stop "
@@ -723,18 +783,7 @@ def dense_sweep(port, dd, dev):
                 f"recorded {SP[k, r]:.3e}/{SN[k, r]:.3e} at row {r}")
         iters.append(r + 1)
         worst = max(worst, sp, sn)
-    print(f"[dense sweep] K={DENSE_K} of {DENSE_M}x{DENSE_N} "
-          f"precision=pallas on cuda: wall {wall:.3f} s, {launches} "
-          f"kernel launches, {F.shape[1]} lockstep rows, iterations to "
-          f"1e-8 min {min(iters)} median {int(np.median(iters))} max "
-          f"{max(iters)} (sum {sum(iters)}); {DENSE_K}/{DENSE_K} "
-          f"fresh-certified, worst fresh slack {worst:.4e}", flush=True)
-    trace_line(f"dense sweep K={DENSE_K} of {DENSE_M}x{DENSE_N}",
-               lambda: port.dopt_fw_batch(Vs, x0s, EPS, DENSE_BUDGET,
-                                          away=True, precision="pallas",
-                                          device=dev),
-               "dopt_dense_kernel")
-    return launches
+    return iters, worst
 
 
 def large_sweep(port, dl, dev):
@@ -827,6 +876,153 @@ def single_pallas(port, dd, dev):
                                           device=dev),
                "dopt_dense_kernel")
     return launches
+
+
+def auto_walls(port):
+    """The walls that set ``u_mode="auto"``'s thresholds below the lazy
+    size: one ``D_opt_FW_away`` solve (seed 1, uniform start, eps 1e-8, the
+    dense budget) per shape of AUTO_SHAPES on each of the three engines,
+    warm (the kernels' engines run once before the timed solve; the exact
+    engine after a short warm-up solve).  Returns ``{(m, n): {engine:
+    (wall, iterations)}}``."""
+    out = {}
+    np.random.seed(1)
+    V = np.random.randn(*AUTO_SHAPES[0])
+    port.D_opt_FW_away(V, np.full(V.shape[1], 1.0 / V.shape[1]), EPS, 50,
+                       verbose=False, u_mode="exact")
+    for m, n in AUTO_SHAPES:
+        np.random.seed(1)
+        V = np.random.randn(m, n)
+        x0 = np.full(n, 1.0 / n)
+        row = {}
+        for engine in ("exact", "pallas", "pallas_lazy"):
+            if engine != "exact":
+                port.D_opt_FW_away(V, x0, EPS, DENSE_BUDGET, verbose=False,
+                                   u_mode=engine)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            x, F, SP, SN, _ = port.D_opt_FW_away(V, x0, EPS, DENSE_BUDGET,
+                                                 verbose=False,
+                                                 u_mode=engine)
+            torch.cuda.synchronize()
+            row[engine] = (time.perf_counter() - t, len(F))
+            sp, sn, _ = fresh_slacks(V, x.cpu().numpy())
+            if len(F) < DENSE_BUDGET and not (sp <= EPS + DENSE_CERT_TOL
+                                              and sn <= EPS + DENSE_CERT_TOL):
+                raise AssertionError(f"{engine} {m}x{n}: stopped with fresh "
+                                     f"slacks {sp:.3e}/{sn:.3e}")
+        out[(m, n)] = row
+    return out
+
+
+def auto_sweep_walls(port):
+    """The sweeps' counterpart of ``auto_walls``: K=3 instances of each of
+    AUTO_SHAPES (instance k from ``np.random.seed(k + 1)``, starts 1e-3,
+    eps 1e-8, the dense budget) on the dense and the lazy batch kernels,
+    warm.  Returns ``{(m, n): {engine: (wall, rows)}}``."""
+    out = {}
+    for m, n in AUTO_SHAPES:
+        Vs = np.empty((3, m, n))
+        for k in range(3):
+            np.random.seed(k + 1)
+            Vs[k] = np.random.randn(m, n)
+        row = {}
+        for engine in ("pallas", "pallas_lazy"):
+            run = lambda: port.dopt_fw_batch(  # noqa: E731
+                Vs, np.full((3, n), 1e-3), EPS, DENSE_BUDGET,
+                precision=engine)
+            run()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, F, _, _ = run()
+            torch.cuda.synchronize()
+            row[engine] = (time.perf_counter() - t, F.shape[1])
+        out[(m, n)] = row
+    return out
+
+
+def walls_text(walls):
+    return "; ".join(
+        f"{m}x{n}: " + ", ".join(f"{e} {w:.4f} s ({it} it)"
+                                 for e, (w, it) in row.items())
+        for (m, n), row in walls.items())
+
+
+def auto_phase(port, dd, card):
+    """Phase 4j: which engine "auto" picks for each D-opt shape this script
+    solves, the walls of step 0 (``auto_walls``; "auto" must pick the
+    fastest engine at each of AUTO_SHAPES), then one single 30x1000 solve
+    and the K=32 30x1000 sweep under "auto": both must run the dense
+    kernel and certify."""
+    from accbpg_and_fw_tpu_torch.algorithms.d_opt import _resolve_auto_u_mode
+    from accbpg_and_fw_tpu_torch.parallel.batched import (
+        _resolve_auto_batch_precision)
+
+    dev = torch.device("cuda")
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    picks = {f"{m}x{n}": _resolve_auto_u_mode(meta(m, n), "auto", dev)
+             for m, n in ((M, N), (12, 160)) + AUTO_SHAPES}
+    picks.update({f"K={k} of {m}x{n}": _resolve_auto_batch_precision(
+        meta(k, m, n), dev) for k, m, n in (
+            (DENSE_K, DENSE_M, DENSE_N), (LARGE_K, LARGE_M, LARGE_N))})
+    want = {f"{M}x{N}": "pallas_lazy", f"{DENSE_M}x{DENSE_N}": "pallas",
+            f"K={DENSE_K} of {DENSE_M}x{DENSE_N}": "pallas",
+            f"K={LARGE_K} of {LARGE_M}x{LARGE_N}": "pallas_lazy"}
+    for key, engine in want.items():
+        if picks[key] != engine:
+            raise AssertionError(f"auto picks {picks[key]} for {key}, not "
+                                 f"{engine}")
+    picks.update({f"K=3 of {m}x{n}": _resolve_auto_batch_precision(
+        meta(3, m, n), dev) for m, n in AUTO_SHAPES})
+    walls, sweeps = auto_walls(port), auto_sweep_walls(port)
+    for prefix, table in (("", walls), ("K=3 of ", sweeps)):
+        for (m, n), row in table.items():
+            fastest = min(row, key=lambda e: row[e][0])
+            if picks[f"{prefix}{m}x{n}"] != fastest:
+                raise AssertionError(
+                    f"auto picks {picks[f'{prefix}{m}x{n}']} for {prefix}"
+                    f"{m}x{n}; the fastest was {fastest}")
+
+    np.random.seed(1)
+    V = np.random.randn(DENSE_M, DENSE_N)
+    x0 = np.full(DENSE_N, 1.0 / DENSE_N)
+    dd.LAUNCHES = 0
+    x, F, SP, SN, _ = port.D_opt_FW_away(V, x0, EPS, DENSE_BUDGET,
+                                         verbose=False)
+    single = dd.LAUNCHES
+    sp, sn, fresh_F = fresh_slacks(V, x.cpu().numpy())
+    if not (single >= 1 and sp <= EPS + DENSE_CERT_TOL
+            and sn <= EPS + DENSE_CERT_TOL
+            and abs(fresh_F - F[-1]) <= 1e-9 * abs(F[-1])):
+        raise AssertionError(f"auto 30x1000: {single} dense launches, fresh "
+                             f"slacks {sp:.3e}/{sn:.3e}")
+    Vs = dense_designs()
+    dd.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    xb, _, SPb, SNb = port.dopt_fw_batch(
+        Vs, np.full((DENSE_K, DENSE_N), 1.0 / DENSE_N), EPS, DENSE_BUDGET,
+        precision="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    sweep = dd.LAUNCHES
+    if sweep < 1:
+        raise AssertionError("the auto sweep made no dense kernel launch")
+    iters, worst = certify_dense_sweep(Vs, xb, SPb, SNb)
+    print(f"[auto] engines under auto on cuda: "
+          + ", ".join(f"{k} {v}" for k, v in picks.items())
+          + f"; walls, one warm D_opt_FW_away per engine (seed 1, eps 1e-8; "
+          f"{card}): {walls_text(walls)}; K=3 sweeps (seeds 1-3, "
+          f"starts 1e-3): {walls_text(sweeps).replace(' it)', ' rows)')}; "
+          f"auto is the fastest at each; "
+          f"single {DENSE_M}x{DENSE_N} under auto: {single} dense launches, "
+          f"{len(F)} iterations, fresh slacks {sp:.2e}/{sn:.2e}; sweep "
+          f"K={DENSE_K} under auto: {sweep} dense launches in {wall:.3f} s, "
+          f"{len(iters)}/{DENSE_K} fresh-certified (worst {worst:.3e})",
+          flush=True)
 
 
 def simplex_resid(gg, c):
@@ -1114,19 +1310,19 @@ def fw_syncs_and_ops(run):
     return syncs, len(events), 1.0 - busy / wall, rows
 
 
-def fw_against_cpu(label, F_card, F_cpu, rows=None):
+def fw_against_cpu(label, F_card, F_cpu, rows=None, rtol=FW_RTOL):
     """The card's F history against the CPU's on the same arrays: the same
-    number of rows (``rows`` None), then rtol FW_RTOL over the first
-    ``rows`` (all for None); returns the largest relative error."""
+    number of rows (``rows`` None), then ``rtol`` over the first ``rows``
+    (all for None); returns the largest relative error."""
     F_card, F_cpu = np.asarray(F_card), np.asarray(F_cpu)
     if rows is None and len(F_card) != len(F_cpu):
         raise AssertionError(f"{label}: {len(F_card)} rows on the card, "
                              f"{len(F_cpu)} on the CPU")
     n = len(F_cpu) if rows is None else rows
     err = float(np.max(np.abs(F_card[:n] - F_cpu[:n]) / np.abs(F_cpu[:n])))
-    if not err <= FW_RTOL:
+    if not err <= rtol:
         raise AssertionError(f"{label}: card vs CPU F rel err {err:.3e} > "
-                             f"{FW_RTOL} over {n} rows")
+                             f"{rtol} over {n} rows")
     return err
 
 
@@ -1279,24 +1475,31 @@ def fw_symnmf(port):
           f"{FW_SYM_ITERS} iterations: " + "; ".join(out), flush=True)
 
 
+def example_module(name):
+    """examples/<name>.py with its import of the JAX package changed to the
+    port's, and nothing else."""
+    path = pathlib.Path(__file__).parent / "examples" / f"{name}.py"
+    src = path.read_text()
+    old = "import accbpg_and_fw_tpu as acc"
+    if src.count(old) != 1:
+        raise AssertionError(f"{name}.py: expected one '{old}'")
+    module = type(sys)(name)
+    module.__file__ = str(path)
+    exec(compile(src.replace(old, "import accbpg_and_fw_tpu_torch as acc"),
+                 module.__file__, "exec"), module.__dict__)
+    return module
+
+
 def fw_examples():
     """Phase 4i: examples/ex_fw_rs.py and examples/ex_params_free_symnmf.py
     with their import of the JAX package changed to the port's, and
     nothing else, on the card."""
-    root = pathlib.Path(__file__).parent / "examples"
     out = []
     for name, call in (("ex_fw_rs", lambda m: m.start(maxitrs=FW_RS_ITERS,
                                                       verbose=False)),
                        ("ex_params_free_symnmf",
                         lambda m: m.start(verbose=False))):
-        src = (root / f"{name}.py").read_text()
-        old = "import accbpg_and_fw_tpu as acc"
-        if src.count(old) != 1:
-            raise AssertionError(f"{name}.py: expected one '{old}'")
-        module = type(sys)(name)
-        module.__file__ = str(root / f"{name}.py")
-        exec(compile(src.replace(old, "import accbpg_and_fw_tpu_torch as acc"),
-                     module.__file__, "exec"), module.__dict__)
+        module = example_module(name)
         t = time.perf_counter()
         res = call(module)
         torch.cuda.synchronize()
@@ -1326,6 +1529,314 @@ def fw_paths(port, card, counters):
         raise AssertionError(f"the FW paths launched a kernel: {launched}")
     print(f"[fw] phase 4i in {time.perf_counter() - t:.1f} s; kernel "
           f"launches on the FW paths: {launched}", flush=True)
+
+
+def extras_row(name, wall, F, cost, err=None, rows=None):
+    """One driver's part of an [extras] line."""
+    syncs, ops, idle, n = cost
+    ops_txt = (f"{ops / n:.1f} device ops per iteration (device idle "
+               f"{100 * idle:.1f}% of a traced run)" if ops else
+               "device ops not measured (no device events in the trace)")
+    held = "" if err is None else f", card vs CPU {err:.1e} over {rows} rows"
+    return (f"{name}: warm wall {wall:.3f} s, {len(F)} rows, F "
+            f"{F[0]:.6e} -> {F[-1]:.6e}, {syncs / n:.2f} syncs and "
+            f"{ops_txt}{held}")
+
+
+def timed(run):
+    """``run()`` twice: the first call, and the warm one timed; both must
+    give the same F bit for bit.  Returns (result, warm wall)."""
+    first = run()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    np.testing.assert_array_equal(np.asarray(res[1]), np.asarray(first[1]))
+    return res, wall
+
+
+def past_rtol(F, ref):
+    """The first row where F leaves ``ref`` by more than EX_RTOL (the rows
+    both have where it never does)."""
+    n = min(len(F), len(ref))
+    err = np.abs(np.asarray(F[:n]) - ref[:n]) / np.abs(ref[:n])
+    return int(np.argmax(err > EX_RTOL)) if np.any(err > EX_RTOL) else n
+
+
+def extras_poisson(port, sm, card):
+    """Phase 4k: AIBM (noiseless and with noise 1e-6), AdaptFGM and
+    UniversalGM on examples/ex_aibm_poisson.py's problem with the
+    multiplier kernel's h; returns kernel 5's launches in AIBM's run.
+
+    These accelerated runs double a last-bit difference about every
+    iteration from their tenth on, so the card (kernel 5, cuBLAS) and the
+    CPU (the plain multiplier, MKL) part ways before row 100 whatever the
+    code: the first EX_HELD_ROWS rows are held at EX_RTOL, and the line
+    reports, beside the card's error over EX_CPU_ROWS rows, the row where
+    the CPU's own run moves past EX_RTOL when every prox multiplier is
+    scaled by 1 + 1e-14."""
+    from accbpg_and_fw_tpu_torch.ops import h_oracles as ho
+
+    np.random.seed(1)
+    f, _, L, x0 = port.Poisson_regr_simplex_acc(EXP_M, EXP_N, noise=0.001,
+                                                device="cuda")
+    f_cpu = port.PoissonRegression(f.A.cpu(), f.b.cpu(), device="cpu")
+    h = port.BurgEntropySimplex(eps=1e-7, use_pallas=True)
+    drivers = {
+        "AIBM": lambda f, x0, it: port.AIBM(
+            f, h, L, x0, gamma=EXP_GAMMA, maxitrs=it, epsilon=1e-12,
+            verbose=False),
+        "AIBM noise=1e-6": lambda f, x0, it: port.AIBM(
+            f, h, L, x0, gamma=EXP_GAMMA, maxitrs=it, epsilon=1e-12,
+            noise=1e-6, verbose=False),
+        "AdaptFGM": lambda f, x0, it: port.AdaptFGM(
+            f, h, L, x0, maxitrs=it, epsilon=1e-12, verbose=False),
+        "UniversalGM": lambda f, x0, it: port.UniversalGM(
+            f, h, L, x0, maxitrs=it, epsilon=1e-12, verbose=False),
+    }
+    out, launches = [], {}
+    for name, run in drivers.items():
+        before = sm.LAUNCHES
+        res = run(f, x0, EXP_ITERS)
+        torch.cuda.synchronize()
+        launches[name] = sm.LAUNCHES - before
+        res, wall = timed(lambda: run(f, x0, EXP_ITERS))
+        F = np.asarray(res[1])
+        if not (np.all(np.isfinite(F)) and F[-1] < F[0]
+                and launches[name] >= len(F)):
+            raise AssertionError(f"{name}: F[0] {F[0]} F[-1] {F[-1]}, "
+                                 f"{launches[name]} kernel 5 launches")
+        rows = min(EX_CPU_ROWS, len(F))
+        F_cpu = np.asarray(run(f_cpu, x0.cpu(), rows)[1])
+        err = fw_against_cpu(name, F, F_cpu, rows=EX_HELD_ROWS, rtol=EX_RTOL)
+        real = ho.simplex_inv_multiplier_pallas
+        try:
+            ho.simplex_inv_multiplier_pallas = \
+                lambda gg: real(gg) * (1.0 + 1e-14)
+            moved = past_rtol(run(f_cpu, x0.cpu(), rows)[1], F_cpu)
+        finally:
+            ho.simplex_inv_multiplier_pallas = real
+        cost = fw_syncs_and_ops(lambda: run(f, x0, EX_COST_ITERS))
+        out.append(extras_row(name, wall, F, cost, err, EX_HELD_ROWS)
+                   + f" (first row past {EX_RTOL} of {rows}: "
+                   f"{past_rtol(F, F_cpu)}; the CPU with multipliers "
+                   f"1e-14 apart: {moved}), {launches[name]} kernel 5 "
+                   "launches")
+    print(f"[extras] Poisson {EXP_M}x{EXP_N} (examples/ex_aibm_poisson.py, "
+          f"gamma {EXP_GAMMA}, {EXP_ITERS} iterations, BurgEntropySimplex("
+          f"use_pallas=True); {card}): " + "; ".join(out), flush=True)
+    return launches["AIBM"]
+
+
+def extras_svm(port):
+    """Phase 4k: the three inexact drivers with PolyDiv on the synthetic
+    SVM ball of examples/ex_aibm_svm.py."""
+    np.random.seed(11)
+    f, (poly_h, _), L, x0, _ = port.svm_digits_ds_divs_ball(lamda=0.001,
+                                                            device="cuda")
+    f_cpu = port.SVM_fun(lamda=f.lamda, A=f.A.cpu(), y=f.y.cpu(),
+                         device="cpu")
+    drivers = {
+        "AIBM": lambda f, x0, it: port.AIBM(f, poly_h, L, x0, gamma=2.0,
+                                            maxitrs=it, verbose=False),
+        "AdaptFGM": lambda f, x0, it: port.AdaptFGM(f, poly_h, L, x0,
+                                                    maxitrs=it,
+                                                    verbose=False),
+        "UniversalGM": lambda f, x0, it: port.UniversalGM(
+            f, poly_h, L, x0, maxitrs=it, verbose=False),
+    }
+    out = []
+    for name, run in drivers.items():
+        res, wall = timed(lambda: run(f, x0, EX_ITERS))
+        F = np.asarray(res[1])
+        if not np.all(np.isfinite(F)):
+            raise AssertionError(f"SVM {name}: F is not finite")
+        # the hinge is not smooth, and these line searches soon compare
+        # values equal to their last bits (tests/test_torch_extras.py):
+        # the k=0 row and the first step are held, the rest reported
+        F_cpu = np.asarray(run(f_cpu, x0.cpu(), EX_HELD_ROWS)[1])
+        err = fw_against_cpu(f"SVM {name}", F, F_cpu, rows=2, rtol=EX_RTOL)
+        cost = fw_syncs_and_ops(lambda: run(f, x0, EX_ITERS // 4))
+        out.append(extras_row(name, wall, F, cost, err, 2)
+                   + f" (first row past {EX_RTOL} of {len(F_cpu)}: "
+                   f"{past_rtol(F, F_cpu)})")
+    print(f"[extras] SVM ball {f.A.shape[0]}x{f.A.shape[1]} PolyDiv "
+          f"(examples/ex_aibm_svm.py, synthetic data, lamda 0.001, "
+          f"{EX_ITERS} iterations): " + "; ".join(out), flush=True)
+
+
+def pd_instance(port, device):
+    """examples/ex_primal_dual.py figure()'s instance: rank-1 M from 400
+    uniform draws after seed 11, r = 10."""
+    np.random.seed(11)
+    x = np.random.rand(PD_N)
+    return port.FrobeniusSymLossExWithLinearCnstrnts(np.outer(x, x), PD_R,
+                                                     device=device)
+
+
+def extras_primal_dual(port):
+    """Phase 4k: the primal-dual study, without and with the line search,
+    against the CPU on the same arrays; the inner ascent's wall at each of
+    DUAL_BLOCKS."""
+    from accbpg_and_fw_tpu_torch.algorithms import extras
+
+    prob, prob_cpu = pd_instance(port, "cuda"), pd_instance(port, "cpu")
+
+    def run(p, ls, it=EX_ITERS):
+        f, g, h, L, X0 = p
+        return port.PrimalDualSwitchingGradientMethod(
+            f, h, L, g, X0, it, epsilon=1e-9, linesearch=ls, verbose=False)
+
+    out = []
+    for ls in (False, True):
+        res, wall = timed(lambda: run(prob, ls))
+        cpu = run(prob_cpu, ls)
+        F, gaps = np.asarray(res[0]), np.asarray(res[1])
+        if not np.all(np.isfinite(gaps)):
+            raise AssertionError(f"primal-dual ls={ls}: a gap is not finite")
+        # the switch between step kinds tests X A - b <= 1e-9 where the
+        # unproductive steps have brought it: the first rows are held, the
+        # productive counts and stop rows reported
+        err = fw_against_cpu(f"primal-dual ls={ls}", gaps, cpu[1], rows=5,
+                             rtol=EX_RTOL)
+        cost = fw_syncs_and_ops(lambda: run(prob, ls, EX_COST_ITERS // 2)[1:])
+        out.append(extras_row(f"linesearch={ls}", wall, gaps, cost, err, 5)
+                   + f", {len(F)} productive of {len(gaps)} rows (CPU "
+                   f"{len(cpu[0])} of {len(cpu[1])}; first gap row past "
+                   f"{EX_RTOL}: {past_rtol(gaps, cpu[1])})")
+    default, blocks = extras.DUAL_BLOCK, []
+    try:
+        for block in DUAL_BLOCKS:
+            extras.DUAL_BLOCK = block
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(prob, False, EX_COST_ITERS // 2)
+            torch.cuda.synchronize()
+            blocks.append(f"{block}: {time.perf_counter() - t:.3f} s")
+    finally:
+        extras.DUAL_BLOCK = default
+    print(f"[extras] primal-dual n={PD_N} r={PD_R} (examples/ex_primal_dual"
+          f".py figure, {EX_ITERS} iterations, epsilon 1e-9; F is the gap "
+          f"history): " + "; ".join(out) + f"; {EX_COST_ITERS // 2} "
+          f"iterations by the ascent's block length: " + ", ".join(blocks),
+          flush=True)
+
+
+def extras_universal_fw(port):
+    """Phase 4k: UniversalGM through the FW-as-prox adapter on the noisy
+    SymNMF of examples/ex_universal_fw.py: the same seed twice gives the
+    same F bit for bit, and the noise reaches the run."""
+    rng = np.random.default_rng(0)
+    xv = rng.random(UFW_N)
+    M_ = np.outer(xv, xv)
+    X0 = np.ones((UFW_N, UFW_R)) + 1e-5
+    h_fw = port.SumOf2nd4thPowersWithFrankWolfe(
+        alpha=6.0, sigma=2.0 * np.linalg.norm(M_, 2),
+        lmo=port.lmo_linf_ball(1.0, center=1.0))
+    out = []
+    for noise in UFW_NOISES:
+        def run(noise_level=noise, it=EX_ITERS):
+            f = port.FrobeniusSymLoss.create(
+                M_, X0, noise_level=noise_level or None, device="cuda")
+            return port.UniversalGM(f, h_fw, 1.0, X0, it,
+                                    noise_level=noise_level, epsilon=1e-9,
+                                    verbose=False, seed=0)
+
+        res, wall = timed(run)  # the same seed twice: bit-equal F
+        F = np.asarray(res[1])
+        clean = np.asarray(run(0)[1])
+        if not np.all(np.isfinite(F)) or (len(F) == len(clean)
+                                          and np.array_equal(F, clean)):
+            raise AssertionError(f"UniversalGM-FW noise {noise}: finite "
+                                 f"{np.all(np.isfinite(F))}, same as the "
+                                 "noiseless run")
+        cost = fw_syncs_and_ops(lambda: run(it=EX_COST_ITERS))
+        out.append(extras_row(f"noise {noise}", wall, F, cost)
+                   + f" (noiseless F[-1] {clean[-1]:.6e})")
+    print(f"[extras] UniversalGM-FW SymNMF n={UFW_N} r={UFW_R} (examples/"
+          f"ex_universal_fw.py, {EX_ITERS} iterations, seed 0 twice, "
+          f"bit-equal): " + "; ".join(out), flush=True)
+
+
+def extras_dual_prox(port):
+    """Phase 4k: one SumOf2nd4thPowersDualProxMap.div_prox_map at 400x10
+    (the primal-dual study's start and gradient, its kernel's alpha and
+    sigma; the primal-dual runs before it warmed every operation it
+    issues): the steps, the blocks read, the time; the CPU's iterate
+    matches to 1e-12 of its largest entry."""
+    f, _, h, _, X0 = pd_instance(port, "cuda")
+    hd = port.SumOf2nd4thPowersDualProxMap(alpha=h.alpha, sigma=h.sigma)
+    g = f.grad(X0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    X, steps, reads = hd.dual_solve(X0, g, 1.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    X_cpu = hd.div_prox_map(X0.cpu(), g.cpu(), 1.0)
+    err = float(torch.max(torch.abs(X.cpu() - X_cpu))
+                / torch.max(torch.abs(X_cpu)))
+    if not err <= 1e-12:
+        raise AssertionError(f"DualProxMap card vs CPU {err:.3e}")
+    print(f"[extras] SumOf2nd4thPowersDualProxMap.div_prox_map {PD_N}x{PD_R} "
+          f"(num_iters {hd.num_iters}, tolerance {hd.tolerance}): "
+          f"{int(steps)} steps, {reads} reads, {wall:.3f} s; card vs CPU "
+          f"{err:.1e}", flush=True)
+
+
+def extras_examples():
+    """Phase 4k: the four examples' start() with their import changed to
+    the port's, at small arguments, on the card."""
+    calls = {
+        "ex_aibm_poisson": lambda m: [F for c in m.start(
+            m=200, n=100, maxitrs=100, gammas=(2.0,),
+            verbose=False).values() for F in c.values()],
+        "ex_aibm_svm": lambda m: list(m.start(maxitrs=40, real_ds=False,
+                                              verbose=False).values()),
+        "ex_primal_dual": lambda m: list(m.start(maxitrs=100,
+                                                 verbose=False)),
+        "ex_universal_fw": lambda m: [F for c in m.start(
+            n=100, maxitrs=50, verbose=False).values() for F in c.values()],
+    }
+    out = []
+    for name, call in calls.items():
+        module = example_module(name)
+        t = time.perf_counter()
+        curves = call(module)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if not all(np.all(np.isfinite(np.asarray(F))) for F in curves):
+            raise AssertionError(f"{name}: a curve is not finite")
+        out.append(f"{name}.start() {wall:.2f} s, {len(curves)} finite "
+                   "curves")
+    print("[extras] examples with the import changed, on cuda: "
+          + "; ".join(out), flush=True)
+
+
+def extras_paths(port, card, counters, sm):
+    """Phase 4k: the inexact-oracle and constrained drivers; of the
+    kernels, only kernel 5 (the Poisson runs' h) may launch.  Returns
+    kernel 5's launches in AIBM's run."""
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    t = time.perf_counter()
+    aibm = extras_poisson(port, sm, card)
+    extras_svm(port)
+    extras_primal_dual(port)
+    extras_universal_fw(port)
+    extras_dual_prox(port)
+    extras_examples()
+    launched = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}":
+                getattr(mod, name) for mod, name in counters}
+    if any(v for k, v in launched.items() if not k.startswith("simplex")):
+        raise AssertionError(f"the extras launched a D-opt kernel: "
+                             f"{launched}")
+    if launched["simplex.LAUNCHES"] < aibm or aibm < 1:
+        raise AssertionError(f"kernel 5 launches: {launched}, AIBM {aibm}")
+    print(f"[extras] phase 4k in {time.perf_counter() - t:.1f} s; kernel "
+          f"launches: {launched}, of which {aibm} in AIBM's Poisson run",
+          flush=True)
+    return aibm
 
 
 def block_times(root, solves, gain_iters):
@@ -1567,6 +2078,7 @@ def main():
         dl, torch.tensor(large_Vs, device=dev),
         torch.tensor(large_x0s, device=dev), LARGE_EPS)
     dense_one_launches = single_pallas(port, dd, dev)
+    auto_phase(port, dd, card)
 
     x0 = np.full(N, 1.0 / N)
     dl.LAUNCHES = 0
@@ -1607,8 +2119,10 @@ def main():
     bpg_path(port, sm)
     readme_path(port, sm)
     per_iteration_costs(port)
-    fw_paths(port, card, [(dl, "LAUNCHES"), (dl, "BATCH_LAUNCHES"),
-                          (dd, "LAUNCHES"), (sm, "LAUNCHES")])
+    counters = [(dl, "LAUNCHES"), (dl, "BATCH_LAUNCHES"), (dd, "LAUNCHES"),
+                (sm, "LAUNCHES")]
+    fw_paths(port, card, counters)
+    extras_paths(port, card, counters, sm)
 
     # ---- 5. the record ------------------------------------------------------
     def entry(name, source, replaces, launches, measured):

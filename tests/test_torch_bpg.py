@@ -181,7 +181,14 @@ def test_unported_options_raise(problems):
             port.ABDA(fp, hp, L, x0p, 2.0, 5, fast_gram=fg, verbose=False)
 
     class Noisy(port.DOptimalObj):
+        """Declares itself stochastic; its gradient ignores the key."""
         stochastic = True
 
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        port.ABPG(Noisy(fp.H), hp, L, x0p, 2.0, 5, verbose=False)
+    # fast_gram is the one option left unported: a stochastic oracle runs,
+    # the driver threads a key through it, and an oracle that draws nothing
+    # from the key gives the exact run
+    exact = port.ABPG(fp, hp, L, x0p, 2.0, 5, verbose=False)
+    for seed in (None, 3):
+        noisy = port.ABPG(Noisy(fp.H), hp, L, x0p, 2.0, 5, verbose=False,
+                          seed=seed)
+        np.testing.assert_array_equal(noisy[1], exact[1])

@@ -247,13 +247,24 @@ def test_argument_checks_match_jax(logistic):
 
 
 def test_stochastic_oracle_is_refused(symnmf):
+    """No longer refused: both FW drivers that thread a key in JAX draw the
+    oracle's noise from their ``seed``; the same seed gives the same run,
+    and the noise reaches it."""
     f, h, X0 = symnmf[0].p
-    noisy = port.FrobeniusSymLoss.create(f.M, noise_level=0.1, device="cpu")
+    # noise this large flips the signs the box LMO reads (0.1 does not)
+    noisy = port.FrobeniusSymLoss.create(f.M, noise_level=1e3, device="cpu")
     lmo = port.lmo_linf_ball(1.0, 1.0)
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        port.FW_alg_descent_step(noisy, h, X0, 5, lmo, verbose=False)
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        port.FW_alg_div_step(noisy, h, 1.0, X0, 5, 2.0, lmo, verbose=False)
+    runs = {
+        "descent": lambda g, seed: port.FW_alg_descent_step(
+            g, h, X0, 5, lmo, verbose=False, seed=seed)[1],
+        "div": lambda g, seed: port.FW_alg_div_step(
+            g, h, 1.0, X0, 5, 2.0, lmo, verbose=False, seed=seed)[1]}
+    for run in runs.values():
+        F = run(noisy, 0)
+        assert np.all(np.isfinite(F))
+        np.testing.assert_array_equal(run(noisy, 0), F)
+        clean = run(f, 0)
+        assert len(clean) != len(F) or not np.array_equal(clean, F)
 
 
 def test_printed_tables_match_jax(logistic, capsys):

@@ -227,8 +227,9 @@ def test_from_jax_oracle():
         port.BurgEntropyL2
     assert type(from_jax_oracle(acc.BurgEntropy(),
                                 device="cpu")) is port.BurgEntropy
-    with pytest.raises(TypeError, match="no port"):
-        from_jax_oracle(acc.SumOf2nd4thPowersDualProxMap(), device="cpu")
+    with pytest.raises(TypeError, match="LMO closure"):
+        from_jax_oracle(acc.SumOf2nd4thPowersWithFrankWolfe(
+            lmo=acc.lmo_linf_ball(1.0, 1.0)), device="cpu")
 
 
 def test_d_opt_design_is_the_jax_instance():
