@@ -24,9 +24,17 @@ fingerprints, so a run saved by either package resumes in the other.
 
 Stochastic f-oracles get a fresh draw key per gradient evaluation from the
 driver's ``seed``, where the JAX drivers split theirs (``_rng``: the same
-chain of keys; the carry holds the key as JAX's does).  Not ported yet:
-``fast_gram=True`` / ``"ds"`` (the stateful linear-Gram steps), which
-raises ``NotImplementedError``.
+chain of keys; the carry holds the key as JAX's does).
+
+``fast_gram=True`` runs the JAX drivers' stateful linear-Gram steps
+(``_*_dopt_step``) for an oracle with the fast-Gram protocol
+(``DOptimalObj``): carried m x m Grams, a warm-started Schulz inverse and
+trace-series logdet shifts (``fastgram.py``), one fresh Gram per trial and
+a recontraction at every chunk boundary.  Their branch gates ride the
+trial's one read (``fastgram.Gates``): a trial whose gates all take the
+common branch costs no more syncs than a plain one, and each gate that
+falls back costs one rerun of the trial.  ``fast_gram="ds"`` names the
+same FP64 engine (the JAX double-single engine was a TPU workaround).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from .. import _rng
 from .._device import as_f64, resolve_device
 from .._scalar import div, exp, log, power, read
 from ..ops.base import vdot
+from . import fastgram as _fg
 from .driver import run_driver
 from .theta import solve_theta
 
@@ -48,13 +57,6 @@ _LS_MAX = 200  # safety bound; backtracking terminates long before this
 def _fingerprint(step, cfg):
     """The JAX driver's checkpoint identity of this step and config."""
     return f"accbpg_and_fw_tpu.algorithms.bpg.{step.__name__}|{cfg!r}"
-
-
-def _check_supported(fast_gram):
-    if fast_gram:
-        raise NotImplementedError(
-            f"fast_gram={fast_gram!r} is not ported yet (ROADMAP.md queue A: "
-            "fast_gram in FP64); use fast_gram=False")
 
 
 def _draw(cfg, c, fn, x):
@@ -68,11 +70,12 @@ def _draw(cfg, c, fn, x):
     return {}, fn(x)
 
 
-def _stoch_carry(f, carry, seed):
+def _stoch_carry(f, carry, seed, fast_gram=False):
     """Add the noise key to the initial carry when the f-oracle is
     stochastic (``PRNGKey(seed)``, seed None as 0); returns whether it
-    is."""
-    stoch = bool(getattr(f, "stochastic", False))
+    is.  The fast-Gram steps never draw noise (the linear-Gram protocol
+    oracles are exact), as in JAX."""
+    stoch = bool(getattr(f, "stochastic", False)) and not fast_gram
     if stoch:
         carry["key"] = _rng.key(0 if seed is None else seed)
     return stoch
@@ -100,6 +103,66 @@ def _read(**vals):
     return dict(zip(vals, read(*vals.values())))
 
 
+def _read_gated(gates, **vals):
+    """``_read`` of ``vals`` with the gate sums of ``gates`` riding along
+    (``fastgram.Gates``); ``gates.ok`` then says whether the trial holds."""
+    got = read(*vals.values(), *gates.pending())
+    gates.check(got[len(vals):])
+    return dict(zip(vals, got))
+
+
+def _gated(trial, memo):
+    """``trial(gates)`` run until its gates hold (see ``fastgram.Gates``),
+    guessing the decisions ``memo`` holds (the previous trial's of the
+    same kind, which it then receives); returns what the last run
+    returned."""
+    gates = _fg.Gates(memo)
+    while True:
+        out = trial(gates)
+        if gates.ok:
+            memo[:] = gates.used
+            return out
+
+
+def _warm_prox(h, c, y, g, Lt):
+    """div_prox_map with the carried multiplier warm start when the
+    h-oracle has one (fast_gram carries hold ``cpx``); returns ``(x, new
+    multiplier or None)``."""
+    if "cpx" in c and hasattr(h, "div_prox_map_warm"):
+        return h.div_prox_map_warm(y, g, Lt, c["cpx"])
+    return h.div_prox_map(y, g, Lt), None
+
+
+def _fast_start(f, h, x0, prob, carry, with_z=True,
+                warm="div_prox_map_warm"):
+    """Add the fast-Gram state at ``x0`` to the initial carry (the JAX
+    drivers' keys) and the gates' guesses to ``prob`` (per solve, outside
+    the carry: a resumed run guesses afresh and takes the same branches),
+    and return the chunk-boundary refresh hook."""
+    _fg.require_fast_gram(f)
+    prob["memo"] = {"first": [], "rest": []}
+    st = _fg.init_state(f, x0)
+    carry.update(Gx=st["G0"], Minv=st["M0"], fx=-read(st["ld0"])[0])
+    if with_z:
+        carry["Gz"] = st["G0"]
+    if hasattr(h, warm):
+        carry["cpx"] = -float("inf")
+    return _dopt_state_refresh(f, with_z)
+
+
+def _dopt_state_refresh(f, with_z=True):
+    """``between_chunks`` hook: recontract the carried Grams, inverse and
+    logdet from the exact iterates (``fastgram.refresh_state``)."""
+
+    def refresh(carry, k_next):
+        upd = _fg.refresh_state(f, carry["x"],
+                                carry["z"] if with_z else carry["x"],
+                                with_z=with_z)
+        return {**carry, **upd}
+
+    return refresh
+
+
 def _comb(theta, a, b):
     return (1.0 - theta) * a + theta * b
 
@@ -114,17 +177,19 @@ def _accept_delta(f, scale):
     return tol * (1.0 + abs(scale))
 
 
-def _restart(cfg, F_prev, k, Fk, gd, x_new, z_new, theta, kk, k_guard):
+def _restart(cfg, F_prev, k, Fk, gd, x_new, z_new, theta, kk, k_guard,
+             Gx_new=None, Gz_new=None):
     """Function ('f') or gradient ('g') restart of the ABPG family:
-    ``(theta, kk, z)`` after it.  ``gd`` is <g, x_new - x>; ``k_guard``
-    keeps plain ABPG's explicit k > 0 gate (the others rely on F_prev
-    starting at +inf)."""
-    if not cfg.restart:
-        return theta, kk, z_new
-    trig = Fk > F_prev if cfg.restart_rule == 'f' else gd > 0
+    ``(theta, kk, z)`` after it, and ``Gz`` with it where the fast-Gram
+    steps pass their Grams.  ``gd`` is <g, x_new - x>; ``k_guard`` keeps
+    plain ABPG's explicit k > 0 gate (the others rely on F_prev starting at
+    +inf)."""
+    trig = cfg.restart and (Fk > F_prev if cfg.restart_rule == 'f'
+                            else gd > 0)
     if k_guard:
-        trig = k > 0 and trig
-    return (1.0, 0, x_new) if trig else (theta, kk, z_new)
+        trig = trig and k > 0
+    out = (1.0, 0, x_new, Gx_new) if trig else (theta, kk, z_new, Gz_new)
+    return out if Gz_new is not None else out[:3]
 
 
 def _wants_gd(cfg):
@@ -144,12 +209,12 @@ def _printer(names):
 
 
 def _run(step, cfg, prob, carry, maxitrs, title, columns, names, verbose,
-         verbskip, chunk, checkpoint):
+         verbskip, chunk, checkpoint, between=None):
     header = f"\n{title}\n     k      F(x)  {columns}"
     return run_driver(lambda c, k: step(cfg, prob, c, k), carry, maxitrs,
                       verbose=verbose, verbskip=verbskip, header=header,
                       print_row=_printer(names), chunk=chunk,
-                      checkpoint=checkpoint,
+                      checkpoint=checkpoint, between_chunks=between,
                       fingerprint=_fingerprint(step, cfg))
 
 
@@ -202,6 +267,56 @@ def _bpg_step(cfg, prob, c, k):
             dict(F=Fk, Ls=Lk, _stop=stop))
 
 
+def _bpg_dopt_step(cfg, prob, c, k):
+    """BPG on a linear-Gram D-opt oracle (fast_gram=True): the gradient
+    from a warm-started Schulz inverse of the carried Gram (the accepted
+    trial of the previous iteration contracted it), and each line-search
+    trial pays one fresh Gram and a trace-series logdet shift instead of
+    an oracle value.  The inverse's gate rides the first trial's read."""
+    f, h = prob["f"], prob["h"]
+    x, Lk, fx = c["x"], c["L"], c["fx"]
+    ld_x = -fx
+    delta = _accept_delta(f, fx)
+
+    def trial(gates, M, g, Lt, **extra):
+        x1, cpx = _warm_prox(h, c, x, g, Lt)
+        G1 = f.gram(x1)
+        ld1, s1 = _fg.anchored_logdet_shift(f, ld_x, 1.0, M, G1, G1, gates)
+        s = _read_gated(gates, ld1=ld1, s1=s1, gd=vdot(g, x1 - x),
+                        dv=h.divergence(x1, x), **extra)
+        # acceptance on the logdet shift (f1 - fx = -s1): absolutely
+        # accurate, immune to O(1) value cancellation (see fastgram)
+        s["fail"] = not (-s["s1"] <= s["gd"] + Lt * s["dv"] + delta)
+        return x1, G1, cpx, s
+
+    def first(gates, Lt):
+        M = _fg.inv_at(f, c["Gx"], c["Minv"], gates)
+        g = f.grad_from_inv(M)
+        return (M, g) + trial(gates, M, g, Lt, psi=h.extra_psi(x))
+
+    memo = prob["memo"]
+    Lt = Lk / prob["ls_ratio"] if cfg.linesearch else Lk
+    M, g, x_new, G_new, cp_new, s = _gated(lambda gates: first(gates, Lt),
+                                           memo["first"])
+    psi = s["psi"]
+    if cfg.linesearch:
+        t = 0
+        while s["fail"] and t < _LS_MAX:
+            Lt = Lt * prob["ls_ratio"]
+            x_new, G_new, cp_new, s = _gated(
+                lambda gates: trial(gates, M, g, Lt), memo["rest"])
+            t += 1
+        Lk = Lt
+
+    Fk = fx + psi
+    stop = k > 0 and abs(Fk - c["F_prev"]) < prob["eps"]
+    c2 = dict(done=c["done"], x=x_new, L=Lk, F_prev=Fk, Gx=G_new, Minv=M,
+              fx=-s["ld1"])
+    if "cpx" in c:
+        c2["cpx"] = cp_new
+    return c2, dict(F=Fk, Ls=Lk, _stop=stop)
+
+
 def BPG(f, h, L, x0, maxitrs, epsilon=1e-14, linesearch=True, ls_ratio=1.2,
         verbose=True, verbskip=1, chunk=None, checkpoint=None,
         fast_gram=False, seed=None):
@@ -212,17 +327,24 @@ def BPG(f, h, L, x0, maxitrs, epsilon=1e-14, linesearch=True, ls_ratio=1.2,
     with optional backtracking on the relative smoothness constant L
     (reference: algorithms.py:11-72).  Returns ``(x, F, Ls, T)``: ``x`` a
     float64 tensor on the f-oracle's device, the histories numpy arrays.
-    ``seed`` seeds a stochastic f-oracle's noise (None as 0)."""
-    _check_supported(fast_gram)
+    ``seed`` seeds a stochastic f-oracle's noise (None as 0).
+
+    ``fast_gram=True`` (or ``"ds"``): the stateful linear-Gram step for an
+    oracle with the fast-Gram protocol (``DOptimalObj``): one Gram per
+    line-search trial, a matmul-only inverse, trace-series logdets."""
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, eps=float(epsilon), ls_ratio=float(ls_ratio))
     carry = dict(done=False, x=x0, L=float(L), F_prev=float("inf"))
+    step, between = _bpg_step, None
+    if fast_gram:
+        between = _fast_start(f, h, x0, prob, carry, with_z=False)
+        step = _bpg_dopt_step
     cfg = _BPGCfg(linesearch=bool(linesearch),
-                  stochastic=_stoch_carry(f, carry, seed))
-    carry, hist, T = _run(_bpg_step, cfg, prob, carry, maxitrs,
+                  stochastic=_stoch_carry(f, carry, seed, fast_gram))
+    carry, hist, T = _run(step, cfg, prob, carry, maxitrs,
                           "BPG_LS method for min_{x in C} F(x) = f(x) + Psi(x)",
                           "       Lk       time", ["F", "Ls"], verbose,
-                          verbskip, chunk, checkpoint)
+                          verbskip, chunk, checkpoint, between)
     return carry["x"], hist["F"], hist["Ls"], T
 
 
@@ -269,6 +391,49 @@ def _abpg_step(cfg, prob, c, k):
                  _stop=s["dzz"] < prob["eps"]))
 
 
+def _abpg_dopt_step(cfg, prob, c, k):
+    """Plain ABPG on a linear-Gram D-opt oracle (fast_gram=True): no
+    oracle value at all: the gradient comes from the Schulz inverse of the
+    combined Gram at y, and F advances through two trace-series logdet
+    shifts anchored at the carried logdet G(x).  One read per iteration,
+    its three gates riding along."""
+    f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
+    x, z, Gx, Gz = c["x"], c["z"], c["Gx"], c["Gz"]
+    fx = c["fx"]
+    ld_x = -fx
+    theta = _abpg_theta(cfg, gam, c)
+    y = _comb(theta, x, z)
+    Gy = _comb(theta, Gx, Gz)
+
+    def run(gates):
+        M = _fg.inv_at(f, Gy, c["Minv"], gates)
+        g = f.grad_from_inv(M)
+        z_new, cpx = _warm_prox(h, c, z, g, power(theta, gam - 1.0) * L)
+        x_new = _comb(theta, x, z_new)
+        Gz_new = f.gram(z_new)
+        Gx_new = _comb(theta, Gx, Gz_new)
+        ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy, gates)
+        ld_xn = _fg.anchored_logdet(f, ld_y, 1.0, M, Gx_new, Gx_new, gates)
+        s = _read_gated(gates, psi=h.extra_psi(x), ld_xn=ld_xn,
+                        dxy=h.divergence(x_new, y), dzz=h.divergence(z_new, z),
+                        gd=vdot(g, x_new - x) if _wants_gd(cfg) else 0.0)
+        return M, z_new, x_new, Gz_new, Gx_new, cpx, s
+
+    M, z_new, x_new, Gz_new, Gx_new, cpx, s = _gated(run,
+                                                     prob["memo"]["first"])
+    Fk = fx + s["psi"]
+    Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
+    theta_c, kk, z_new, Gz_new = _restart(
+        cfg, c["F_prev"], k, Fk, s["gd"], x_new, z_new, theta, c["kk"] + 1,
+        k_guard=True, Gx_new=Gx_new, Gz_new=Gz_new)
+    c2 = dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
+              F_prev=Fk, Gx=Gx_new, Gz=Gz_new, Minv=M, fx=-s["ld_xn"])
+    if "cpx" in c:
+        c2["cpx"] = cpx
+    return c2, dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
+                    _stop=s["dzz"] < prob["eps"])
+
+
 def ABPG(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=False,
          restart=False, restart_rule='g', verbose=True, verbskip=1,
          chunk=None, checkpoint=None, fast_gram=False, seed=None):
@@ -276,22 +441,27 @@ def ABPG(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=False,
 
     Triple-sequence update with TSE gamma; theta from gamma/(k+gamma) or the
     Newton equality; optional function ('f') / gradient ('g') restart.
-    Returns ``(x, F, G, T)`` with G the triangle-scaling gains."""
-    _check_supported(fast_gram)
+    Returns ``(x, F, G, T)`` with G the triangle-scaling gains.
+    ``fast_gram=True`` (or ``"ds"``): the stateful linear-Gram step (see
+    ``BPG``), one fresh Gram per iteration."""
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
                 eps=float(epsilon))
     carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
                  F_prev=float("inf"))
+    step, between = _abpg_step, None
+    if fast_gram:
+        between = _fast_start(f, h, x0, prob, carry)
+        step = _abpg_dopt_step
     cfg = _ABPGCfg(theta_eq=bool(theta_eq), restart=bool(restart),
                    restart_rule=str(restart_rule),
-                   stochastic=_stoch_carry(f, carry, seed))
+                   stochastic=_stoch_carry(f, carry, seed, fast_gram))
     carry, hist, T = _run(
-        _abpg_step, cfg, prob, carry, maxitrs,
+        step, cfg, prob, carry, maxitrs,
         "ABPG method for minimize_{x in C} F(x) = f(x) + Psi(x)",
         "     theta        TSG       D(x+,y)     D(z+,z)     time",
         ["F", "theta", "G", "dxy", "dzz"], verbose, verbskip, chunk,
-        checkpoint)
+        checkpoint, between)
     return carry["x"], hist["F"], hist["G"], T
 
 
@@ -358,6 +528,74 @@ def _abpg_expo_step(cfg, prob, c, k):
                  _stop=dzz < prob["eps"]))
 
 
+def _abpg_expo_dopt_step(cfg, prob, c, k):
+    """ABPG_expo on a linear-Gram D-opt oracle (fast_gram=True): the
+    gradient from the combined-Gram Schulz inverse, and each
+    gamma-adaption trial pays one fresh Gram and series logdets.  The
+    inverse's and logdet G(y)'s gates ride the first trial's read."""
+    f, h, L = prob["f"], prob["h"], prob["L"]
+    delta, Gmargin = prob["delta"], prob["Gmargin"]
+    x, z, gamma, Gx, Gz = c["x"], c["z"], c["gamma"], c["Gx"], c["Gz"]
+    fx = c["fx"]
+    ld_x = -fx
+    theta = _abpg_theta(cfg, gamma, c)
+    y = _comb(theta, x, z)
+    Gy = _comb(theta, Gx, Gz)
+
+    def attempt(gates, M, ld_y, g, gm, **extra):
+        z_new, cpx = _warm_prox(h, c, z, g, power(theta, gm - 1.0) * L)
+        x_new = _comb(theta, x, z_new)
+        Gz_new = f.gram(z_new)
+        Gx_new = _comb(theta, Gx, Gz_new)
+        ld_xn, s_xn = _fg.anchored_logdet_shift(f, ld_y, 1.0, M, Gx_new,
+                                                Gx_new, gates)
+        q = dict(ld_xn=ld_xn, s_xn=s_xn, dxy=h.divergence(x_new, y),
+                 dzz=h.divergence(z_new, z), **extra)
+        if not cfg.checkdiv:
+            q["vd"] = vdot(g, x_new - y)
+        if _wants_gd(cfg):
+            q["gd"] = vdot(g, x_new - x)
+        s = _read_gated(gates, **q)
+        thg = power(theta, gm)
+        if cfg.checkdiv:
+            s["fail"] = not s["dxy"] <= Gmargin * thg * s["dzz"]
+        else:
+            # acceptance on the logdet shift (see fastgram)
+            s["fail"] = not (-s["s_xn"] <= s["vd"] + thg * L * s["dzz"]
+                             + _accept_delta(f, ld_x))
+        return z_new, x_new, Gz_new, Gx_new, cpx, s
+
+    def first(gates):
+        M = _fg.inv_at(f, Gy, c["Minv"], gates)
+        ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy, gates)
+        g = f.grad_from_inv(M)
+        return (M, ld_y, g) + attempt(gates, M, ld_y, g, gamma,
+                                      psi=h.extra_psi(x))
+
+    gm, memo = gamma, prob["memo"]
+    M, ld_y, g, z_new, x_new, Gz_new, Gx_new, cpx, s = _gated(
+        first, memo["first"])
+    psi = s["psi"]
+    while s["fail"] and gm > 1.0:
+        gm = max(gm - delta, 1.0)
+        z_new, x_new, Gz_new, Gx_new, cpx, s = _gated(
+            lambda gates: attempt(gates, M, ld_y, g, gm), memo["rest"])
+
+    dxy, dzz = s["dxy"], s["dzz"]
+    Gdr = div(div(dxy, dzz), power(theta, gm))
+    Fk = fx + psi
+    theta_c, kk, z_new, Gz_new = _restart(
+        cfg, c["F_prev"], k, Fk, s.get("gd"), x_new, z_new, theta,
+        c["kk"] + 1, k_guard=False, Gx_new=Gx_new, Gz_new=Gz_new)
+    c2 = dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
+              gamma=gm, F_prev=Fk, Gx=Gx_new, Gz=Gz_new, Minv=M,
+              fx=-s["ld_xn"])
+    if "cpx" in c:
+        c2["cpx"] = cpx
+    return c2, dict(F=Fk, Gamma=gm, G=Gdr, theta=theta, dxy=dxy, dzz=dzz,
+                    _stop=dzz < prob["eps"])
+
+
 def ABPG_expo(f, h, L, x0, gamma0, maxitrs, epsilon=1e-14, delta=0.2,
               theta_eq=True, checkdiv=False, Gmargin=10, restart=False,
               restart_rule='g', verbose=True, verbskip=1, chunk=None,
@@ -368,23 +606,29 @@ def ABPG_expo(f, h, L, x0, gamma0, maxitrs, epsilon=1e-14, delta=0.2,
 
     As in JAX, with ``restart=True, restart_rule='f'`` F_prev starts at
     +inf, so the k=0 comparison never restarts (the reference compares
-    against an uninitialized history slot, algorithms.py:268)."""
-    _check_supported(fast_gram)
+    against an uninitialized history slot, algorithms.py:268).
+    ``fast_gram=True`` (or ``"ds"``): the stateful linear-Gram step (see
+    ``BPG``), one fresh Gram per gamma trial."""
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, L=float(L), eps=float(epsilon), delta=float(delta),
                 Gmargin=float(Gmargin))
     carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
-                 gamma=float(gamma0), F_prev=float("inf"),
-                 fx=read(f.value(x0))[0])
+                 gamma=float(gamma0), F_prev=float("inf"))
+    step, between = _abpg_expo_step, None
+    if fast_gram:
+        between = _fast_start(f, h, x0, prob, carry)
+        step = _abpg_expo_dopt_step
+    else:
+        carry["fx"] = read(f.value(x0))[0]
     cfg = _ABPGExpoCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
                        restart=bool(restart), restart_rule=str(restart_rule),
-                       stochastic=_stoch_carry(f, carry, seed))
+                       stochastic=_stoch_carry(f, carry, seed, fast_gram))
     carry, hist, T = _run(
-        _abpg_expo_step, cfg, prob, carry, maxitrs,
+        step, cfg, prob, carry, maxitrs,
         "ABPG_expo method for min_{x in C} F(x) = f(x) + Psi(x)",
         "     theta       gamma        TSG       D(x+,y)     D(z+,z)     "
         "time", ["F", "theta", "Gamma", "G", "dxy", "dzz"], verbose,
-        verbskip, chunk, checkpoint)
+        verbskip, chunk, checkpoint, between)
     return carry["x"], hist["F"], hist["Gamma"], hist["G"], T
 
 
@@ -467,6 +711,95 @@ def _abpg_gain_step(cfg, prob, c, k):
                  dxy=s["dxy"], dzz=s["dzz"], _stop=s["dzz"] < eps))
 
 
+def _gain_theta(cfg, c, gam, G):
+    """theta of a gain trial: theta_1 at kk == 0, else from the Newton
+    equality or the closed form in G / G_1."""
+    theta_1, G_1 = c["theta"], c["G"]
+    if c["kk"] == 0:
+        return theta_1
+    if cfg.theta_eq:
+        return solve_theta(theta_1, gam, G / G_1)
+    alpha = G / G_1
+    return theta_1 * ((1.0 + alpha * (gam - 1.0)) / (gam * alpha + theta_1))
+
+
+def _abpg_gain_dopt_step(cfg, prob, c, k):
+    """ABPG_gain on a linear-Gram D-opt oracle (fast_gram=True).
+
+    G(x) = V diag(x) V^T is linear in x and the iterates y and x+ are
+    convex combinations of carried points, so their Grams are m x m
+    combinations of carried Grams: each line-search trial pays exactly one
+    full O(m^2 n) contraction (the fresh prox output z+), a warm-started
+    Schulz inverse instead of a factorization, and logdets advanced by the
+    identity logdet G' = logdet G - logdet(M G) + logdet(M G') for
+    M ~= G'^{-1}, each factor a trace series or the oracle's factorization
+    (``fastgram``).  Each trial's three gates ride its one read."""
+    f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
+    ls_inc, ls_dec, eps = prob["ls_inc"], prob["ls_dec"], prob["eps"]
+    x, z, Gx, Gz = c["x"], c["z"], c["Gx"], c["Gz"]
+    fx = c["fx"]
+    ld_x = -fx
+
+    def attempt(gates, G, t, **extra):
+        theta = _gain_theta(cfg, c, gam, G)
+        y = _comb(theta, x, z)
+        Gy = _comb(theta, Gx, Gz)
+        M = _fg.inv_at(f, Gy, c["Minv"], gates)
+        # logdet Gy = ld_x - logdet(M Gx)   [M ~= Gy^{-1}]
+        ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy, gates)
+        g = f.grad_from_inv(M)
+        z_new, cpx = _warm_prox(h, c, z, g,
+                                power(theta, gam - 1.0) * G * L)
+        x_new = _comb(theta, x, z_new)
+        Gz_new = f.gram(z_new)
+        Gx_new = _comb(theta, Gx, Gz_new)
+        # logdet Gx_new = ld_y + logdet(M Gx_new)
+        ld_xn, s_xn = _fg.anchored_logdet_shift(f, ld_y, 1.0, M, Gx_new,
+                                                Gx_new, gates)
+        q = dict(ld_xn=ld_xn, s_xn=s_xn, dxy=h.divergence(x_new, y),
+                 dzz=h.divergence(z_new, z), **extra)
+        if not cfg.checkdiv:
+            q["vd"] = vdot(g, x_new - y)
+        if _wants_gd(cfg):
+            q["gd"] = vdot(g, x_new - x)
+        s = _read_gated(gates, **q)
+        thg = power(theta, gam)
+        Gdr = div(div(s["dxy"], s["dzz"]), thg)
+        if cfg.checkdiv:
+            fail = not Gdr <= G
+        else:
+            # acceptance on the logdet shift (fxn - fy = -s_xn): immune to
+            # O(1) value cancellation (see fastgram.anchored_logdet_shift)
+            fail = not (-s["s_xn"] <= s["vd"] + thg * G * L * s["dzz"]
+                        + _accept_delta(f, ld_x))
+        return dict(s, G=G, theta=theta, z=z_new, x=x_new, Gz=Gz_new,
+                    Gx=Gx_new, Minv=M, cpx=cpx, Gdr=Gdr, t=t,
+                    fail=fail and not s["dzz"] < eps and t < _LS_MAX)
+
+    memo = prob["memo"]["first"]  # every attempt has the same gates
+    s = _gated(lambda gates: attempt(gates, c["G"] / ls_dec, 0,
+                                     psi=h.extra_psi(x)), memo)
+    psi = s["psi"]
+    while s["fail"]:
+        G, t = s["G"] * ls_inc, s["t"] + 1
+        s = _gated(lambda gates: attempt(gates, G, t), memo)
+    G, theta = s["G"], s["theta"]
+
+    sumlogG = c["sumlogG"] + log(G)
+    Gavg = exp(sumlogG / (gam + float(k)))
+    Fk = fx + psi
+    theta_c, kk, z_new, Gz_new = _restart(
+        cfg, c["F_prev"], k, Fk, s.get("gd"), s["x"], s["z"], theta,
+        c["kk"] + 1, k_guard=False, Gx_new=s["Gx"], Gz_new=s["Gz"])
+    c2 = dict(done=c["done"], x=s["x"], z=z_new, theta=theta_c, kk=kk,
+              G=G, sumlogG=sumlogG, F_prev=Fk, fx=-s["ld_xn"], Gx=s["Gx"],
+              Gz=Gz_new, Minv=s["Minv"])
+    if "cpx" in c:
+        c2["cpx"] = s["cpx"]
+    return c2, dict(F=Fk, Gain=G, Gdiv=s["Gdr"], Gavg=Gavg, theta=theta,
+                    dxy=s["dxy"], dzz=s["dzz"], _stop=s["dzz"] < eps)
+
+
 def ABPG_gain(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, G0=1,
               ls_inc=1.2, ls_dec=1.2, theta_eq=True, checkdiv=False,
               restart=False, restart_rule='g', verbose=True, verbskip=1,
@@ -479,25 +812,33 @@ def ABPG_gain(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, G0=1,
 
     As in JAX, with ``restart=True, restart_rule='f'`` F_prev starts at
     +inf, so the k=0 comparison never restarts (the reference compares
-    against an uninitialized history slot, algorithms.py:404-405)."""
-    _check_supported(fast_gram)
+    against an uninitialized history slot, algorithms.py:404-405).
+
+    ``fast_gram=True`` (or ``"ds"``): the stateful linear-Gram step for an
+    oracle with the fast-Gram protocol (``DOptimalObj``): one fresh Gram
+    per gain trial (see ``_abpg_gain_dopt_step``)."""
     x0 = _start(f, x0)
     gam, G0 = float(gamma), float(G0)
     prob = dict(f=f, h=h, L=float(L), gamma=gam, eps=float(epsilon),
                 ls_inc=float(ls_inc), ls_dec=float(ls_dec))
     carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0, G=G0,
-                 sumlogG=gam * log(G0), F_prev=float("inf"),
-                 fx=read(f.value(x0))[0])
+                 sumlogG=gam * log(G0), F_prev=float("inf"))
+    step, between = _abpg_gain_step, None
+    if fast_gram:
+        between = _fast_start(f, h, x0, prob, carry)
+        step = _abpg_gain_dopt_step
+    else:
+        carry["fx"] = read(f.value(x0))[0]
     cfg = _ABPGGainCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
                        restart=bool(restart), restart_rule=str(restart_rule),
-                       stochastic=_stoch_carry(f, carry, seed))
+                       stochastic=_stoch_carry(f, carry, seed, fast_gram))
     carry, hist, T = _run(
-        _abpg_gain_step, cfg, prob, carry, maxitrs,
+        step, cfg, prob, carry, maxitrs,
         "ABPG_gain method for min_{x in C} F(x) = f(x) + Psi(x)",
         "     theta         Gk         TSG       D(x+,y)     D(z+,z)      "
         "Gavg       time",
         ["F", "theta", "Gain", "Gdiv", "dxy", "dzz", "Gavg"], verbose,
-        verbskip, chunk, checkpoint)
+        verbskip, chunk, checkpoint, between)
     return (carry["x"], hist["F"], hist["Gain"], hist["Gdiv"], hist["Gavg"],
             T)
 
@@ -535,25 +876,74 @@ def _abda_step(cfg, prob, c, k):
                  _stop=s["dzz"] < prob["eps"]))
 
 
+def _abda_dopt_step(cfg, prob, c, k):
+    """ABDA on a linear-Gram D-opt oracle (fast_gram=True): the gradient
+    from the combined-Gram Schulz inverse, F through anchored trace-series
+    logdet shifts (see fastgram).  One read per iteration, its three gates
+    riding along."""
+    f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
+    x, z, Gx, Gz = c["x"], c["z"], c["Gx"], c["Gz"]
+    fx = c["fx"]
+    ld_x = -fx
+    theta = _abpg_theta(cfg, gam, c)
+    y = _comb(theta, x, z)
+    Gy = _comb(theta, Gx, Gz)
+    w = power(theta, 1.0 - gam)
+    csum = c["csum"] + w
+
+    def run(gates):
+        M = _fg.inv_at(f, Gy, c["Minv"], gates)
+        g = f.grad_from_inv(M)
+        gavg = c["gavg"] + w * g
+        if "cpx" in c and hasattr(h, "prox_map_warm"):
+            z_new, cpx = h.prox_map_warm(gavg / csum, L / csum, c["cpx"])
+        else:
+            z_new, cpx = h.prox_map(gavg / csum, L / csum), None
+        x_new = _comb(theta, x, z_new)
+        Gz_new = f.gram(z_new)
+        Gx_new = _comb(theta, Gx, Gz_new)
+        ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy, gates)
+        ld_xn = _fg.anchored_logdet(f, ld_y, 1.0, M, Gx_new, Gx_new, gates)
+        s = _read_gated(gates, psi=h.extra_psi(x), ld_xn=ld_xn,
+                        dxy=h.divergence(x_new, y), dzz=h.divergence(z_new, z))
+        return M, gavg, z_new, x_new, Gz_new, Gx_new, cpx, s
+
+    M, gavg, z_new, x_new, Gz_new, Gx_new, cpx, s = _gated(
+        run, prob["memo"]["first"])
+    Fk = fx + s["psi"]
+    Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
+    c2 = dict(done=c["done"], x=x_new, z=z_new, theta=theta, kk=c["kk"] + 1,
+              gavg=gavg, csum=csum, F_prev=Fk, Gx=Gx_new, Gz=Gz_new, Minv=M,
+              fx=-s["ld_xn"])
+    if "cpx" in c:
+        c2["cpx"] = cpx
+    return c2, dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
+                    _stop=s["dzz"] < prob["eps"])
+
+
 def ABDA(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=True,
          verbose=True, verbskip=1, chunk=None, checkpoint=None,
          fast_gram=False, seed=None):
     """Accelerated Bregman Dual Averaging: accumulates the weighted gradient
     average and uses the *primal* prox_map (reference: algorithms.py:423-514;
     restart is intentionally unsupported, :445-446).
-    Returns ``(x, F, G, T)``."""
-    _check_supported(fast_gram)
+    Returns ``(x, F, G, T)``.  ``fast_gram=True`` (or ``"ds"``): the
+    stateful linear-Gram step (see ``BPG``)."""
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
                 eps=float(epsilon))
     carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
                  gavg=torch.zeros_like(x0), csum=0.0, F_prev=float("inf"))
+    step, between = _abda_step, None
+    if fast_gram:
+        between = _fast_start(f, h, x0, prob, carry, warm="prox_map_warm")
+        step = _abda_dopt_step
     cfg = _ABDACfg(theta_eq=bool(theta_eq),
-                   stochastic=_stoch_carry(f, carry, seed))
+                   stochastic=_stoch_carry(f, carry, seed, fast_gram))
     carry, hist, T = _run(
-        _abda_step, cfg, prob, carry, maxitrs,
+        step, cfg, prob, carry, maxitrs,
         "ABDA method for min_{x in C} F(x) = f(x) + Psi(x)",
         "     theta        TSG       D(x+,y)     D(z+,z)     time",
         ["F", "theta", "G", "dxy", "dzz"], verbose, verbskip, chunk,
-        checkpoint)
+        checkpoint, between)
     return carry["x"], hist["F"], hist["G"], T

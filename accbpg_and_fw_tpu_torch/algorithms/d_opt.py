@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .._device import as_f64, resolve_device
+from .._device import as_f64, is_dtensor, replicate_like, resolve_device
 from ..ops.dopt_common import ROW, XTOL
 from ..ops.dopt_common import factorize as _dopt_factorize
 from ..ops.dopt_dense import dense_layout, dopt_fw_dense
@@ -50,6 +50,44 @@ def _at(a, idx):
     return a.index_select(0, idx.view(1)).squeeze(0)
 
 
+def _pivot(a, largest):
+    """``torch.argmax(a)`` (``largest``) or ``torch.argmin(a)`` of a
+    vector: the first index of the extreme value.
+
+    A sharded vector (a DTensor) pivots on each rank's shard and gathers
+    the ``(value, index)`` pairs with one c10d all-gather, keeping the
+    first extreme entry.  DTensor's own arg-reduction gathers through
+    functional collectives, which corrupted the heap on a gloo group
+    (torch 2.13, CPU)."""
+    arg = torch.argmax if largest else torch.argmin
+    if not is_dtensor(a):
+        return arg(a)
+    from torch.distributed.tensor import Shard
+
+    local = a.to_local()
+    if not any(isinstance(p, Shard) for p in a.placements):
+        return arg(local)
+    import torch.distributed as dist
+
+    mesh = a.device_mesh
+    world = mesh.size()
+    rank = mesh.get_local_rank()
+    step = -(-a.shape[0] // world)  # torch.chunk's shard length
+    if local.numel():
+        j = arg(local)
+        pair = torch.stack([local[j], (j + rank * step).to(local.dtype)])
+    else:  # an empty trailing shard never wins
+        worst = -torch.inf if largest else torch.inf
+        pair = torch.tensor([worst, a.shape[0]], dtype=local.dtype,
+                            device=local.device)
+    pairs = torch.empty(world * 2, dtype=local.dtype, device=local.device)
+    dist.all_gather_into_tensor(pairs, pair, group=mesh.get_group())
+    pairs = pairs.view(world, 2)
+    # the first rank holding the extreme value holds its first index
+    best = arg(pairs[:, 0])
+    return pairs[best, 1].to(torch.int64)
+
+
 def _dopt_step(away, V, eps, c, k):
     """One FW(-away) iteration on the carry ``{done, x, w, H, logdet}``.
 
@@ -60,7 +98,7 @@ def _dopt_step(away, V, eps, c, k):
     and logdet increments keep each branch's own expression."""
     x, w, H, logdet = c["x"], c["w"], c["H"], c["logdet"]
     m_f = float(V.shape[0])
-    i = torch.argmax(w)
+    i = _pivot(w, True)
     wi = _at(w, i)
     eps_pos = wi / m_f - 1.0
 
@@ -70,7 +108,7 @@ def _dopt_step(away, V, eps, c, k):
                + torch.log1p(t_tow * (wi - 1.0)))
     if away:
         ww = w - wi  # shift so max is 0; masked entries dominate at 0
-        j = torch.argmin(ww * (x > XTOL))
+        j = _pivot(ww * (x > XTOL), False)
         wj = _at(w, j)
         eps_neg = 1.0 - wj / m_f
         xj = _at(x, j)
@@ -138,7 +176,20 @@ def _resolve_auto_u_mode(V, u_mode, device, limits=None):
     kernel takes the design, as the JAX package falls back to its ``"ds"``
     engine past its kernel's memory budget.  Without a card to ask, only
     the lazy kernel's bound on m is applied, and only above the size.  On
-    the CPU ``"auto"`` is the exact engine."""
+    the CPU ``"auto"`` is the exact engine.
+
+    A sharded design (a DTensor, ``parallel/mesh.py``) takes the exact
+    engine under ``"auto"``: the kernels take one device's arrays, so the
+    explicit kernel modes raise ``ValueError`` for it."""
+    if is_dtensor(V):
+        if u_mode in ("pallas", "pallas_lazy"):
+            raise ValueError(
+                f"u_mode={u_mode!r} runs a kernel on one device's arrays; a "
+                "sharded design runs on the exact engine (u_mode='auto' or "
+                "'exact')")
+        if u_mode not in ("auto", "exact", "ds", "mixed"):
+            raise ValueError(f"unknown u_mode={u_mode!r}")
+        return "exact"
     if u_mode == "auto":
         if device.type == "cuda":
             m, n = V.shape
@@ -201,12 +252,17 @@ def _run_dopt(V, x0, eps, maxitrs, verbose, verbskip, chunk, away,
                             checkpoint=checkpoint, device=dev)
     x0 = as_f64(x0, dev)
     H, w, logdet = _dopt_factorize(V, x0)
-    carry = dict(done=torch.tensor(False, device=dev), x=x0, w=w, H=H,
-                 logdet=logdet)
-    return _run_exact(V, carry, eps, maxitrs, away=away, verbose=verbose,
-                      verbskip=verbskip, chunk=chunk,
-                      refresh_every=refresh_every, header=header,
-                      checkpoint=checkpoint)
+    carry = dict(done=replicate_like(torch.tensor(False, device=dev), V),
+                 x=x0, w=w, H=H, logdet=logdet)
+    out = _run_exact(V, carry, eps, maxitrs, away=away, verbose=verbose,
+                     verbskip=verbskip, chunk=chunk,
+                     refresh_every=refresh_every, header=header,
+                     checkpoint=checkpoint)
+    if is_dtensor(x0):
+        # the single-entry updates replicate the iterate on the way; it
+        # returns placed as it came
+        out = (out[0].redistribute(x0.device_mesh, x0.placements),) + out[1:]
+    return out
 
 
 def D_opt_FW(V, x0, eps, maxitrs, verbose=True, verbskip=1, chunk=None,

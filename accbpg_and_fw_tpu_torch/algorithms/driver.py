@@ -41,6 +41,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .. import _scalar
+from .._device import full
+
 _CKPT_VERSION = 3
 
 # At most one checkpoint save per this many seconds, plus always after the
@@ -110,11 +113,12 @@ def _load_checkpoint(path, carry_proto, fp):
         return carry, block, int(z["__k_next"]), float(z["__t"])
 
 
-def _device_chunk(step, carry, k0, limit):
-    """Iterations ``k0 <= k < limit`` with tensor scalars: the carry
-    freezes through ``torch.where`` once done, histories are read once.
-    A host leaf (the noise key) cannot freeze without a read: each step's
-    value is kept, and the one after the last valid row is the carry's."""
+def _frozen_steps(step, carry, k0, limit):
+    """Iterations ``k0 <= k < limit`` with tensor scalars and no host read:
+    the carry freezes through ``torch.where`` once done.  A host leaf (the
+    noise key) cannot freeze without a read: each step's value is kept in
+    ``host``, for the caller to restore the one after the last valid row.
+    Returns ``(carry, rows, host)``."""
     rows, host = [], [{key: v for key, v in carry.items()
                        if not isinstance(v, torch.Tensor)}]
     for k in range(k0, limit):
@@ -129,7 +133,13 @@ def _device_chunk(step, carry, k0, limit):
                        if key not in host[0] else new[key])
                  for key in carry}
         rows.append(h)
-    hist = {name: (torch.stack([r[name] for r in rows]).cpu().numpy()
+    return carry, rows, host
+
+
+def _device_chunk(step, carry, k0, limit):
+    """``_frozen_steps`` with the histories read once."""
+    carry, rows, host = _frozen_steps(step, carry, k0, limit)
+    hist = {name: (full(torch.stack([r[name] for r in rows])).cpu().numpy()
                    if isinstance(rows[0][name], torch.Tensor)
                    else np.asarray([r[name] for r in rows]))
             for name in rows[0]}
@@ -148,6 +158,21 @@ def _host_chunk(step, carry, k0, limit):
             carry = dict(carry, done=True)
             break
     hist = {name: np.asarray([r[name] for r in rows]) for name in rows[0]}
+    return carry, hist
+
+
+def scan_full(step, carry, num_iters: int):
+    """Run ``num_iters`` iterations of ``step`` with no early exit and no
+    host read (the JAX ``scan_full``, one compiled scan there): once
+    ``done`` is set the carry freezes through ``torch.where``.  Returns
+    ``(carry, hist)`` with ``hist`` the rows stacked into tensors along a
+    leading iteration axis, ``_valid`` and ``_stop`` included.  The carry's
+    leaves must be tensors (numbers are converted)."""
+    carry, rows, _ = _frozen_steps(
+        step, {k: torch.as_tensor(v) for k, v in carry.items()}, 0,
+        num_iters)
+    hist = {name: torch.stack([torch.as_tensor(r[name]) for r in rows])
+            for name in (rows[0] if rows else ())}
     return carry, hist
 
 
@@ -212,6 +237,11 @@ def run_driver(
         t_b = time.time() - t0
         nv = int(hist["_valid"].sum())
         block = {name: v[:nv] for name, v in hist.items()}
+        if _scalar.DEBUG[0] or _scalar.DEBUG[1]:  # diagnostics.debug_mode
+            for name, v in block.items():
+                if v.dtype.kind == "f":
+                    _scalar.check_finite(v.tolist(),
+                                         f"the {name!r} history of a chunk")
         launched = len(hist["_valid"])
         blocks.append((block, t_a, t_b, launched))
 

@@ -15,6 +15,7 @@ from .utils import (binary_error_rate, edge_point_on_simplex,
                     generate_dataset_for_svm, get_random_float,
                     get_random_vector, load_libsvm_file, load_sido,
                     mnist_2digits, random_point_in_l2_ball,
+                    random_point_in_l2_ball_jax_version,
                     random_point_on_simplex, rmse, row_norm_squared,
                     shuffle_data)
 
@@ -28,6 +29,7 @@ __all__ = ["D_opt_design", "D_opt_KYinit", "D_opt_libsvm",
            "generate_dataset_for_svm", "get_random_float",
            "get_random_vector", "hard_FW_log_reg_jax", "load_a9a_data",
            "load_libsvm_file", "load_sido", "mnist_2digits",
-           "random_point_in_l2_ball", "random_point_on_simplex", "rmse",
+           "random_point_in_l2_ball", "random_point_in_l2_ball_jax_version",
+           "random_point_on_simplex", "rmse",
            "row_norm_squared", "shuffle_data", "svm_digits_ds_divs_ball",
            "toeplitz_matrix"]

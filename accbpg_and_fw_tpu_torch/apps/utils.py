@@ -14,6 +14,7 @@ from __future__ import annotations
 import os.path
 
 import numpy as np
+import torch
 
 try:
     import scipy.sparse as sparse
@@ -159,6 +160,29 @@ def random_point_in_l2_ball(center, radius, spread_btm=0.1, spread_up=0.99,
     point = center + r * direction
     assert np.linalg.norm(point - center) - radius <= 1e-15
     return point
+
+
+def random_point_in_l2_ball_jax_version(center, radius, spread_btm=0.1,
+                                        spread_up=0.99, pos_dir=False,
+                                        key=None, device=None):
+    """Keyed version of random_point_in_l2_ball (reference:
+    utils.py:214-249): the direction and the radius are drawn from the two
+    keys JAX splits ``key`` into, with ``_rng``'s draws (a key as
+    ``_rng.key(seed)`` makes it); a float64 tensor on ``device`` (for None
+    a tensor ``center``'s device, else CUDA)."""
+    assert key is not None, "You must pass a PRNG key (_rng.key(seed))"
+    from .. import _rng
+    from .._device import as_f64, resolve_device
+
+    center = as_f64(center, resolve_device(device, like=center))
+    key_dir, key_radius = _rng.split(key)
+    direction = _rng.normal(key_dir, center.shape, center.device)
+    direction = direction / torch.linalg.vector_norm(direction)
+    if pos_dir:
+        direction = torch.abs(direction)
+    lo, hi = radius * spread_btm, radius * spread_up
+    r = lo + (hi - lo) * _rng.uniform(key_radius)
+    return center + r * direction
 
 
 def random_point_on_simplex(n, radius=1, center=False):

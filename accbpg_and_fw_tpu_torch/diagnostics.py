@@ -1,0 +1,100 @@
+"""Debugging and profiling utilities (counterpart of
+``accbpg_and_fw_tpu/diagnostics.py``).
+
+* ``debug_mode()``: NaN (and optionally Inf) detection for the drivers;
+* ``check_domain(h, x)``: eager validation of an iterate against a kernel's
+  domain (the reference's assert semantics, usable at chunk boundaries);
+* ``profile_trace(logdir)``: a ``torch.profiler`` trace of the enclosed
+  solver run, written as a Chrome trace into ``logdir``;
+* ``iteration_rate(T)``: iterations/second summary from a driver's T array;
+* ``divergence_is_valid(h, x, y)``: D_h(x, y) finite and nonnegative.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import numpy as np
+import torch
+
+from . import _scalar
+from ._device import full
+
+
+@contextlib.contextmanager
+def debug_mode(nans: bool = True, infs: bool = False):
+    """Raise ``FloatingPointError`` on a NaN (and, with ``infs``, an Inf)
+    inside the enclosed solves.
+
+    JAX's ``jax_debug_nans`` catches the fault at the faulting primitive.
+    Eager PyTorch has no such hook short of a sync after every operation,
+    so the check sits where the port reads values back anyway: every
+    ``_scalar.read`` (each line-search trial's scalars, the prox's Newton
+    sums) and every chunk boundary of ``run_driver`` (the chunk's
+    histories).  A fault is caught at the first host read after the
+    operation that produced it.  As with ``jax_debug_nans``, a line-search
+    trial that leaves the domain (whose NaN the search would otherwise
+    treat as a failed trial) raises too."""
+    old = list(_scalar.DEBUG)
+    _scalar.DEBUG[:] = [bool(nans), bool(infs)]
+    try:
+        yield
+    finally:
+        _scalar.DEBUG[:] = old
+
+
+def check_domain(h, x):
+    """Eagerly validate iterate ``x`` (a tensor, a sharded one too, or an
+    array) against kernel ``h``'s domain, mirroring the reference's inline
+    asserts (functions.py:243,252,260-261).
+
+    Raises ValueError with a descriptive message on violation."""
+    if isinstance(x, torch.Tensor):
+        x = full(x).detach().cpu().numpy()
+    x = np.asarray(x)
+    name = type(h).__name__
+    if not np.isfinite(x).all():
+        raise ValueError(f"{name}: iterate contains NaN/Inf")
+    if name.startswith("Burg") or name == "PowerNeg1":
+        if x.min() <= 0:
+            raise ValueError(f"{name} only takes positive arguments.")
+    if name.startswith("Shannon"):
+        if x.min() < 0:
+            raise ValueError(f"{name} only takes nonnegative arguments.")
+    if "Simplex" in name:
+        s = float(x.sum())
+        if abs(s - 1.0) > 1e-6 * max(1.0, abs(s)):
+            raise ValueError(f"{name}: iterate off the simplex (sum={s!r})")
+    return True
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """Profile the enclosed solver run with ``torch.profiler`` (CPU
+    activity, and the card's where one is present) and write the trace
+    into ``logdir`` as ``trace_<pid>_<ns>.json`` (Chrome/Perfetto format).
+    Yields the profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def iteration_rate(T):
+    """(iters/s, total_s) summary of a driver wall-time array."""
+    T = np.asarray(T)
+    if len(T) < 2 or T[-1] <= 0:
+        return float("nan"), float(T[-1] if len(T) else 0.0)
+    return float((len(T) - 1) / T[-1]), float(T[-1])
+
+
+def divergence_is_valid(h, x, y, atol=0.0):
+    """D_h(x, y) >= -atol and finite, as a bool tensor (no host read)."""
+    d = h.divergence(x, y)
+    return torch.isfinite(d) & (d >= -atol)

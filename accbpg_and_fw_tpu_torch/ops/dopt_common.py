@@ -19,6 +19,8 @@ import time
 import numpy as np
 import torch
 
+from .._device import full, replicate_like
+
 _CKPT_VERSION = 1
 
 XTOL = 1.0e-8  # support threshold of the away pivot (the reference's 1e-8)
@@ -30,14 +32,18 @@ ROW = "{0:6d}  {1:10.3e}  {2:10.3e}  {3:10.3e}  {4:6.1f}"
 def factorize(V, x):
     """Fresh ``(H, w, logdet)`` for ``V diag(x) V^T`` in FP64 via Cholesky:
     ``logdet = 2 sum log diag(R)``, ``H = R^-T R^-1`` and ``w`` the squared
-    column norms of ``R^-1 V``.  ``logdet`` is a 0-d tensor."""
+    column norms of ``R^-1 V``.  ``logdet`` is a 0-d tensor.  For a
+    column-sharded V (a DTensor) the Gram is summed over the mesh, ``w``
+    comes out sharded as V's columns and ``H`` and ``logdet`` replicated
+    (DTensors that every rank holds whole)."""
     m = V.shape[0]
-    R = torch.linalg.cholesky((V * x) @ V.T)  # lower
+    R = torch.linalg.cholesky(full((V * x) @ V.T))  # lower
     logdet = 2.0 * torch.log(torch.diagonal(R)).sum()
     Rinv = torch.linalg.solve_triangular(
         R, torch.eye(m, dtype=V.dtype, device=V.device), upper=False)
-    H = Rinv.T @ Rinv
-    W = Rinv @ V
+    H = replicate_like(Rinv.T @ Rinv, V)
+    logdet = replicate_like(logdet, V)
+    W = replicate_like(Rinv, V) @ V
     w = (W * W).sum(dim=0)
     return H, w, logdet
 

@@ -13,8 +13,9 @@ here; their ``from_data`` accepts ``levels`` and ignores it.  Also here:
 ``AX_b`` (the primal-dual driver's constraint) and
 ``calculate_tse_constant``.  A ``FrobeniusSymLoss`` with ``noise_level``
 is stochastic: its gradient adds noise drawn from the key the driver
-passes (``_rng``).  Not ported yet: the fast-Gram protocol of the
-``fast_gram`` drivers.
+passes (``_rng``).  ``DOptimalObj`` carries the fast-Gram protocol of the
+``fast_gram`` drivers (``gram``, ``logdet_full``, ``inv_seed``,
+``grad_from_inv``), and ``DOptimalObjMixed``/``DOptimalObjDS`` name it.
 """
 
 from __future__ import annotations
@@ -23,8 +24,15 @@ import numpy as np
 import torch
 
 from .. import _rng
-from .._device import as_f64, resolve_device
+from .._device import as_f64, full, is_dtensor, replicate_like, resolve_device
 from .base import SmoothOracle, fnorm, vdot
+
+
+def _vm(v, A):
+    """``v @ A`` for a vector ``v``.  With ``v`` and ``A`` sharded by
+    samples, DTensor returns the product as a one-row matrix; this gives
+    the vector back (a view of the same result otherwise)."""
+    return (v @ A).reshape(A.shape[1:])
 
 
 class _DataOracle(SmoothOracle):
@@ -44,24 +52,49 @@ class DOptimalObj(SmoothOracle):
     (``cholesky_ex``, so no host sync on CUDA).  ``H`` is held as a float64
     tensor on ``device`` (for None a tensor's own device, else CUDA).
 
-    ``n_valid``: when set, gradient entries past it report +1e30 instead
-    of the 0 a zero-padded column gives, so every Burg/simplex prox sends
-    padded coordinates to ~1e-30 mass.
+    ``n_valid``: when set (by ``parallel.shard_dopt_problem`` for a padded
+    design), gradient entries past it report +1e30 instead of the 0 a
+    zero-padded column gives, so every Burg/simplex prox sends padded
+    coordinates to ~1e-30 mass.  ``H`` may be a column-sharded DTensor;
+    the Gram contraction then sums over the mesh.
     """
 
     def __init__(self, H, n_valid=None, device=None):
         self.H = as_f64(H, resolve_device(device, like=H))
         self.n_valid = None if n_valid is None else int(n_valid)
+        self._pads = None
+
+    @classmethod
+    def from_design(cls, H, levels=7, max_diag=6, device=None):
+        """The JAX ``DOptimalObjMixed``/``DOptimalObjDS`` constructor;
+        ``levels`` and ``max_diag`` (digit planes) have no meaning in
+        FP64."""
+        return cls(H, device=device)
 
     @property
     def device(self):
         return self.H.device
 
+    @property
+    def m(self):
+        return self.H.shape[0]
+
+    @property
+    def n(self):
+        return self.H.shape[1]
+
     def _mask_pads(self, g):
         if self.n_valid is None:
             return g
-        lane = torch.arange(g.shape[-1], device=g.device)
-        return torch.where(lane < self.n_valid, g, 1e30)
+        if self._pads is None:
+            # the pad lanes, placed as the gradient is (a sharded gradient
+            # takes a mask sharded the same way)
+            pads = torch.arange(g.shape[-1], device=g.device) >= self.n_valid
+            if is_dtensor(g):
+                from torch.distributed.tensor import distribute_tensor
+                pads = distribute_tensor(pads, g.device_mesh, g.placements)
+            self._pads = pads
+        return torch.where(self._pads, 1e30, g)
 
     def _chol(self, x):
         HXHT = (self.H * x) @ self.H.T
@@ -82,6 +115,35 @@ class DOptimalObj(SmoothOracle):
         return (torch.where(ok, f, torch.nan),
                 self._mask_pads(torch.where(ok, g, torch.nan)))
 
+    # -- fast-Gram protocol (the fast_gram drivers, algorithms/fastgram.py):
+    #    the Gram H diag(x) H^T is linear in x, so drivers whose iterates
+    #    are convex combinations of carried points combine carried m x m
+    #    Grams instead of contracting H again.  With a sharded H the Gram
+    #    is summed over the mesh once, here, and every m x m quantity after
+    #    it is a plain tensor that each rank holds whole --
+
+    def gram(self, x):
+        return full((self.H * x) @ self.H.T)
+
+    def logdet_full(self, G):
+        R, info = torch.linalg.cholesky_ex(G)
+        ld = 2.0 * torch.sum(torch.log(torch.diagonal(R)))
+        return torch.where(info == 0, ld, torch.nan)
+
+    def inv_seed(self, G):
+        """The inverse of the m x m Gram by its Cholesky factor (two
+        triangular solves against I), for the caller's Schulz polish;
+        NaN where G is not positive definite."""
+        R, info = torch.linalg.cholesky_ex(G)
+        eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
+        return torch.where(info == 0, torch.cholesky_solve(eye, R), torch.nan)
+
+    def grad_from_inv(self, M):
+        # the pad mask matters here too: ABDA with fast_gram on a padded
+        # problem feeds this gradient into prox_map on accumulated duals
+        M = replicate_like(M, self.H)
+        return self._mask_pads(-torch.sum(self.H * (M @ self.H), dim=0))
+
 
 class PoissonRegression(_DataOracle):
     """f(x) = D_KL(b, Ax) for the linear inverse problem Ax ~ b
@@ -101,12 +163,12 @@ class PoissonRegression(_DataOracle):
         return torch.sum(self.b * torch.log(self.b / Ax) + Ax - self.b)
 
     def grad(self, x, key=None):
-        return (1.0 - self.b / (self.A @ x)) @ self.A
+        return _vm(1.0 - self.b / (self.A @ x), self.A)
 
     def value_and_grad(self, x, key=None):
         Ax = self.A @ x
         f = torch.sum(self.b * torch.log(self.b / Ax) + Ax - self.b)
-        return f, (1.0 - self.b / Ax) @ self.A
+        return f, _vm(1.0 - self.b / Ax, self.A)
 
 
 class KLdivRegression(PoissonRegression):
@@ -117,12 +179,12 @@ class KLdivRegression(PoissonRegression):
         return torch.sum(Ax * torch.log(Ax / self.b) - Ax + self.b)
 
     def grad(self, x, key=None):
-        return torch.log((self.A @ x) / self.b) @ self.A
+        return _vm(torch.log((self.A @ x) / self.b), self.A)
 
     def value_and_grad(self, x, key=None):
         Ax = self.A @ x
         r = torch.log(Ax / self.b)
-        return torch.sum(Ax * r - Ax + self.b), r @ self.A
+        return torch.sum(Ax * r - Ax + self.b), _vm(r, self.A)
 
 
 class SVM_fun(_DataOracle):
@@ -146,7 +208,7 @@ class SVM_fun(_DataOracle):
 
     def subgradient_loss(self, x):
         active = (self.y * (self.A @ x) < 1.0).to(x.dtype)
-        return (active * self.y) @ self.A / self.A.shape[0]
+        return _vm(active * self.y, self.A) / self.A.shape[0]
 
     def grad(self, x, key=None):
         return self.lamda * x - self.subgradient_loss(x)
@@ -156,7 +218,7 @@ class SVM_fun(_DataOracle):
         f = (torch.mean(torch.clamp_min(1.0 - margin, 0.0))
              + (self.lamda / 2.0) * vdot(x, x))
         active = (margin < 1.0).to(x.dtype)
-        g = self.lamda * x - (active * self.y) @ self.A / self.A.shape[0]
+        g = self.lamda * x - _vm(active * self.y, self.A) / self.A.shape[0]
         return f, g
 
 
@@ -241,13 +303,13 @@ class LogisticRegression(_DataOracle):
 
     def grad(self, x, key=None):
         w = torch.sigmoid(-self._z(x)) * self.y
-        return -(w @ self.X) / self.X.shape[0]
+        return -_vm(w, self.X) / self.X.shape[0]
 
     def value_and_grad(self, x, key=None):
         z = self._z(x)
         w = torch.sigmoid(-z) * self.y
         return (torch.mean(self._softplus(-z)),
-                -(w @ self.X) / self.X.shape[0])
+                -_vm(w, self.X) / self.X.shape[0])
 
     def hessian(self, x):
         s = torch.sigmoid(-self._z(x))
@@ -299,6 +361,7 @@ def calculate_tse_constant(h, x_next, y, z_next, z, alpha):
 # The JAX package's int8-digit (Mixed) and double-single (DS) oracles are
 # TPU workarounds for slow f64; on the card the FP64 classes are those
 # oracles, exact (no ``accept_tol``).
+DOptimalObjMixed = DOptimalObjDS = DOptimalObj
 PoissonRegressionMixed = PoissonRegressionDS = PoissonRegression
 KLdivRegressionMixed = KLdivRegressionDS = KLdivRegression
 SVMfunMixed = SVM_fun

@@ -13,14 +13,18 @@ import math
 
 import torch
 
+from .._device import replicate_like, replicated
 from .._scalar import div, read
 
 
 def _f64(a, like=None):
+    """``a`` as a float64 tensor; a number on ``like``'s device (replicated
+    on its mesh when ``like`` is a DTensor, so the two can meet)."""
     if isinstance(a, torch.Tensor):
         return a.to(torch.float64)
     dev = like.device if isinstance(like, torch.Tensor) else None
-    return torch.tensor(a, dtype=torch.float64, device=dev)
+    return replicate_like(torch.tensor(a, dtype=torch.float64, device=dev),
+                          like)
 
 
 def _cbrt(a):
@@ -34,7 +38,7 @@ def solve_cubic(c, beta):
     PyTorch has no ``cbrt``; ``sign(a) |a|^(1/3)`` stands in, and the two
     Newton polish steps take the root to machine accuracy either way.
     """
-    c = _f64(c)
+    c = replicated(_f64(c))  # a sharded sum, reduced once
     beta = _f64(beta, like=c)
     z = beta / 3.0
     beta3 = beta**3

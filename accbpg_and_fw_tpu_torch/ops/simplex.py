@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import is_dtensor
+
 _BISECT_ITERS = 64
 _NEWTON_ITERS = 24
 _STALL = 1e-8
@@ -40,6 +42,11 @@ LAUNCHES = 0
 def _check(gg):
     if not isinstance(gg, torch.Tensor) or gg.dim() != 1:
         raise ValueError("gg must be a 1-d tensor")
+    if is_dtensor(gg):
+        raise ValueError(
+            "the one-kernel multiplier takes one device's vector; a sharded "
+            "gg (a DTensor) needs the global reductions of the default "
+            "BurgEntropySimplex() (use_pallas=False)")
     if gg.numel() == 0:
         raise ValueError("gg must not be empty")
 

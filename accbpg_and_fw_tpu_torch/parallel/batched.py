@@ -1,5 +1,6 @@
-"""Batched multi-instance D-opt solving (counterpart of
-``accbpg_and_fw_tpu/parallel/batched.py``).
+"""Batched multi-instance solving (counterpart of
+``accbpg_and_fw_tpu/parallel/batched.py``): ``vmap_solver`` and the
+batched D-opt sweep ``dopt_fw_batch``.
 
 The reference's iteration-complexity studies solve K independent
 instances of one (m, n) shape, one after another.  ``dopt_fw_batch``
@@ -15,10 +16,12 @@ one of three engines:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from .._device import as_f64, resolve_device
+from .._device import as_f64, is_dtensor, resolve_device
 from ..ops.dopt_common import XTOL, factorize
 from ..ops.dopt_dense import dopt_fw_dense_batch
 from ..ops.dopt_lazy import device_limits, dopt_fw_lazy_batch, lazy_fits
@@ -31,6 +34,21 @@ _LAZY_MIN_M = 64
 # the engine's all-done check runs at most this many iterations apart
 # (the JAX double-single engine's exit_every)
 _EXIT_EVERY = 2048
+
+
+@functools.lru_cache(maxsize=64)
+def _vmapped(solve_one):
+    return torch.func.vmap(solve_one)
+
+
+def vmap_solver(solve_one, *batched_args):
+    """``torch.func.vmap`` a single-instance solver over the leading batch
+    axes of ``batched_args`` (the JAX ``jit(vmap(...))``; PyTorch compiles
+    nothing, so only the vmapped wrapper is cached per ``solve_one``).
+    ``solve_one`` must be a function of tensors without host reads, as
+    under JAX's ``vmap``: the drivers' line searches read their scalars
+    back, so batch whole D-opt solves with ``dopt_fw_batch`` instead."""
+    return _vmapped(solve_one)(*batched_args)
 
 
 def _gather(a, idx):
@@ -191,6 +209,11 @@ def dopt_fw_batch(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
     ``device``: None keeps a tensor ``Vs``'s device and puts numpy input
     on CUDA; "cpu" asks for the CPU.
     """
+    if is_dtensor(Vs) or is_dtensor(x0s):
+        raise ValueError(
+            "dopt_fw_batch solves its K instances on one device; it takes no "
+            "sharded batch (shard one design with shard_dopt_design and "
+            "solve it with D_opt_FW_away)")
     dev = resolve_device(device, like=Vs)
     if precision == "auto":
         precision = _resolve_auto_batch_precision(Vs, dev)

@@ -124,8 +124,9 @@ and the script exits non-zero without the result line:
       ``BurgEntropySimplex(eps=1e-7, use_pallas=True)``: kernel 5's
       launches, the first 100 rows of F against the port on the CPU at
       rtol 1e-8), the three on the synthetic 700x2000 SVM ball with
-      PolyDiv (200 iterations), the primal-dual study of
-      ``examples/ex_primal_dual.py`` (n=400, r=10, 200 iterations, without
+      PolyDiv (100 iterations; 200 before phases l-n were added), the
+      primal-dual study of
+      ``examples/ex_primal_dual.py`` (n=400, r=10, 100 iterations, without
       and with the line search, against the CPU; its wall by the inner
       ascent's block length), UniversalGM through the FW-as-prox adapter
       on the noisy SymNMF of ``examples/ex_universal_fw.py`` (noise 0.1
@@ -135,6 +136,37 @@ and the script exits non-zero without the result line:
       wall, host syncs and device operations per iteration and the device
       idle share of a traced run; and the four examples' ``start()`` with
       their import changed to the port's;
+   l. the fast_gram paths, which launch none of the kernels (their counts
+      go to 0 after phase 4e's route is measured, and must stay 0):
+      ``ABPG_gain(gamma=2, 9000 iterations, fast_gram=True)`` on
+      ``D_opt_design(30, 10000, randseed=10)`` with the default
+      ``BurgEntropySimplex()`` on the card, whose fresh float64 F must
+      reach -16.0963 (phase e's bound), with its wall, its gates
+      (``fastgram.COUNTS``: settled, fallen back, reruns), and host syncs,
+      device operations and idle share per iteration over iterations
+      0-99 and 100-199 beside phase e's route's; then BPG (line search),
+      ABPG, ABPG_expo and ABDA with fast_gram at 30x1000 seed 10, 300
+      iterations, each against the port on the CPU on the same arrays
+      (rtol 1e-9 over the first 30 rows: later rows may part by
+      amplification);
+   m. sharding on one card: a world-size-1 NCCL group in this process
+      (127.0.0.1, a free port) and ``data_mesh()`` on CUDA;
+      ``shard_dopt_problem`` under ABPG_gain(fast_gram=True) at 30x10000
+      (100 iterations) equal to the unsharded card run at rtol 1e-12, the
+      iterate still a DTensor; ``shard_dopt_design`` under D_opt_FW_away
+      at 30x1000 (500 iterations), where "auto" must take the exact
+      engine, against the unsharded exact engine, and the kernel modes
+      must refuse the sharded design; the group is destroyed.  One card
+      shows the code path, not collectives across cards;
+   n. ``diagnostics.profile_trace`` around a short solve (a trace under
+      ``build/traces``) and ``debug_mode`` raising on a NaN start; then,
+      with no kernel launch, ``examples/ex_Poisson_KL.py``'s ``poisson``
+      and ``kl_regression`` (cut to 1000 iterations) and
+      ``examples/ex_SymNMF.py``'s ``start`` with the import changed to
+      the port's; last ``examples/ex_Dopt_sweep.py``'s
+      ``start_full(fast_gram=True)`` (cut to K=1, 300 iterations) with
+      its JAX lines replaced (the replacements are printed), whose FW
+      rows run "auto" on the card (their kernel launches are printed);
 5. the kernels' JSON line (launches on the path, error against the plain
    version, kernel and plain times, the bound from this run's inputs and
    the time of a PyTorch call for the same function where one exists), the
@@ -192,12 +224,23 @@ AUTO_SHAPES = ((30, 1000), (100, 1000), (200, 1000))
 # a 1e-14 relative change of every prox multiplier moves the CPU's own run
 # past EX_RTOL), examples/ex_aibm_svm.py (the synthetic 700x2000 SVM
 # ball), examples/ex_primal_dual.py's figure (n=400, r=10) and
-# examples/ex_universal_fw.py (n=400, r=1, noise 0.1 and 10), 200
-# iterations each; the costs over EX_COST_ITERS iterations
+# examples/ex_universal_fw.py (n=400, r=1, noise 0.1 and 10), EX_ITERS
+# iterations each (100; 200 until the fast_gram, sharding and examples
+# phases came, for the script's time); the costs over EX_COST_ITERS
 EXP_M, EXP_N, EXP_ITERS, EXP_GAMMA = 2000, 1000, 1000, 2.0
-EX_ITERS, EX_CPU_ROWS, EX_HELD_ROWS, EX_RTOL = 200, 100, 30, 1e-8
+EX_ITERS, EX_CPU_ROWS, EX_HELD_ROWS, EX_RTOL = 100, 100, 30, 1e-8
 EX_COST_ITERS = 100
 PD_N, PD_R, UFW_N, UFW_R, UFW_NOISES = 400, 10, 400, 1, (0.1, 10.0)
+# phase 4l: the fast_gram paths (ABPG_gain at GAIN_M x GAIN_N for
+# GAIN_ITERS; its per-iteration costs over FG_COST_ITERS; the other four
+# drivers at BPG_M x BPG_N for FG_SMALL_ITERS, their first FG_CPU_ROWS rows
+# against the CPU at FG_RTOL: later rows may part by amplification)
+FG_COST_ITERS, FG_SMALL_ITERS, FG_CPU_ROWS, FG_RTOL = 100, 300, 30, 1e-9
+# phase 4m: the sharded solves on a one-card mesh
+SH_GAIN_ITERS, SH_FW_ITERS = 100, 500
+# phase 4n: examples/ex_Dopt_sweep.py's start_full and ex_Poisson_KL.py's
+# runs, cut for the time
+SWEEP_K, SWEEP_ITERS, EXAMPLE_ITERS = 1, 300, 1000
 # the block lengths of the primal-dual ascent timed for h_oracles.DUAL_BLOCK
 DUAL_BLOCKS = (8, 32, 128)
 # kernel vs plain version on the card, over one 256-iteration block: x, w
@@ -1475,18 +1518,20 @@ def fw_symnmf(port):
           f"{FW_SYM_ITERS} iterations: " + "; ".join(out), flush=True)
 
 
-def example_module(name):
+def example_module(name, more=()):
     """examples/<name>.py with its import of the JAX package changed to the
-    port's, and nothing else."""
+    port's, and nothing else but the ``(old, new)`` replacements of
+    ``more`` (each must occur once)."""
     path = pathlib.Path(__file__).parent / "examples" / f"{name}.py"
     src = path.read_text()
-    old = "import accbpg_and_fw_tpu as acc"
-    if src.count(old) != 1:
-        raise AssertionError(f"{name}.py: expected one '{old}'")
+    for old, new in (("import accbpg_and_fw_tpu as acc",
+                      "import accbpg_and_fw_tpu_torch as acc"),) + more:
+        if src.count(old) != 1:
+            raise AssertionError(f"{name}.py: expected one '{old}'")
+        src = src.replace(old, new)
     module = type(sys)(name)
     module.__file__ = str(path)
-    exec(compile(src.replace(old, "import accbpg_and_fw_tpu_torch as acc"),
-                 module.__file__, "exec"), module.__dict__)
+    exec(compile(src, module.__file__, "exec"), module.__dict__)
     return module
 
 
@@ -1839,6 +1884,362 @@ def extras_paths(port, card, counters, sm):
     return aibm
 
 
+# ---- phases 4l-4n: fast_gram, sharding, diagnostics and examples ------------
+
+
+def reset_counts(counters):
+    for mod, name in counters:
+        setattr(mod, name, 0)
+
+
+def read_counts(counters):
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
+            for mod, name in counters}
+
+
+def no_launches(label, counters):
+    launched = read_counts(counters)
+    if any(launched.values()):
+        raise AssertionError(f"{label} launched a kernel: {launched}")
+    return launched
+
+
+def fg_counts():
+    from accbpg_and_fw_tpu_torch.algorithms import fastgram
+
+    return dict(fastgram.COUNTS)
+
+
+def fg_text(before, after, rows):
+    """The fast-Gram gates of a run: settled gates, fallbacks and trial
+    reruns (one more read each), per iteration."""
+    d = {k: after[k] - before[k] for k in after}
+    rate = d["fallbacks"] / d["gates"] if d["gates"] else float("nan")
+    return (f"{d['gates']} gates ({d['gates'] / rows:.2f} per iteration), "
+            f"{d['fallbacks']} fallbacks ({100 * rate:.2f}%), "
+            f"{d['reruns']} trial reruns ({d['reruns'] / rows:.3f} per "
+            "iteration)")
+
+
+def cost_text(cost):
+    syncs, ops, idle, n = cost
+    ops_txt = (f"{ops / n:.1f} device ops per iteration, device idle "
+               f"{100 * idle:.1f}% of a traced run" if ops else
+               "device ops not measured (no device events in the trace)")
+    return f"{syncs / n:.2f} syncs and {ops_txt}"
+
+
+def window_cost(run, base):
+    """``fw_syncs_and_ops`` over iterations FG_COST_ITERS to
+    2 FG_COST_ITERS - 1 of ``run(maxitrs, checkpoint)``: each call resumes
+    from a copy of a checkpoint written at FG_COST_ITERS."""
+    import shutil
+
+    ck0, ck = base.with_suffix(".0.npz"), base.with_suffix(".npz")
+    for p in (ck0, ck):
+        p.unlink(missing_ok=True)
+    run(FG_COST_ITERS, str(ck0))
+
+    def resumed():
+        shutil.copyfile(ck0, ck)
+        return run(2 * FG_COST_ITERS, str(ck))
+
+    syncs, ops, idle, _ = fw_syncs_and_ops(resumed)
+    return syncs, ops, idle, FG_COST_ITERS
+
+
+def fastgram_paths(port, counters):
+    """Phase 4l: ABPG_gain(fast_gram=True) at full width (30x10000, 9000
+    iterations) with the default h, beside phase 4e's kernel route; then
+    the other four drivers with fast_gram at 30x1000 against the CPU.  No
+    kernel may launch."""
+    t0 = time.perf_counter()
+    f, _, L, x0 = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
+                                    device="cuda")
+    tmp = pathlib.Path(__file__).parent / "build" / "chip_tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+
+    def gain(h, fast):
+        def run(maxitrs=GAIN_ITERS, checkpoint=None):
+            return port.ABPG_gain(f, h, L, x0, gamma=2, maxitrs=maxitrs,
+                                  verbose=False, fast_gram=fast,
+                                  checkpoint=checkpoint)
+        return run
+
+    run_e = gain(port.BurgEntropySimplex(use_pallas=True), False)
+    run_l = gain(port.BurgEntropySimplex(), True)
+    # phase 4e's route first (it launches kernel 5), then the counts go to
+    # 0 for the fast_gram paths; each route over two windows: the first
+    # FG_COST_ITERS iterations (the fast path's fallbacks gather there)
+    # and the next FG_COST_ITERS, resumed from a checkpoint
+    costs = {name: (fw_syncs_and_ops(lambda: run(FG_COST_ITERS)),
+                    window_cost(run, tmp / name))
+             for name, run in (("e", run_e), ("l", run_l))}
+    reset_counts(counters)
+    before = fg_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x, F, Gain, *_ = run_l()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    after = fg_counts()
+    Ff = fresh_F(f, x)
+    if not (np.all(np.isfinite(F)) and Ff <= GAIN_F_BOUND):
+        raise AssertionError(f"ABPG_gain fast_gram: fresh F {Ff!r} above "
+                             f"{GAIN_F_BOUND}")
+    trials = int(gain_trials(Gain, 1.0, 1.2).sum())
+    print(f"[fastgram] ABPG_gain gamma=2 fast_gram=True {GAIN_M}x{GAIN_N} "
+          f"seed 10 default h on cuda: wall {wall:.3f} s (after phase 4e "
+          f"warmed the libraries), {len(F)} iterations, {trials} "
+          f"line-search trials; fresh F {Ff:.9f} (recorded {F[-1]:.9f}, "
+          f"bound {GAIN_F_BOUND}); {fg_text(before, after, len(F))}",
+          flush=True)
+    for name, label in (("l", "fast_gram, default h"),
+                        ("e", "phase 4e's route (plain step, "
+                              "use_pallas=True)")):
+        first, tail = costs[name]
+        print(f"[fastgram] per iteration at {GAIN_M}x{GAIN_N}, {label}: "
+              f"iterations 0-{FG_COST_ITERS - 1} {cost_text(first)}; "
+              f"iterations {FG_COST_ITERS}-{2 * FG_COST_ITERS - 1} "
+              f"{cost_text(tail)}", flush=True)
+
+    fc, hc, Lc, xc = port.D_opt_design(BPG_M, BPG_N, randseed=10,
+                                       device="cuda")
+    fh, hh, _, xh = port.D_opt_design(BPG_M, BPG_N, randseed=10,
+                                      device="cpu")
+    calls = {
+        "BPG": lambda f_, h_, x_: port.BPG(
+            f_, h_, Lc, x_, FG_SMALL_ITERS, linesearch=True, verbose=False,
+            fast_gram=True),
+        "ABPG": lambda f_, h_, x_: port.ABPG(
+            f_, h_, Lc, x_, 2.0, FG_SMALL_ITERS, verbose=False,
+            fast_gram=True),
+        "ABPG_expo": lambda f_, h_, x_: port.ABPG_expo(
+            f_, h_, Lc, x_, 3.0, FG_SMALL_ITERS, verbose=False,
+            fast_gram=True),
+        "ABDA": lambda f_, h_, x_: port.ABDA(
+            f_, h_, Lc, x_, 2.0, FG_SMALL_ITERS, verbose=False,
+            fast_gram=True),
+    }
+    parts = []
+    for name, call in calls.items():
+        before = fg_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        Fg = call(fc, hc, xc)[1]
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t
+        after = fg_counts()
+        Fcpu = call(fh, hh, xh)[1]
+        err = fw_against_cpu(f"{name} fast_gram", Fg, Fcpu, rows=FG_CPU_ROWS,
+                             rtol=FG_RTOL)
+        parts.append(f"{name} wall {w:.3f} s, {len(Fg)} rows, F "
+                     f"{Fg[-1]:.9f} (CPU {Fcpu[-1]:.9f}), card vs CPU "
+                     f"{err:.1e} over {FG_CPU_ROWS} rows, "
+                     f"{fg_text(before, after, len(Fg))}")
+    launched = no_launches("phase 4l", counters)
+    print(f"[fastgram] {BPG_M}x{BPG_N} seed 10 default h, "
+          f"{FG_SMALL_ITERS} iterations, fast_gram=True: "
+          + "; ".join(parts), flush=True)
+    print(f"[fastgram] phase 4l in {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches: {launched}", flush=True)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_paths(port, counters):
+    """Phase 4m: a world-size-1 NCCL group in this process and a one-card
+    mesh: ``shard_dopt_problem`` under ABPG_gain(fast_gram=True) and
+    ``shard_dopt_design`` under D_opt_FW_away on the exact engine, each
+    against the same solve unsharded on the card.  No kernel may launch."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from accbpg_and_fw_tpu_torch.algorithms import d_opt
+    from accbpg_and_fw_tpu_torch.parallel import (data_mesh,
+                                                  shard_dopt_design,
+                                                  shard_dopt_problem)
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = data_mesh()
+        if mesh.device_type != "cuda":
+            raise AssertionError(f"data_mesh() on {mesh.device_type}")
+        f, h, L, x0 = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
+                                        device="cuda")
+        f_sh, x_sh = shard_dopt_problem(f, x0, mesh)
+        kw = dict(gamma=2, maxitrs=SH_GAIN_ITERS, verbose=False,
+                  fast_gram=True)
+        t = time.perf_counter()
+        r_sh = port.ABPG_gain(f_sh, h, L, x_sh, **kw)
+        torch.cuda.synchronize()
+        w_sh = time.perf_counter() - t
+        t = time.perf_counter()
+        r_pl = port.ABPG_gain(f, h, L, x0, **kw)
+        torch.cuda.synchronize()
+        w_pl = time.perf_counter() - t
+        if not isinstance(r_sh[0], DTensor):
+            raise AssertionError("the sharded ABPG_gain returned a plain "
+                                 "tensor")
+        if len(r_sh[1]) != len(r_pl[1]):
+            raise AssertionError(f"sharded ABPG_gain: {len(r_sh[1])} rows, "
+                                 f"unsharded {len(r_pl[1])}")
+        np.testing.assert_allclose(r_sh[1], r_pl[1], rtol=1e-12)
+        np.testing.assert_allclose(r_sh[0].full_tensor().cpu().numpy(),
+                                   r_pl[0].cpu().numpy(), rtol=0,
+                                   atol=1e-12)
+        gerr = float(np.max(np.abs(r_sh[1] - r_pl[1]) / np.abs(r_pl[1])))
+
+        fd, _, _, xd = port.D_opt_design(BPG_M, BPG_N, randseed=10,
+                                         device="cuda")
+        V_sh, xd_sh = shard_dopt_design(fd.H, xd, mesh)
+        engine = d_opt._resolve_auto_u_mode(V_sh, "auto", V_sh.device)
+        plain_engine = d_opt._resolve_auto_u_mode(fd.H, "auto", fd.H.device)
+        if engine != "exact":
+            raise AssertionError(f"'auto' took {engine} for a sharded design")
+        t = time.perf_counter()
+        fw_sh = port.D_opt_FW_away(V_sh, xd_sh, EPS, SH_FW_ITERS,
+                                   verbose=False)
+        torch.cuda.synchronize()
+        wf_sh = time.perf_counter() - t
+        fw_pl = port.D_opt_FW_away(fd.H, xd, EPS, SH_FW_ITERS, verbose=False,
+                                   u_mode="exact")
+        if len(fw_sh[1]) != len(fw_pl[1]):
+            raise AssertionError(f"sharded FW-away: {len(fw_sh[1])} rows, "
+                                 f"unsharded {len(fw_pl[1])}")
+        np.testing.assert_allclose(fw_sh[1], fw_pl[1], rtol=1e-12)
+        ferr = float(np.max(np.abs(fw_sh[1] - fw_pl[1]) / np.abs(fw_pl[1])))
+        refused = []
+        for mode in ("pallas", "pallas_lazy"):
+            try:
+                port.D_opt_FW_away(V_sh, xd_sh, EPS, 5, verbose=False,
+                                   u_mode=mode)
+            except ValueError:
+                refused.append(mode)
+        if refused != ["pallas", "pallas_lazy"]:
+            raise AssertionError(f"kernel modes on a sharded design: only "
+                                 f"{refused} refused")
+    finally:
+        dist.destroy_process_group()
+    launched = no_launches("phase 4m", counters)
+    print(f"[sharded] one card, a world-size-1 NCCL group and data_mesh() "
+          f"on cuda (the code path of a sharded solve, not collectives "
+          f"across cards): ABPG_gain fast_gram {GAIN_M}x{GAIN_N} "
+          f"{SH_GAIN_ITERS} iterations sharded {w_sh:.3f} s vs unsharded "
+          f"{w_pl:.3f} s, F max rel diff {gerr:.1e} (bar 1e-12), x a "
+          f"DTensor {r_sh[0].placements}; D_opt_FW_away {BPG_M}x{BPG_N} on "
+          f"shard_dopt_design: 'auto' took {engine} (unsharded: "
+          f"{plain_engine}), {len(fw_sh[1])} rows in {wf_sh:.3f} s, F max "
+          f"rel diff {ferr:.1e} vs the unsharded exact engine; "
+          f"u_mode {refused} refused", flush=True)
+    print(f"[sharded] phase 4m in {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches: {launched}", flush=True)
+
+
+class _JnpOnCard:
+    """The one ``jax.numpy`` call of examples/ex_Dopt_sweep.py's
+    ``start_full``, ``jnp.asarray(a, dtype)``, as a float64 tensor on the
+    card."""
+
+    @staticmethod
+    def asarray(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+
+def diagnostics_and_examples(port, counters):
+    """Phase 4n: ``profile_trace`` and ``debug_mode`` on a short solve, then
+    examples/ex_Poisson_KL.py's ``poisson`` and ``kl_regression`` and
+    examples/ex_SymNMF.py's ``start`` at their default sizes with the
+    import changed to the port's (no kernel may launch), and
+    examples/ex_Dopt_sweep.py's ``start_full(fast_gram=True)``, whose
+    FW rows run "auto" on the card (its kernel launches are reported)."""
+    from accbpg_and_fw_tpu_torch import diagnostics
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    f, h, L, x0 = port.D_opt_design(BPG_M, BPG_N, randseed=10,
+                                    device="cuda")
+    logdir = pathlib.Path(__file__).parent / "build" / "traces"
+    before = set(logdir.glob("*.json")) if logdir.exists() else set()
+    with diagnostics.profile_trace(str(logdir)):
+        port.BPG(f, h, L, x0, 20, verbose=False, fast_gram=True)
+        torch.cuda.synchronize()
+    new = sorted(set(logdir.glob("*.json")) - before)
+    if len(new) != 1:
+        raise AssertionError(f"profile_trace wrote {len(new)} traces")
+    trace = json.loads(new[0].read_text())
+    kernels = sum(1 for e in trace.get("traceEvents", ())
+                  if e.get("cat") == "kernel")
+    bad = x0.clone()
+    bad[3] = float("nan")
+    try:
+        with diagnostics.debug_mode():
+            port.BPG(f, h, L, bad, 20, verbose=False)
+        raise AssertionError("debug_mode let a NaN solve through")
+    except FloatingPointError as e:
+        caught = str(e).split(" (")[0]
+    print(f"[diagnostics] profile_trace wrote {new[0].name} "
+          f"({new[0].stat().st_size} bytes, {kernels} device kernel "
+          f"events); debug_mode raised FloatingPointError on a NaN start: "
+          f"{caught!r}", flush=True)
+
+    out = []
+    for name, call in (
+            ("ex_Poisson_KL.poisson",
+             lambda m: m.poisson(maxitrs=EXAMPLE_ITERS, verbose=False)),
+            ("ex_Poisson_KL.kl_regression",
+             lambda m: m.kl_regression(maxitrs=EXAMPLE_ITERS,
+                                       verbose=False)),
+            ("ex_SymNMF.start", lambda m: m.start(verbose=False))):
+        module = example_module(name.split(".")[0])
+        t = time.perf_counter()
+        curves = list(call(module).values())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if not all(np.all(np.isfinite(np.asarray(F))) for F in curves):
+            raise AssertionError(f"{name}: a curve is not finite")
+        out.append(f"{name}() {wall:.2f} s, {len(curves)} finite curves")
+    launched = no_launches("phase 4n's examples", counters)
+    print("[examples] with the import changed, at their default sizes (the "
+          f"two ex_Poisson_KL runs cut to {EXAMPLE_ITERS} iterations, from "
+          "10000 and 4000, for the time), on cuda: " + "; ".join(out)
+          + f"; kernel launches {launched}", flush=True)
+
+    module = example_module("ex_Dopt_sweep", (
+        ("from accbpg_and_fw_tpu.parallel.batched import dopt_fw_batch",
+         "from accbpg_and_fw_tpu_torch.parallel.batched import "
+         "dopt_fw_batch"),
+        ('    import jax\n    jax.config.update("jax_enable_x64", True)\n'
+         '    import jax.numpy as jnp\n', ""),
+        ("V = np.asarray(f.H, np.float64)",
+         "V = np.asarray(f.H.cpu(), np.float64)")))
+    module.jnp = _JnpOnCard()
+    t = time.perf_counter()
+    module.start_full(K=SWEEP_K, num_iters=SWEEP_ITERS, verbose=False,
+                      fast_gram=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    print(f"[examples] ex_Dopt_sweep.start_full(fast_gram=True, K={SWEEP_K}, "
+          f"num_iters={SWEEP_ITERS}; cut from K=3, 3000 for the time) with "
+          "its two imports of the JAX package changed to the port's, its "
+          "three JAX lines (x64 on, jax.numpy) dropped for jnp.asarray as a "
+          "float64 tensor on the card, and f.H read back with .cpu() "
+          f"before np.asarray: {wall:.2f} s; its FW rows' kernel "
+          f"launches (\"auto\") {read_counts(counters)}", flush=True)
+    print(f"[examples] phase 4n in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def block_times(root, solves, gain_iters):
     """``--blocks-only``: one 256-iteration block of the lazy-H kernel from
     the uniform start's fresh state, through ``lazy_block`` at 1000x5000 and
@@ -2123,6 +2524,9 @@ def main():
                 (sm, "LAUNCHES")]
     fw_paths(port, card, counters)
     extras_paths(port, card, counters, sm)
+    fastgram_paths(port, counters)
+    sharded_paths(port, counters)
+    diagnostics_and_examples(port, counters)
 
     # ---- 5. the record ------------------------------------------------------
     def entry(name, source, replaces, launches, measured):

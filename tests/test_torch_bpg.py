@@ -173,20 +173,26 @@ def test_checkpoint_of_another_solver_is_refused(problems, tmp_path):
 
 
 def test_unported_options_raise(problems):
+    """Every option is ported now: ``fast_gram="ds"`` runs the FP64
+    fast-Gram engine (the JAX double-single engine's name), and only an
+    oracle without the fast-Gram protocol raises."""
     _, (fp, hp, L, x0p) = problems
-    for fg in (True, "ds"):
-        with pytest.raises(NotImplementedError, match="fast_gram"):
-            port.BPG(fp, hp, L, x0p, 5, fast_gram=fg, verbose=False)
-        with pytest.raises(NotImplementedError, match="fast_gram"):
-            port.ABDA(fp, hp, L, x0p, 2.0, 5, fast_gram=fg, verbose=False)
+    for run, args in ((port.BPG, ()), (port.ABDA, (2.0,))):
+        ds = run(fp, hp, L, x0p, *args, 5, fast_gram="ds", verbose=False)
+        fg = run(fp, hp, L, x0p, *args, 5, fast_gram=True, verbose=False)
+        np.testing.assert_array_equal(ds[1], fg[1])
+        plain = port.PoissonRegression(np.ones((3, 2)), np.ones(3),
+                                       device="cpu")
+        with pytest.raises(ValueError, match="fast_gram"):
+            run(plain, hp, L, torch.ones(2, dtype=torch.float64), *args, 5,
+                fast_gram="ds", verbose=False)
 
     class Noisy(port.DOptimalObj):
         """Declares itself stochastic; its gradient ignores the key."""
         stochastic = True
 
-    # fast_gram is the one option left unported: a stochastic oracle runs,
-    # the driver threads a key through it, and an oracle that draws nothing
-    # from the key gives the exact run
+    # a stochastic oracle runs, the driver threads a key through it, and an
+    # oracle that draws nothing from the key gives the exact run
     exact = port.ABPG(fp, hp, L, x0p, 2.0, 5, verbose=False)
     for seed in (None, 3):
         noisy = port.ABPG(Noisy(fp.H), hp, L, x0p, 2.0, 5, verbose=False,

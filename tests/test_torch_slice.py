@@ -93,13 +93,17 @@ def test_auto_routing_rule(device, shape, expected):
 
 
 def test_package_imports_no_jax():
-    """The port imports torch and never jax, nor the JAX package."""
+    """The port (and its alias package ``accbpg_torch``) imports torch
+    and never jax, nor the JAX package."""
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|accbpg_and_fw_tpu(?!_torch)\w*|"
         r"accbpg)\b", re.M)
     sources = sorted(PKG.rglob("*.py"))
     assert sources
-    offenders = [str(p.relative_to(PKG)) for p in sources
+    alias = PKG.parent / "accbpg_torch" / "__init__.py"
+    assert "accbpg_and_fw_tpu_torch" in alias.read_text()
+    sources.append(alias)
+    offenders = [str(p.relative_to(PKG.parent)) for p in sources
                  if bad.search(p.read_text())]
     assert offenders == []
     smoke = PKG.parent / "chip_smoke.py"
