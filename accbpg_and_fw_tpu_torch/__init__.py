@@ -40,12 +40,15 @@ Everything of the JAX package is ported:
   problem sharding on ``torch.distributed`` (one rank per device);
 * ``diagnostics`` (debug mode, domain checks, profiler traces), ``viz``
   (comparison plots, triangle-scaling curves), checkpoints in the JAX
-  drivers' format, ``run_driver``/``scan_full`` and ``solver_device``.
+  drivers' format, ``run_driver`` (JAX's cached step form; on the card a
+  chunk that reads nothing back is a cached CUDA graph), ``scan_full``
+  and ``solver_device``.
 
 Not ported, on purpose: the double-single and int8 engines behind the
-JAX package's TPU precision modes (their names resolve to FP64 here), its
-AOT executable cache, its automatic CPU fallback for small problems and
-its one-process mesh over many devices.
+JAX package's TPU precision modes (their names resolve to FP64 here), the
+disk half of its AOT executable cache (a graph lives in the process that
+captured it), its automatic CPU fallback for small problems and its
+one-process mesh over many devices.
 """
 
 __version__ = "0.1.0"

@@ -54,11 +54,6 @@ from .theta import solve_theta
 _LS_MAX = 200  # safety bound; backtracking terminates long before this
 
 
-def _fingerprint(step, cfg):
-    """The JAX driver's checkpoint identity of this step and config."""
-    return f"accbpg_and_fw_tpu.algorithms.bpg.{step.__name__}|{cfg!r}"
-
-
 def _draw(cfg, c, fn, x):
     """``(carry entries, fn(x))`` for one gradient evaluation: a
     stochastic f-oracle gets a fresh draw key split from the carry's (the
@@ -211,11 +206,11 @@ def _printer(names):
 def _run(step, cfg, prob, carry, maxitrs, title, columns, names, verbose,
          verbskip, chunk, checkpoint, between=None):
     header = f"\n{title}\n     k      F(x)  {columns}"
-    return run_driver(lambda c, k: step(cfg, prob, c, k), carry, maxitrs,
-                      verbose=verbose, verbskip=verbskip, header=header,
+    return run_driver(step, carry, maxitrs, verbose=verbose,
+                      verbskip=verbskip, header=header,
                       print_row=_printer(names), chunk=chunk,
                       checkpoint=checkpoint, between_chunks=between,
-                      fingerprint=_fingerprint(step, cfg))
+                      problem=prob, cfg=cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,8 @@ because the TPU has no fast f64, and resolve here to the FP64 exact engine.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .._device import as_f64, is_dtensor, replicate_like, resolve_device
@@ -37,12 +39,13 @@ from .driver import run_driver
 _LAZY_MIN_SIZE = 1_800_000
 
 
-def _fingerprint(away):
-    """Checkpoint identity of the exact engine: the JAX driver's own
-    fingerprint for this step, so a checkpoint written by either package
-    resumes in the other (same carry keys, shapes and meaning)."""
-    return ("accbpg_and_fw_tpu.algorithms.d_opt._dopt_step"
-            f"|_DOptCfg(away={bool(away)}, mixed=False)")
+class _DOptCfg(NamedTuple):
+    """The exact engine's config, JAX's ``_DOptCfg`` (same name, fields and
+    repr, so the checkpoint fingerprint is JAX's and a checkpoint written
+    by either package resumes in the other); ``mixed`` is always False
+    here: the int8 contraction was the TPU's."""
+    away: bool
+    mixed: bool = False
 
 
 def _at(a, idx):
@@ -88,14 +91,17 @@ def _pivot(a, largest):
     return pairs[best, 1].to(torch.int64)
 
 
-def _dopt_step(away, V, eps, c, k):
-    """One FW(-away) iteration on the carry ``{done, x, w, H, logdet}``.
+def _dopt_step(cfg, prob, c, k):
+    """One FW(-away) iteration on the carry ``{done, x, w, H, logdet}`` of
+    the design ``prob["V"]`` with the stop threshold ``prob["eps"]`` (JAX's
+    cached step form).
 
     Both branches of the JAX ``lax.cond`` are written in one signed form:
     toward ``(H - c gg^T)/(1 - t)`` and away ``(H + c gg^T)/(1 + t)`` are
     ``(H + sc gg^T)/(1 + st)`` with ``(sc, st) = (-c, -t)`` or ``(c, t)``,
     which rounds identically (negation is exact).  The scalar step sizes
     and logdet increments keep each branch's own expression."""
+    V, eps, away = prob["V"], prob["eps"], cfg.away
     x, w, H, logdet = c["x"], c["w"], c["H"], c["logdet"]
     m_f = float(V.shape[0])
     i = _pivot(w, True)
@@ -226,14 +232,12 @@ def _run_exact(V, carry, eps, maxitrs, *, away, verbose, verbskip, chunk,
     def row(k, r, t):
         print(ROW.format(k, r["F"], r["SP"], r["SN"], t))
 
-    def step(c, k):
-        return _dopt_step(away, V, eps, c, k)
-
-    carry, hist, T = run_driver(step, carry, maxitrs, verbose=verbose,
+    carry, hist, T = run_driver(_dopt_step, carry, maxitrs, verbose=verbose,
                                 verbskip=verbskip, header=header,
                                 print_row=row, chunk=chunk,
                                 between_chunks=between, checkpoint=checkpoint,
-                                fingerprint=_fingerprint(away),
+                                problem=dict(V=V, eps=eps),
+                                cfg=_DOptCfg(away=bool(away)),
                                 k_start=k_start)
     return carry["x"], hist["F"], hist["SP"], hist["SN"], T
 

@@ -1,22 +1,40 @@
 """Chunked iteration loop for the port's drivers.
 
-The part of ``accbpg_and_fw_tpu/algorithms/driver.py::run_driver`` that the
-D-opt solvers, the Bregman and the Frank-Wolfe drivers need.  A driver is a
-step function ``step(carry, k) -> (carry, hist)``; ``carry`` is a dict that
-holds a bool ``done`` and ``hist`` a dict of scalars that holds ``_stop``
-(the stopping test fired at this iteration, which is the last one
-recorded, matching the reference's ``break``).
+The port of ``accbpg_and_fw_tpu/algorithms/driver.py::run_driver``.  A
+driver is a step function in JAX's cached form, ``step(cfg, problem,
+carry, k) -> (carry, hist)`` with ``cfg`` a hashable config and
+``problem`` the solve's data (tensors, numbers, oracles), or in the
+closure form ``step(carry, k)`` (``problem=None``).  ``carry`` is a dict
+that holds a bool ``done`` and ``hist`` a dict of scalars that holds
+``_stop`` (the stopping test fired at this iteration, which is the last
+one recorded, matching the reference's ``break``).
 
-PyTorch runs eagerly, so a chunk is a Python loop of steps, in one of two
-modes chosen by the type of ``carry["done"]``:
+A chunk runs in one of three ways, chosen from the carry's types and
+device before anything runs (``chunk_mode``):
 
-* a bool tensor (the D-opt engines, ``FW_alg_descent_step``): the loop
-  never reads a tensor back inside a chunk; once ``done`` is set the carry
-  freezes through a ``torch.where`` select (as the JAX scan body does), and
-  the host reads the chunk's histories and the ``done`` flag once, at the
-  chunk boundary (a history of host numbers, such as a step size known in
-  advance, needs no read);
-* a Python bool (the Bregman drivers, whose line searches read each trial's
+* ``"graph"``: ``done`` and every other leaf a plain tensor on one CUDA
+  device (the exact D-opt engine, ``FW_alg_descent_step``).  The chunk of
+  ``chunk`` iterations is captured once as a ``torch.cuda.CUDAGraph`` and
+  replayed, the counterpart of JAX's compiled chunk: the carry, the
+  problem's tensors (those of its oracles included) and the first
+  iteration ``k0`` go in through static buffers, ``k`` reaches the step as
+  an int64 tensor on the card (JAX passes a traced int32), and the
+  histories come out of a static buffer read once per chunk.  A partial
+  last chunk replays the same graph with a device ``limit`` past which
+  the carry freezes, as JAX's ``_masked_scan_body``; only the real stop
+  persists into the carry.  Graphs are cached within the process on JAX's
+  key (step, cfg, chunk, and the shapes, dtypes and devices of problem and
+  carry; see ``graph_key``), so a second solve of the same shapes replays
+  without a new capture.  A capture that fails raises: nothing falls back
+  to the eager loop.
+* ``"eager"``: the same frozen steps run one Python dispatch at a time
+  with no read inside a chunk (``k`` a host int), for a carry on the CPU
+  (where the tests run it), a carry with a host leaf (``_rng``'s key chain
+  lives on the host) and a DTensor carry (``d_opt._pivot``'s c10d
+  all-gather).  Once ``done`` is set the carry freezes through a
+  ``torch.where`` select, as the JAX scan body does.
+* ``"host"``: ``done`` a Python bool (the Bregman drivers, the line-search
+  FW drivers and the extras, whose line searches read each trial's
   decision back anyway): the step keeps its scalars on the host, returns
   host numbers in ``hist``, and the chunk ends at the stop row, which is
   the iteration the JAX driver's frozen carry stops at.  The carry may mix
@@ -26,23 +44,28 @@ The chunk boundary is where ``between_chunks`` runs, where checkpoints are
 written and where the verbose table is printed.
 
 Checkpoints are the JAX driver's ``.npz`` format (same keys, version and
-fingerprint check), so a run resumes iteration-exactly from a file written
-by either package.  Not ported: the AOT executable cache and the
-``solver_device``/``AUTO_CPU_MAX_SIZE`` host fallback (PyTorch compiles
-nothing, and the device is the caller's explicit choice).
+fingerprint check, the fingerprint JAX's ``_fingerprint(step, cfg)``), so
+a run resumes iteration-exactly from a file written by either package.
+Not ported: the AOT executable cache on disk (a graph is captured in the
+process that replays it) and the ``solver_device``/``AUTO_CPU_MAX_SIZE``
+host fallback (the device is the caller's explicit choice).
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import os
 import time
+import types
+from collections import OrderedDict
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import _scalar
-from .._device import full
+from .._device import full, is_dtensor
 
 _CKPT_VERSION = 3
 
@@ -113,6 +136,284 @@ def _load_checkpoint(path, carry_proto, fp):
         return carry, block, int(z["__k_next"]), float(z["__t"])
 
 
+_PKG = __name__.split(".")[0]
+
+# Captured chunks, least recently used first.  Each holds its static
+# buffers and its private memory pool on the card until it is evicted.
+_GRAPHS: OrderedDict = OrderedDict()
+_GRAPH_CACHE_CAP = 16
+
+# Process-wide counts of the graph chunks: captures, replays, and the host
+# seconds the captures took (set-up, like a compile).
+GRAPH_STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
+
+_EAGER = [False]
+
+
+def clear_graph_cache():
+    """Drop every captured chunk (and the card memory it holds)."""
+    _GRAPHS.clear()
+
+
+class eager_chunks:
+    """Context manager: chunks that would run as a graph run eagerly
+    inside the block (to hold a graph against the eager loop)."""
+
+    def __enter__(self):
+        self._prev, _EAGER[0] = _EAGER[0], True
+        return self
+
+    def __exit__(self, *exc):
+        _EAGER[0] = self._prev
+
+
+def _fingerprint(step, cfg):
+    """JAX's ``_fingerprint(step, cfg)`` for a step of this package: the
+    step's module (under the JAX package's name) and name, and the
+    config's repr where it holds no object address, else its type name."""
+    name = getattr(step, "__qualname__", None) or repr(step)
+    mod = getattr(step, "__module__", None) or "?"
+    if mod.split(".")[0] == _PKG:
+        mod = "accbpg_and_fw_tpu" + mod[len(_PKG):]
+    r = repr(cfg)
+    return f"{mod}.{name}|{type(cfg).__name__ if '0x' in r else r}"
+
+
+def chunk_mode(carry):
+    """How a chunk of this carry runs: ``"host"`` for a Python-bool
+    ``done``; ``"graph"`` where every leaf is a plain tensor on one CUDA
+    device (outside ``eager_chunks``); else ``"eager"`` (a CPU carry, a
+    host leaf such as the noise key, or a DTensor)."""
+    if isinstance(carry["done"], bool):
+        return "host"
+    if _EAGER[0]:
+        return "eager"
+    leaves = list(carry.values())
+    if not all(isinstance(v, torch.Tensor) for v in leaves):
+        return "eager"
+    if any(is_dtensor(v) for v in leaves):
+        return "eager"
+    devices = {v.device for v in leaves}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        return "eager"
+    return "graph"
+
+
+# held by identity in a graph key: code, and what has no attributes to walk
+_OPAQUE = (types.FunctionType, types.MethodType, types.BuiltinFunctionType,
+           types.ModuleType, type, functools.partial)
+_DEPTH = 4  # objects nested deeper than this are held by identity
+
+
+def _walked(tree, depth):
+    """Whether ``_spec`` describes ``tree`` by its attributes (an oracle)."""
+    return (depth < _DEPTH and hasattr(tree, "__dict__")
+            and not isinstance(tree, _OPAQUE))
+
+
+def _spec(tree, leaves, keep, depth=0):
+    """A hashable description of ``tree`` with its tensors appended to
+    ``leaves`` (each described by shape, dtype and device): dicts, lists,
+    tuples, numbers, strings, devices and dtypes by value, an object with
+    attributes (an oracle) by its type and attributes, anything else (a
+    function, a closure such as an LMO) by identity, kept alive in
+    ``keep`` so that the identity stays its own."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return ("tensor", tuple(tree.shape), str(tree.dtype),
+                str(tree.device))
+    if tree is None or isinstance(tree, (bool, int, float, str,
+                                         torch.device, torch.dtype)):
+        return (type(tree).__name__, tree)
+    sub = functools.partial(_spec, leaves=leaves, keep=keep, depth=depth + 1)
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, sub(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree),) + tuple(sub(v) for v in tree)
+    if _walked(tree, depth):
+        return (type(tree),) + tuple((k, sub(v))
+                                     for k, v in sorted(vars(tree).items()))
+    keep.append(tree)
+    return ("id", id(tree))
+
+
+def _rebuild(tree, leaves, depth=0):
+    """``tree`` with its tensors, in ``_spec``'s order, replaced by the next
+    of the iterator ``leaves`` (a walked object becomes a shallow copy)."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    sub = functools.partial(_rebuild, leaves=leaves, depth=depth + 1)
+    if isinstance(tree, dict):
+        return {k: sub(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [sub(v) for v in tree]
+    if isinstance(tree, tuple):
+        vals = [sub(v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    if _walked(tree, depth):
+        out = copy.copy(tree)
+        for k in sorted(vars(tree)):
+            setattr(out, k, sub(getattr(tree, k)))
+        return out
+    return tree
+
+
+def _as_device_numbers(problem, device):
+    """A problem dict with its numbers as 0-d tensors on ``device`` (JAX's
+    ``tree_map(jnp.asarray, problem)``), so that a capture reads them from
+    static buffers instead of baking them in."""
+    if not isinstance(problem, dict):
+        return problem
+
+    def conv(v):
+        # a fill on the card: no copy from the host
+        for kind, dtype in ((bool, torch.bool), (int, torch.int64),
+                            (float, torch.float64)):
+            if isinstance(v, kind):
+                return torch.full((), v, dtype=dtype, device=device)
+        return v
+
+    return {k: conv(v) for k, v in problem.items()}
+
+
+def graph_key(step, cfg, chunk, problem, carry):
+    """The cache key of a captured chunk, JAX's ``_get_compiled_chunk``
+    key: the step, the config, the chunk length, and the structure,
+    shapes, dtypes and devices of problem and carry.  Returns ``(key,
+    leaves, keep)``: the problem's tensors in order, and the objects the
+    key names by identity (the entry keeps them alive)."""
+    leaves, keep = [], []
+    pspec = _spec(problem, leaves, keep)
+    cspec = tuple((k, tuple(v.shape), str(v.dtype), str(v.device))
+                  for k, v in sorted(carry.items()))
+    return (step, cfg, int(chunk), pspec, cspec), leaves, keep
+
+
+def _masked_steps(step, carry, k0, limit, n):
+    """``n`` iterations ``k = k0, k0 + 1, ...`` (``k0`` and ``limit`` 0-d
+    int64 tensors) with no host read: the carry freezes once ``done`` is
+    set or past ``limit``, and only the real stop persists into the carry
+    (JAX's ``_masked_scan_body``).  Returns the carry and the histories
+    packed into one float64 tensor (names x n) with their names and
+    dtypes."""
+    ks = k0 + torch.arange(n, device=k0.device)
+    rows = []
+    for i in range(n):
+        k = ks[i]
+        frozen = carry["done"] | (k >= limit)
+        new, h = step(carry, k)
+        h = dict(h)
+        h["_valid"] = torch.logical_not(frozen)
+        new = dict(new)
+        new["done"] = carry["done"] | new["done"] | h["_stop"]
+        carry = {key: torch.where(frozen, carry[key], new[key])
+                 for key in carry}
+        h["_done"] = carry["done"]  # the carry's flag, read with the rows
+        rows.append(h)
+    names = list(rows[0])
+    dtypes = [r.dtype if isinstance(r, torch.Tensor) else
+              torch.float64 for r in rows[0].values()]
+
+    def dev_row(v):
+        return (v if isinstance(v, torch.Tensor) else
+                torch.full((), v, dtype=torch.float64, device=k0.device))
+
+    packed = torch.stack([torch.stack([dev_row(r[name]) for r in rows])
+                          .to(torch.float64) for name in names])
+    return carry, packed, names, dtypes
+
+
+class _GraphChunk:
+    """One chunk of ``chunk`` iterations captured as a CUDA graph, with its
+    static buffers: the carry (read at the start of a replay and written
+    at its end), the problem's tensors, ``k0``, ``limit`` and the packed
+    histories."""
+
+    def __init__(self, step, cfg, chunk, problem, leaves, carry, keep,
+                 cached):
+        dev = carry["done"].device
+        self.keep = keep
+        self.leaves = [t.clone() for t in leaves]
+        self.problem = _rebuild(problem, iter(self.leaves))
+        self.carry = {k: v.clone() for k, v in carry.items()}
+        self.k0 = torch.zeros((), dtype=torch.int64, device=dev)
+        self.limit = torch.zeros((), dtype=torch.int64, device=dev)
+        run = ((lambda c, k: step(cfg, self.problem, c, k)) if cached
+               else step)
+        t = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # one step outside the capture: the libraries' handles and
+            # workspaces exist before the capture needs them
+            _masked_steps(run, self.carry, self.k0, self.limit, 1)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side):
+            # entering emptied the allocator's cache: what is reserved
+            # from here on is the graph's private pool
+            before = torch.cuda.memory_reserved(dev)
+            out, self.hist, self.names, self.dtypes = _masked_steps(
+                run, self.carry, self.k0, self.limit, chunk)
+            for k, v in out.items():
+                self.carry[k].copy_(v)
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t
+        static = self.leaves + list(self.carry.values())
+        # card memory the entry holds: its pool and its static inputs
+        self.pool_bytes = (torch.cuda.memory_reserved(dev) - before
+                           + sum(a.numel() * a.element_size() for a in static))
+        GRAPH_STATS["captures"] += 1
+        GRAPH_STATS["capture_s"] += self.capture_s
+
+    def load_problem(self, leaves):
+        for dst, src in zip(self.leaves, leaves):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+
+    def replay(self, carry, k0, limit):
+        """Run iterations ``k0 <= k < limit`` (at most a chunk) from
+        ``carry``; returns the carry (the static buffers), the host
+        histories and the carry's ``done``, read in one copy."""
+        for k, v in carry.items():
+            if v is not self.carry[k]:
+                self.carry[k].copy_(v)
+        self.k0.fill_(k0)
+        self.limit.fill_(limit)
+        self.graph.replay()
+        GRAPH_STATS["replays"] += 1
+        packed = self.hist.cpu().numpy()
+        hist = {name: packed[i].astype(_np_dtype(dt))
+                for i, (name, dt) in enumerate(zip(self.names, self.dtypes))}
+        return dict(self.carry), hist, bool(hist.pop("_done")[-1])
+
+
+def _np_dtype(dt):
+    return torch.empty((), dtype=dt).numpy().dtype
+
+
+def _graph_chunk(step, cfg, chunk, problem, carry, cached=True):
+    """The ``_GraphChunk`` for this solve, its static problem buffers
+    loaded with this problem's tensors: from the cache for the cached step
+    form (captured on a miss), captured for this call alone for the
+    closure form, as JAX compiles a closure per call."""
+    key, leaves, keep = graph_key(step, cfg, chunk, problem, carry)
+    if not cached:
+        return _GraphChunk(step, cfg, chunk, problem, leaves, carry, keep,
+                           False)
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        entry = _GraphChunk(step, cfg, chunk, problem, leaves, carry, keep,
+                            True)
+        _GRAPHS[key] = entry
+        while len(_GRAPHS) > _GRAPH_CACHE_CAP:
+            _GRAPHS.popitem(last=False)
+    else:
+        entry.load_problem(leaves)
+    _GRAPHS.move_to_end(key)
+    return entry
+
+
 def _frozen_steps(step, carry, k0, limit):
     """Iterations ``k0 <= k < limit`` with tensor scalars and no host read:
     the carry freezes through ``torch.where`` once done.  A host leaf (the
@@ -163,11 +464,12 @@ def _host_chunk(step, carry, k0, limit):
 
 def scan_full(step, carry, num_iters: int):
     """Run ``num_iters`` iterations of ``step`` with no early exit and no
-    host read (the JAX ``scan_full``, one compiled scan there): once
-    ``done`` is set the carry freezes through ``torch.where``.  Returns
-    ``(carry, hist)`` with ``hist`` the rows stacked into tensors along a
-    leading iteration axis, ``_valid`` and ``_stop`` included.  The carry's
-    leaves must be tensors (numbers are converted)."""
+    host read (the JAX ``scan_full``, one compiled scan there; here the
+    eager frozen steps): once ``done`` is set the carry freezes through
+    ``torch.where``.  Returns ``(carry, hist)`` with ``hist`` the rows
+    stacked into tensors along a leading iteration axis, ``_valid`` and
+    ``_stop`` included.  The carry's leaves must be tensors (numbers are
+    converted)."""
     carry, rows, _ = _frozen_steps(
         step, {k: torch.as_tensor(v) for k, v in carry.items()}, 0,
         num_iters)
@@ -188,18 +490,24 @@ def run_driver(
     chunk: Optional[int] = None,
     between_chunks: Optional[Callable] = None,
     checkpoint: Optional[str] = None,
-    fingerprint: str = "",
+    problem=None,
+    cfg=None,
     k_start: int = 0,
 ):
     """Run ``step`` for iterations ``k_start <= k < maxitrs`` in chunks.
+
+    Two step forms, as in JAX: the cached form ``step(cfg, problem, carry,
+    k)`` with ``problem`` given (a graph chunk is cached across solves of
+    the same shapes), and the closure form ``step(carry, k)`` for
+    ``problem=None`` (a graph chunk is cached for this step object).
 
     ``between_chunks(carry, k_next) -> carry`` runs on the host between
     chunks.  ``checkpoint``: path of an ``.npz`` saved at chunk boundaries
     (throttled to one save per ``CHECKPOINT_MIN_INTERVAL_S``, the final
     chunk always saved); if it exists when the run starts, the run resumes
-    from it exactly, even with another ``chunk`` or a larger budget.
-    ``fingerprint`` names the solver; a file saved under another name is
-    refused.
+    from it exactly, even with another ``chunk`` or a larger budget.  The
+    file records JAX's fingerprint of ``(step, cfg)``; a file saved under
+    another is refused.
 
     Returns ``(carry, hist, T)``: ``hist`` maps each history name to a host
     numpy array truncated at the stopping iteration (inclusive); ``T`` is
@@ -208,6 +516,10 @@ def run_driver(
     if maxitrs <= k_start:
         raise ValueError(f"maxitrs must be > {k_start}")
     chunk = max(1, int(chunk) if chunk else int(max(verbskip, 256)))
+    fp = _fingerprint(step, cfg)
+    if problem is not None:
+        raw = step
+        step = lambda c, k: raw(cfg, problem, c, k)  # noqa: E731
 
     if verbose and header:
         print(header)
@@ -218,22 +530,42 @@ def run_driver(
     t_spent = 0.0
     last_save = None
     if checkpoint is not None:
-        state = _load_checkpoint(checkpoint, carry, fingerprint)
+        state = _load_checkpoint(checkpoint, carry, fp)
         if state is not None:
             carry, block, k_next, t_spent = state
             if block is not None:
                 nrows = len(next(iter(block.values())))
                 blocks.append((block, 0.0, t_spent, nrows))
 
+    mode = chunk_mode(carry)
+    graph = None
+    if mode == "graph":
+        # chosen from the carry before any capture; JAX's cached form
+        # passes the problem as arguments, so its tensors (and numbers)
+        # go in through static buffers
+        if problem is not None:
+            graph = _graph_chunk(
+                raw, cfg, chunk,
+                _as_device_numbers(problem, carry["done"].device), carry)
+        else:
+            graph = _graph_chunk(step, None, chunk, None, carry,
+                                 cached=False)
+    chunk_fn = {"host": _host_chunk, "eager": _device_chunk}.get(mode)
+
     t0 = time.time() - t_spent
-    while k_next < maxitrs and not bool(carry["done"]):
+    done = bool(carry["done"])
+    while k_next < maxitrs and not done:
         t_a = time.time() - t0
         # the chunk grid is absolute, so hooks fire at the same k whether or
         # not the run was resumed from a checkpoint
         limit = min(maxitrs, (k_next // chunk + 1) * chunk)
-        chunk_fn = (_host_chunk if isinstance(carry["done"], bool)
-                    else _device_chunk)
-        carry, hist = chunk_fn(step, carry, k_next, limit)
+        if graph is not None:
+            carry, hist, done = graph.replay(carry, k_next, limit)
+            launched = chunk
+        else:
+            carry, hist = chunk_fn(step, carry, k_next, limit)
+            launched = len(hist["_valid"])
+            done = bool(carry["done"])
         t_b = time.time() - t0
         nv = int(hist["_valid"].sum())
         block = {name: v[:nv] for name, v in hist.items()}
@@ -242,7 +574,6 @@ def run_driver(
                 if v.dtype.kind == "f":
                     _scalar.check_finite(v.tolist(),
                                          f"the {name!r} history of a chunk")
-        launched = len(hist["_valid"])
         blocks.append((block, t_a, t_b, launched))
 
         if verbose and print_row is not None:
@@ -253,7 +584,6 @@ def run_driver(
                     print_row(k, row, t_a + (t_b - t_a) * j / launched)
 
         k_next += nv
-        done = bool(carry["done"])
         # the hook runs BEFORE the save, so a checkpoint holds exactly the
         # carry the next chunk consumes and resume replays the run bitwise
         if between_chunks is not None and not done and k_next < maxitrs:
@@ -264,10 +594,13 @@ def run_driver(
             if (final or last_save is None
                     or now - last_save >= CHECKPOINT_MIN_INTERVAL_S):
                 _save_checkpoint(checkpoint, carry, blocks, k_next,
-                                 now - t0, fingerprint)
+                                 now - t0, fp)
                 last_save = now
-        if done:
-            break
+
+    if graph is not None:
+        # the static buffers belong to the cached graph: a later replay
+        # must not overwrite what this solve returns
+        carry = {k: v.clone() for k, v in carry.items()}
 
     # concatenate + truncate with the reference's inclusive-stop semantics
     full = {name: np.concatenate([b[0][name] for b in blocks])

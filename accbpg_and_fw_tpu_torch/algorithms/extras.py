@@ -37,11 +37,6 @@ from .driver import run_driver
 _LS_MAX = 64  # doubling line searches multiply L by 2^t; 2^64 is past overflow
 
 
-def _fingerprint(step, cfg):
-    """The JAX driver's checkpoint identity of this step and config."""
-    return f"accbpg_and_fw_tpu.algorithms.extras.{step.__name__}|{cfg!r}"
-
-
 def _row(k, r, t):
     print("{0:6d}  {1:10.3e}  {2:10.3e}  {3:6.1f}".format(k, r["F"], r["G"],
                                                           t))
@@ -57,10 +52,9 @@ def _run_from_k1(step, cfg, prob, carry, maxitrs, F0, G0, header, verbose,
     if maxitrs <= 1:
         return carry["x"], np.array([F0]), np.array([G0]), np.zeros(1)
     carry, hist, T = run_driver(
-        lambda c, k: step(cfg, prob, c, k), carry, maxitrs, verbose=verbose,
-        verbskip=verbskip, header=None, print_row=_row, chunk=chunk,
-        checkpoint=checkpoint, fingerprint=_fingerprint(step, cfg),
-        k_start=1)
+        step, carry, maxitrs, verbose=verbose, verbskip=verbskip,
+        header=None, print_row=_row, chunk=chunk, checkpoint=checkpoint,
+        problem=prob, cfg=cfg, k_start=1)
     return (carry["x"], np.concatenate([[F0], hist["F"]]),
             np.concatenate([[G0], hist["G"]]), np.concatenate([[0.0], T]))
 
@@ -403,9 +397,8 @@ def PrimalDualSwitchingGradientMethod(f, h, L_init, cnstrnt_fun, x0, maxitrs,
                  dual_max_inner=int(dual_max_inner),
                  exact_dual_grad=bool(exact_dual_grad))
     carry, hist, T = run_driver(
-        lambda c, k: _pd_step(cfg, prob, c, k), carry, maxitrs,
-        verbose=verbose, verbskip=verbskip, header=header, print_row=row,
-        chunk=chunk, checkpoint=checkpoint,
-        fingerprint=_fingerprint(_pd_step, cfg))
+        _pd_step, carry, maxitrs, verbose=verbose, verbskip=verbskip,
+        header=header, print_row=row, chunk=chunk, checkpoint=checkpoint,
+        problem=prob, cfg=cfg)
     F = hist["F"][hist["productive"].astype(bool)]
     return np.asarray(F), hist["gap"], hist["Ls"]

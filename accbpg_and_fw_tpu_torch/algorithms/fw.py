@@ -17,9 +17,10 @@ trial computes its step on the host and reads f of its trial point back.
 So an iteration costs one host sync per trial on the card, and the host
 decides with the JAX expressions in the JAX order.
 
-``FW_alg_descent_step`` has no line search: its step 2/(k+2) is a host
-number, its stop test stays a device flag, and a chunk of iterations reads
-nothing back (the device-flag chunk mode of ``driver.py``).
+``FW_alg_descent_step`` has no line search: its stop test stays a device
+flag, and a chunk of iterations reads nothing back; on the card the chunk
+is a CUDA graph, its step 2/(k+2) computed on the card from the graph's
+``k`` (the ``"graph"`` chunk mode of ``driver.py``).
 
 Where the JAX drivers record a ``bad`` flag (the LMO returned a direction
 with <g, d> > delta) and raise after the run, the port raises the same
@@ -71,14 +72,6 @@ class _OnDevice:
     where = staticmethod(torch.where)
 
 
-def _fingerprint(step, cfg):
-    """The JAX driver's checkpoint identity: a config holding an LMO closure
-    has a repr with an address, so the type name stands for it."""
-    r = repr(cfg)
-    return (f"accbpg_and_fw_tpu.algorithms.fw.{step.__name__}|"
-            f"{type(cfg).__name__ if '0x' in r else r}")
-
-
 def _gdp_banded(g, d, delta):
     """<g,d> with the reference's band-zeroing: values in (0, delta] -> 0
     (a device scalar; the host reads it with the rest of the trial)."""
@@ -102,10 +95,10 @@ def _direction(cfg, h, x, g, delta):
 
 def _run(step, cfg, prob, carry, maxitrs, header, row, verbose, verbskip,
          chunk, checkpoint):
-    return run_driver(lambda c, k: step(cfg, prob, c, k), carry, maxitrs,
-                      verbose=verbose, verbskip=verbskip, header=header,
-                      print_row=row, chunk=chunk, checkpoint=checkpoint,
-                      fingerprint=_fingerprint(step, cfg))
+    return run_driver(step, carry, maxitrs, verbose=verbose,
+                      verbskip=verbskip, header=header, print_row=row,
+                      chunk=chunk, checkpoint=checkpoint, problem=prob,
+                      cfg=cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +207,10 @@ class _FWDescentCfg(NamedTuple):
 def _fw_descent_step(cfg, prob, c, k):
     f, h, eps = prob["f"], prob["h"], prob["eps"]
     d = cfg.lmo(c["g"]) - c["x"]
-    alpha = 2.0 / (k + 2.0)
+    # k: a host int, or in a graph chunk an int64 tensor on the card (JAX
+    # passes a traced int32); IEEE division gives the same step either way
+    kf = k.to(c["x"].dtype) if isinstance(k, torch.Tensor) else k
+    alpha = 2.0 / (kf + 2.0)
     x = c["x"] + alpha * d
     kc, (fx, g) = _draw(cfg, c, f.value_and_grad, x)
     Fk = fx + h.extra_psi(x)
@@ -252,10 +248,9 @@ def FW_alg_descent_step(f, h, x0, maxitrs, lmo, epsilon=1e-14, verbose=True,
     cfg = _FWDescentCfg(lmo=lmo, stochastic=_stoch_carry(f, carry, seed))
     prob = dict(f=f, h=h, eps=float(epsilon))
     carry, hist, T = run_driver(
-        lambda c, k: _fw_descent_step(cfg, prob, c, k), carry, maxitrs,
-        verbose=verbose, verbskip=verbskip, header=None, print_row=row,
-        chunk=chunk, checkpoint=checkpoint,
-        fingerprint=_fingerprint(_fw_descent_step, cfg), k_start=1)
+        _fw_descent_step, carry, maxitrs, verbose=verbose, verbskip=verbskip,
+        header=None, print_row=row, chunk=chunk, checkpoint=checkpoint,
+        problem=prob, cfg=cfg, k_start=1)
     F = np.concatenate([[F0], hist["F"]])
     T = np.concatenate([[0.0], T])
     return carry["x"], F, T, np.zeros_like(F)

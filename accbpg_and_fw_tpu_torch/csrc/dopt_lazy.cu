@@ -130,10 +130,11 @@ struct Params {
   int* iscr;          // int scratch, iwords per instance: barrier line (the
                       // entries zero it), pivot indices
   long long* prof;    // optional: CTA 0's clocks per phase (8 slots)
-  const int* kmax_b;  // (K) batch entry: per-instance kmax and done flag
-  const int* done_b;
+  const int* kmax_b;  // (K) batch entry: per-instance kmax
+  int* done_io;       // (K) stop flags, read at entry and written at exit,
+                      // so a launch hands its stop to the next on the card
   double eps, xtol;
-  int m, n, kr, kmax, done, away;
+  int m, n, kr, kmax, away;
   int group;                 // CTAs per instance
   int col_base, col_extra;   // CTA b owns col_base + (b < col_extra) columns
   int row_base, row_extra;   // and row_base + (b < row_extra) rows of H0
@@ -142,13 +143,13 @@ struct Params {
   int dwords, iwords;        // scratch per instance
 };
 
-// One instance's view of the launch: its pointers, kmax and done flag,
+// One instance's view of the launch: its pointers and kmax,
 // and this CTA's index b among the G CTAs of its group.
 struct Inst {
   const double *VT, *H0, *x_in, *w_in;
   double *x, *w, *C, *beta, *misc, *hist, *dscr;
   int* iscr;
-  int b, G, kmax, done;
+  int b, G, kmax;
 };
 
 template <bool kBatch>
@@ -171,7 +172,6 @@ __device__ __forceinline__ Inst instance(const Params& p) {
   q.dscr = p.dscr + k * p.dwords;
   q.iscr = p.iscr + k * p.iwords;
   q.kmax = kBatch ? p.kmax_b[k] : p.kmax;
-  q.done = kBatch ? p.done_b[k] : p.done;
   return q;
 }
 
@@ -179,6 +179,34 @@ __device__ __forceinline__ Inst instance(const Params& p) {
 // G owners, the first `extra` of which take one more.
 __device__ __forceinline__ int split_start(int b, int base, int extra) {
   return b * base + min(b, extra);
+}
+
+// A launch whose instance enters with its stop flag set (the rest of a
+// group after a stop by eps): this CTA hands x and w of its columns
+// through, CTA 0 writes the empty block's misc, and none waits at a
+// barrier.  The kernel tests the flag first, before it forms any of the
+// instance's pointers, and this path is inlined: the body then compiles as
+// it does without the test.  Tested inside the body, the exit changed the
+// body's register allocation and slowed every block on an H100; as a call
+// that is not inlined, far more.
+template <bool kBatch>
+__device__ __forceinline__ void enter_stopped(const Params& p) {
+  const size_t k = kBatch ? blockIdx.x / p.group : 0;
+  const int b = kBatch ? blockIdx.x % p.group : blockIdx.x;
+  const int c0 = split_start(b, p.col_base, p.col_extra);
+  const int pc = p.col_base + (b < p.col_extra ? 1 : 0);
+  const size_t off = k * p.n + c0;
+  for (int c = threadIdx.x; c < pc; c += kThreads) {
+    p.x[off + c] = p.x_in[off + c];
+    p.w[off + c] = p.w_in[off + c];
+  }
+  if (b == 0 && threadIdx.x == 0) {
+    double* misc = p.misc + k * 4;
+    misc[0] = 1.0;
+    misc[1] = 0.0;
+    misc[2] = 1.0;
+    misc[3] = 0.0;
+  }
 }
 
 // Barrier over the G CTAs of one group: one counter that only grows.  A
@@ -333,6 +361,12 @@ __device__ __forceinline__ void col_dots(const double* const* col,
 template <bool kBatch>
 __global__ void __launch_bounds__(kThreads, 1)
 dopt_lazy_kernel(Params p) {
+  // the stop flag is read before this CTA's first barrier arrival, which
+  // CTA 0's write of it at the end follows
+  if (p.done_io[kBatch ? blockIdx.x / p.group : 0]) {
+    enter_stopped<kBatch>(p);
+    return;
+  }
   const Inst I = instance<kBatch>(p);
   extern __shared__ __align__(16) double smem[];
   __shared__ double s_red[kWarps][kTileRows];
@@ -435,7 +469,7 @@ dopt_lazy_kernel(Params p) {
   lap(0);
 
   double alpha = 1.0;
-  bool done = I.done != 0;
+  bool done = false;
   int k = 0;
   while (k < I.kmax && !done) {
     // ---- phase 1, ahead of its inputs ------------------------------------
@@ -710,17 +744,19 @@ dopt_lazy_kernel(Params p) {
   }
 
   // beta of this CTA's rows of C (the threads that kept them write them)
-  for (int i = tid; b + i * G < k - (done && !I.done ? 1 : 0); i += kThreads)
+  for (int i = tid; b + i * G < k - (done ? 1 : 0); i += kThreads)
     I.beta[b + i * G] = s_beta[i];
   if (prof)
     for (int i = 0; i < kProfSlots; ++i) p.prof[i] = s_prof[i];
   if (b == 0 && tid == 0) {
     // only the stop row records without running
-    const bool stopped_here = done && !I.done;
     I.misc[0] = done ? 1.0 : 0.0;
     I.misc[1] = (double)k;
     I.misc[2] = alpha;
-    I.misc[3] = (double)(stopped_here ? k - 1 : k);
+    I.misc[3] = (double)(done ? k - 1 : k);
+    // the pointer comes from the launch parameters again: an instance's
+    // own would hold two registers through the loop
+    p.done_io[kBatch ? blockIdx.x / p.group : 0] = done ? 1 : 0;
   }
 }
 
@@ -744,14 +780,13 @@ Params make_params(const int* plan, const void* VT, const void* H0,
   p.iscr = static_cast<int*>(iscr);
   p.prof = nullptr;
   p.kmax_b = nullptr;
-  p.done_b = nullptr;
+  p.done_io = nullptr;
   p.eps = eps;
   p.xtol = xtol;
   p.m = m;
   p.n = n;
   p.kr = kr;
   p.kmax = 0;
-  p.done = 0;
   p.away = away;
   p.group = plan[kGroup];
   p.col_base = plan[kColBase];
@@ -852,14 +887,19 @@ int dopt_lazy_prepare(const int* plan, int m, int n, int kr, int batch,
   return (int)(batch ? prepare<true>(plan, info) : prepare<false>(plan, info));
 }
 
-// One launch block on `stream` under a prepared plan.  `prof` is null or
-// 8 zeroed int64 that CTA 0 adds its clocks per phase to.
-// Returns the launch's cudaError_t (0 when the kernel was enqueued).
+// One launch block on `stream` under a prepared plan.  `done_io` is a
+// device int: the launch leaves at once, handing x and w through, when it
+// is set at entry, and holds the launch's stop flag at exit.  `misc` and
+// `hist` may point into any slot of a larger buffer, so the blocks of a
+// group keep their rows apart.  `prof` is null or 8 zeroed int64 that CTA
+// 0 adds its clocks per phase to.  Returns the launch's cudaError_t (0
+// when the kernel was enqueued).
 int dopt_lazy_run(const int* plan, const void* VT, const void* H0,
                   const void* x_in, const void* w_in, void* x, void* w,
                   void* C, void* beta, void* misc, void* hist, void* dscr,
-                  void* iscr, void* prof, double eps, double xtol, int m,
-                  int n, int kr, int kmax, int done, int away, void* stream) {
+                  void* iscr, void* done_io, void* prof, double eps,
+                  double xtol, int m, int n, int kr, int kmax, int away,
+                  void* stream) {
   if (!plan_ok(plan, m, n, kr) || plan[kWave] != 1 || kmax < 0 || kmax > kr)
     return (int)cudaErrorInvalidValue;
   Params p = make_params(plan, VT, H0, x_in, w_in, x, w, C, beta, misc, hist,
@@ -869,19 +909,20 @@ int dopt_lazy_run(const int* plan, const void* VT, const void* H0,
   if (e != cudaSuccess) return (int)e;
   p.prof = static_cast<long long*>(prof);
   p.kmax = kmax;
-  p.done = done;
+  p.done_io = static_cast<int*>(done_io);
   return (int)launch<false>(p, plan[kGroup], plan[kSmemBytes], stream);
 }
 
 // One launch block for each of K instances (stacked along a leading axis;
-// per-instance kmax and done flags in the device int arrays kmax_b and
-// done_b), in waves of plan[kWave] instances, one cooperative launch each,
-// on `stream`.  Returns the first failing launch's cudaError_t, or 0.
+// per-instance kmax in the device int array kmax_b, stop flags in and out
+// in done_io as for dopt_lazy_run), in waves of plan[kWave] instances, one
+// cooperative launch each, on `stream`.  Returns the first failing
+// launch's cudaError_t, or 0.
 int dopt_lazy_batch_run(const int* plan, const void* VT, const void* H0,
                         const void* x_in, const void* w_in, void* x, void* w,
                         void* C, void* beta, void* misc, void* hist,
                         void* dscr, void* iscr, const void* kmax_b,
-                        const void* done_b, double eps, double xtol, int m,
+                        void* done_io, double eps, double xtol, int m,
                         int n, int kr, int K, int away, void* stream) {
   if (!plan_ok(plan, m, n, kr) || K < 1) return (int)cudaErrorInvalidValue;
   const size_t mn = (size_t)m * n, mm = (size_t)m * m;
@@ -906,7 +947,7 @@ int dopt_lazy_batch_run(const int* plan, const void* VT, const void* H0,
         static_cast<int*>(iscr) + (size_t)k0 * plan[kIwords], eps, xtol, m, n,
         kr, away);
     p.kmax_b = static_cast<const int*>(kmax_b) + k0;
-    p.done_b = static_cast<const int*>(done_b) + k0;
+    p.done_io = static_cast<int*>(done_io) + k0;
     e = launch<true>(p, kw * plan[kGroup], plan[kSmemBytes], stream);
     if (e != cudaSuccess) return (int)e;
   }

@@ -4,8 +4,8 @@ Ports of ``accbpg_and_fw_tpu/ops/pallas_dopt.py``: the fresh FP64
 factorization ``_factorize_np`` (here on the tensor's own device), the
 launch-block checkpoint ``.npz`` of ``_pallas_ckpt_save``/``_load`` (same
 keys, version and fingerprint check, so either package resumes a file the
-other wrote), and the single-instance host block loop that
-``dopt_fw_pallas`` and ``dopt_fw_pallas_lazy`` each wrote out
+other wrote), and the single-instance host loop over groups of launch
+blocks that ``dopt_fw_pallas`` and ``dopt_fw_pallas_lazy`` each wrote out
 (``run_blocks``).  Also the plain blocks' pivots and step scalars, the F
 rebuild from the recorded (tau, tau (w_v - 1)) pairs, and the operand
 checks of the block wrappers.
@@ -148,23 +148,28 @@ def ckpt_load(path, fp):
 
 def run_blocks(launch, fresh_state, x0, m, eps, maxitrs, *, block_len,
                verbose, verbskip, refresh_every, checkpoint, fingerprint,
-               title):
-    """The single-instance host loop around a launch block, as both JAX
+               title, group=1):
+    """The single-instance host loop around launch blocks, as both JAX
     block engines run it, for an (m, n) design.  Returns
     ``(x, F, SP, SN, T)``.
 
     ``fresh_state(x)`` is the state of a fresh FP64 factorization at
     ``x``, a dict holding at least ``x`` and ``ld`` (its logdet, a float).
-    ``launch(state, kmax)`` runs one block of up to ``kmax`` iterations
-    and returns ``(state, done, hist)``: ``hist`` (numpy, 5 x rows) holds
-    ``tau``, ``tau (w_v - 1)``, ``SP``, ``SN`` and the pivot for the rows
-    up to and including the stop row, so F is rebuilt from it here and
-    the run is truncated at its first row with SP <= eps and SN <= eps.
+    ``launch(state, kmaxes)`` enqueues one group of blocks, block b of up
+    to ``kmaxes[b]`` iterations, reads their rows in one round trip and
+    returns ``(state, blocks)``, one ``(done, hist)`` per block: ``hist``
+    (numpy, 5 x rows) holds ``tau``, ``tau (w_v - 1)``, ``SP``, ``SN`` and
+    the pivot for the rows up to and including the stop row, so F is
+    rebuilt from it here and the run is truncated at its first row with
+    SP <= eps and SN <= eps.  A group holds up to ``group`` blocks and
+    never reaches past the budget.
 
-    ``refresh_every``: a fresh factorization from the iterate at the first
-    block boundary at or past every R iterations.  ``checkpoint``: an
-    ``.npz`` snapshot at every block boundary, saved under
-    ``fingerprint`` (the JAX engine's), from which a resume refactorizes.
+    At group boundaries, as JAX has them: ``refresh_every``, a fresh
+    factorization from the iterate once R iterations have run since the
+    last; ``checkpoint``, an ``.npz`` snapshot saved under
+    ``fingerprint`` (the JAX engine's), from which a resume
+    refactorizes; the verbose rows.  ``T`` is the wall time interpolated
+    across each group's rows.
     """
     n = len(x0)
     if verbose:
@@ -192,28 +197,41 @@ def run_blocks(launch, fresh_state, x0, m, eps, maxitrs, *, block_len,
     t0 = time.time() - t_prev
 
     while k_done < maxitrs:
-        state, done, hist = launch(state, min(block_len, maxitrs - k_done))
-        nv = hist.shape[1]
+        kmaxes = [min(block_len, maxitrs - k_done - b * block_len)
+                  for b in range(max(1, int(group)))
+                  if k_done + b * block_len < maxitrs]
+        state, blocks = launch(state, kmaxes)
         t_b = time.time() - t0
         t_a = T_parts[-1][-1] if T_parts and len(T_parts[-1]) else 0.0
-        F_rows, ld = f_rows(state["ld"], hist[0], hist[1], m)
-        state["ld"] = float(ld)
+        k_first, stopped, parts = k_done, False, []
+        for done, hist in blocks:
+            # F block by block from the running logdet, as JAX rebuilds
+            # it, so that a group gives the bits of its blocks one by one
+            F_rows, ld = f_rows(state["ld"], hist[0], hist[1], m)
+            state["ld"] = float(ld)
+            parts.append((F_rows, hist[2], hist[3]))
+            k_done += hist.shape[1]
+            if done or hist.shape[1] == 0:
+                stopped = True
+                break
+        F_rows, SP_rows, SN_rows = (np.concatenate(p) for p in zip(*parts))
+        rows = len(F_rows)
         F_parts.append(F_rows)
-        SP_parts.append(hist[2])
-        SN_parts.append(hist[3])
-        T_parts.append(t_a + (t_b - t_a) * (np.arange(nv) + 1) / max(nv, 1))
+        SP_parts.append(SP_rows)
+        SN_parts.append(SN_rows)
+        T_parts.append(t_a + (t_b - t_a) * (np.arange(rows) + 1)
+                       / max(rows, 1))
         if verbose:
-            for r in range(nv):
-                if (k_done + r) % verbskip == 0:
-                    print(ROW.format(k_done + r, F_rows[r], hist[2, r],
-                                     hist[3, r], T_parts[-1][r]))
-        k_done += nv
-        since_refresh += nv
+            for r in range(rows):
+                if (k_first + r) % verbskip == 0:
+                    print(ROW.format(k_first + r, F_rows[r], SP_rows[r],
+                                     SN_rows[r], T_parts[-1][r]))
+        since_refresh += rows
         if checkpoint is not None:
             ckpt_save(checkpoint, fingerprint, state["x"].cpu().numpy(),
                       k_done, (F_parts, SP_parts, SN_parts, T_parts),
                       time.time() - t0)
-        if done or nv == 0:
+        if stopped:
             break
         if refresh_every and since_refresh >= refresh_every:
             # resets ld to the exact logdet of the refreshed iterate

@@ -392,14 +392,15 @@ def dopt_fw_dense(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
         H, w, ld = factorize(V, x)
         return dict(x=x, w=w, H=H, ld=float(ld))
 
-    def launch(state, kmax):
+    def launch(state, kmaxes):
+        (kmax,) = kmaxes  # a group of one block
         blk = dense_block(Vb, state["H"][None], state["x"][None],
                           state["w"][None], eps=eps, kmax=kmax, away=away,
                           VTs=VTb)
         misc = blk.misc[0].cpu().numpy()  # the launch's one round trip
         hist = blk.hist[0].cpu().numpy()
         state.update(x=blk.x[0], w=blk.w[0], H=blk.H[0])
-        return state, misc[0] > 0.5, hist[:, :int(misc[1])]
+        return state, [(misc[0] > 0.5, hist[:, :int(misc[1])])]
 
     name = ("Frank-Wolfe method with away steps" if away
             else "Frank-Wolfe method")

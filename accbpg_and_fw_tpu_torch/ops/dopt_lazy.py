@@ -7,9 +7,12 @@ block of up to ``_KR`` iterations the inverse is carried lazily,
 
 with H0 frozen: each iteration appends g = H v as a row of C with
 beta = -c and rescales alpha and beta by 1/(1 - tau), so no m^2 work runs
-per iteration.  Between blocks the host folds the rank buffer back,
-H0' = alpha H0 + C^T diag(beta) C, and rebuilds the F history in f64 from
-the recorded (tau, tau (w_v - 1)) pairs.
+per iteration.  Between blocks the rank buffer is folded back on the
+device, H0' = alpha H0 + C^T diag(beta) C, and the host rebuilds the F
+history in f64 from the recorded (tau, tau (w_v - 1)) pairs.  As in the
+JAX engine's multi-block dispatch, the drivers enqueue a group of blocks
+and their folds with no host read (the stop flag passes from launch to
+launch on the card) and read the group's rows in one copy.
 
 The TPU kernel carried double-single pairs and int8 digit planes because
 Mosaic has no f64; here the whole block runs in FP64.  ``lazy_block`` is
@@ -26,7 +29,8 @@ the groups and waves for K instances) is decided here, in ``launch_plan``,
 from the SM count and the shared-memory limit, and handed to the C
 entries.  A driver prepares the kernel once per solve (``_LazyKernel``:
 the plan checked against the device, scratch and output buffers allocated
-once) and reads a block's rows back in one copy.
+once, a slot of rows per block of a group) and reads a group's rows back
+in one copy.
 """
 
 from __future__ import annotations
@@ -257,7 +261,7 @@ def _kernel_lib():
     lib.dopt_lazy_plan_len.restype = i
     lib.dopt_lazy_prepare.argtypes = [ip, i, i, i, i, ip]
     lib.dopt_lazy_prepare.restype = i
-    lib.dopt_lazy_run.argtypes = ([ip] + [p] * 13 + [d, d] + [i] * 6 + [p])
+    lib.dopt_lazy_run.argtypes = ([ip] + [p] * 14 + [d, d] + [i] * 5 + [p])
     lib.dopt_lazy_run.restype = i
     lib.dopt_lazy_batch_run.argtypes = ([ip] + [p] * 14 + [d, d] + [i] * 5
                                         + [p])
@@ -273,12 +277,17 @@ class _LazyKernel:
     output buffers, which every ``run`` reuses.
 
     ``VT`` is ``V.T.contiguous()`` (n, m) for the single-instance entry or
-    ``Vs.transpose(1, 2).contiguous()`` (K, n, m) for the batch entry.  A
-    block's C, beta, misc and hist are overwritten by the next ``run``; x
-    and w alternate between two buffers, so a block's x and w may be the
-    next block's inputs."""
+    ``Vs.transpose(1, 2).contiguous()`` (K, n, m) for the batch entry.
+    ``slots``: the blocks of one group, each of which writes its ``misc``
+    and ``hist`` rows into a slot of its own, so that ``host_rows`` reads
+    the whole group in one copy.  A block's C and beta are overwritten by
+    the next ``run``; x and w alternate between two buffers, so a block's
+    x and w may be the next block's inputs.  The stop flags live on the
+    card (one int per instance): a launch reads them at entry, leaves at
+    once where one is set, and writes its own at exit, so a group of
+    launches carries its stop with no host read."""
 
-    def __init__(self, VT):
+    def __init__(self, VT, slots=1):
         if (VT.dtype != torch.float64 or VT.device.type != "cuda"
                 or VT.dim() not in (2, 3) or not VT.is_contiguous()):
             raise ValueError("VT must be a contiguous float64 CUDA tensor, "
@@ -288,6 +297,7 @@ class _LazyKernel:
         self.K = VT.shape[0] if self.batch else 1
         self.n, self.m = VT.shape[-2:]
         self.kr = _KR
+        self.slots = max(1, int(slots))
         K, m, n, kr = self.K, self.m, self.n, self.kr
         if m > _MAX_M:
             raise ValueError(f"the lazy kernel takes m <= {_MAX_M}, got {m}")
@@ -302,14 +312,17 @@ class _LazyKernel:
                 self._plan, m, n, kr, int(self.batch), info), "prepare")
         self.regs = info[0]  # registers per thread, as compiled
         f64 = dict(dtype=torch.float64, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
         self._xw = torch.empty((2, 2, K, n), **f64)  # two (x, w) pairs
         self._turn = 0
         self._C = torch.empty((K, kr, m), **f64)
         self._beta = torch.empty((K, kr), **f64)
-        self._rows = torch.empty(K * (4 + 5 * kr), **f64)  # misc, then hist
+        # per slot: misc (K, 4), then hist (K, 5, kr)
+        self._rows = torch.empty((self.slots, K * (4 + 5 * kr)), **f64)
         self._dscr = torch.empty(K * self.plan.dwords, **f64)
-        self._iscr = torch.empty(K * self.plan.iwords, dtype=torch.int32,
-                                 device=dev)
+        self._iscr = torch.empty(K * self.plan.iwords, **i32)
+        self._done = torch.zeros(K, **i32)
+        self._kmax = {}  # batch entry: a device kmax array per value
 
     def _check(self, err, what):
         if err:
@@ -317,47 +330,74 @@ class _LazyKernel:
                 f"dopt_lazy {what} failed: "
                 + self.lib.dopt_lazy_error_string(err).decode())
 
-    def run(self, H0, x, w, *, eps, kmax, done, away, xtol, prof=None):
-        """Launch one block from ``(H0, x, w)`` and count it.  Single
-        entry: ``kmax`` an int and ``done`` a bool; batch entry: one of
-        each per instance (``done`` may be None).  ``prof``: a zeroed int64
-        tensor of 8 that CTA 0 adds its clocks per phase to."""
+    def _set_done(self, done):
+        """Set the stop flags on the card: a fill where they all agree
+        (no copy from the host), else one copy."""
+        flags = [bool(d) for d in done] if self.batch else [bool(done)]
+        if len(flags) != self.K:
+            raise ValueError(f"done needs one flag per instance ({self.K})")
+        if len(set(flags)) == 1:
+            self._done.fill_(int(flags[0]))
+        else:
+            self._done.copy_(torch.tensor(flags, dtype=torch.int32))
+
+    def _kmax_array(self, kmax):
+        """The batch entry's per-instance kmax as a device int array, made
+        on the card once per value where every instance takes the same."""
+        each = ([int(kmax)] * self.K if isinstance(kmax, (int, np.integer))
+                else [int(q) for q in kmax])
+        if len(set(each)) != 1:
+            return torch.tensor(each, dtype=torch.int32).to(self.dev)
+        if each[0] not in self._kmax:
+            self._kmax[each[0]] = torch.full((self.K,), each[0],
+                                             dtype=torch.int32,
+                                             device=self.dev)
+        return self._kmax[each[0]]
+
+    def run(self, H0, x, w, *, eps, kmax, away, xtol, done=None, slot=0,
+            prof=None):
+        """Launch one block from ``(H0, x, w)`` into ``slot`` and count it.
+        ``kmax``: an int (single entry), an int or one per instance (batch
+        entry).  ``done``: None carries the stop flags on the card from
+        the previous launch (a fresh kernel's are clear); a bool (one per
+        instance for the batch entry) sets them first.  ``prof``: a zeroed
+        int64 tensor of 8 that CTA 0 adds its clocks per phase to."""
         global LAUNCHES, BATCH_LAUNCHES
         K, m, n, kr = self.K, self.m, self.n, self.kr
         lead = (K,) if self.batch else ()
         check_operands(self.dev, (("H0", H0, lead + (m, m)),
                                   ("x", x, lead + (n,)),
                                   ("w", w, lead + (n,))))
+        if not 0 <= slot < self.slots:
+            raise ValueError(f"slot {slot} outside [0, {self.slots})")
         pair = self._xw[self._turn]
         if x.data_ptr() == pair[0].data_ptr() or \
                 w.data_ptr() == pair[1].data_ptr():
             self._turn ^= 1
             pair = self._xw[self._turn]
         self._turn ^= 1
-        misc = self._rows[:4 * K].view(K, 4)
-        hist = self._rows[4 * K:].view(K, 5, kr)
+        misc = self._rows[slot, :4 * K].view(K, 4)
+        hist = self._rows[slot, 4 * K:].view(K, 5, kr)
         ptrs = (self.VT.data_ptr(), H0.data_ptr(), x.data_ptr(),
                 w.data_ptr(), pair[0].data_ptr(), pair[1].data_ptr(),
                 self._C.data_ptr(), self._beta.data_ptr(), misc.data_ptr(),
                 hist.data_ptr(), self._dscr.data_ptr(),
                 self._iscr.data_ptr())
         with torch.cuda.device(self.dev):
+            if done is not None:
+                self._set_done(done)
             stream = torch.cuda.current_stream(self.dev).cuda_stream
             if self.batch:
-                done = [False] * K if done is None else done
-                flags = torch.tensor([[int(q) for q in kmax],
-                                      [int(bool(d)) for d in done]],
-                                     dtype=torch.int32).to(self.dev)
                 err = self.lib.dopt_lazy_batch_run(
-                    self._plan, *ptrs, flags[0].data_ptr(),
-                    flags[1].data_ptr(), float(eps), float(xtol), m, n, kr,
+                    self._plan, *ptrs, self._kmax_array(kmax).data_ptr(),
+                    self._done.data_ptr(), float(eps), float(xtol), m, n, kr,
                     K, int(bool(away)), stream)
             else:
                 err = self.lib.dopt_lazy_run(
-                    self._plan, *ptrs,
+                    self._plan, *ptrs, self._done.data_ptr(),
                     None if prof is None else prof.data_ptr(), float(eps),
-                    float(xtol), m, n, kr, int(kmax), int(bool(done)),
-                    int(bool(away)), stream)
+                    float(xtol), m, n, kr, int(kmax), int(bool(away)),
+                    stream)
         self._check(err, "kernel launch")
         if self.batch:
             BATCH_LAUNCHES += self.plan.waves
@@ -367,42 +407,61 @@ class _LazyKernel:
         return LazyBlock(pair[0, 0], pair[1, 0], self._C[0], self._beta[0],
                          misc[0], hist[0])
 
-    def host_rows(self):
-        """The last block's ``(misc, hist)`` as numpy arrays, in one copy
-        to the host (the block's one round trip)."""
-        rows = self._rows.cpu().numpy()
+    def host_rows(self, blocks=1):
+        """The ``misc`` and ``hist`` rows of the first ``blocks`` slots as
+        numpy arrays with a leading block axis, in one copy to the host
+        (the group's one round trip)."""
+        rows = self._rows[:blocks].cpu().numpy()
         K, kr = self.K, self.kr
-        misc = rows[:4 * K].reshape(K, 4)
-        hist = rows[4 * K:].reshape(K, 5, kr)
-        return (misc, hist) if self.batch else (misc[0], hist[0])
+        misc = rows[:, :4 * K].reshape(blocks, K, 4)
+        hist = rows[:, 4 * K:].reshape(blocks, K, 5, kr)
+        return (misc, hist) if self.batch else (misc[:, 0], hist[:, 0])
 
 
 class _PlainBlocks:
     """The plain version behind ``_LazyKernel``'s interface, for a design
-    (m, n) or a stack of designs (K, m, n) on the CPU."""
+    (m, n) or a stack of designs (K, m, n) on the CPU: the same slots, and
+    the stop flags carried from block to block."""
 
-    def __init__(self, V):
+    def __init__(self, V, slots=1):
         self.V = V
         self.batch = V.dim() == 3
+        self.K = V.shape[0] if self.batch else 1
+        self._blks = [None] * max(1, int(slots))
+        self._done = [False] * self.K
 
-    def run(self, H0, x, w, *, eps, kmax, done, away, xtol):
-        ref = (lazy_block_batch_reference if self.batch
-               else lazy_block_reference)
-        self._blk = ref(self.V, H0, x, w, eps=eps, kmax=kmax, done=done,
-                        away=away, xtol=xtol)
-        return self._blk
+    def run(self, H0, x, w, *, eps, kmax, away, xtol, done=None, slot=0):
+        if done is not None:
+            self._done = list(done) if self.batch else [bool(done)]
+        if self.batch:
+            kmax = ([int(kmax)] * self.K
+                    if isinstance(kmax, (int, np.integer)) else kmax)
+            blk = lazy_block_batch_reference(
+                self.V, H0, x, w, eps=eps, kmax=kmax, done=self._done,
+                away=away, xtol=xtol)
+            self._done = [bool(q) for q in blk.misc[:, 0] > 0.5]
+        else:
+            blk = lazy_block_reference(self.V, H0, x, w, eps=eps,
+                                       kmax=kmax, done=self._done[0],
+                                       away=away, xtol=xtol)
+            self._done = [bool(blk.misc[0] > 0.5)]
+        self._blks[slot] = blk
+        return blk
 
-    def host_rows(self):
-        return self._blk.misc.numpy(), self._blk.hist.numpy()
+    def host_rows(self, blocks=1):
+        blks = self._blks[:blocks]
+        return (np.stack([b.misc.numpy() for b in blks]),
+                np.stack([b.hist.numpy() for b in blks]))
 
 
-def _prepared(V, VT=None):
+def _prepared(V, VT=None, slots=1):
     """What runs the blocks of a design ``V`` (m, n) or of a stack (K, m,
-    n): the Hopper kernel on a CUDA tensor, the plain version on a CPU
-    tensor, and nothing else.  ``VT`` is ``V.transpose(-2, -1).contiguous()``
-    where the caller holds it already (the kernel reads it)."""
+    n), with ``slots`` blocks to a group: the Hopper kernel on a CUDA
+    tensor, the plain version on a CPU tensor, and nothing else.  ``VT`` is
+    ``V.transpose(-2, -1).contiguous()`` where the caller holds it already
+    (the kernel reads it)."""
     if V.device.type == "cpu":
-        return _PlainBlocks(V)
+        return _PlainBlocks(V, slots)
     if V.device.type != "cuda":
         raise ValueError(f"the lazy-H block runs on cpu or cuda, not "
                          f"{V.device}")
@@ -411,7 +470,7 @@ def _prepared(V, VT=None):
     elif VT.device != V.device or VT.shape != V.transpose(-2, -1).shape:
         raise ValueError("VT must be V.transpose(-2, -1).contiguous() "
                          "(float64, same device)")
-    return _LazyKernel(VT)
+    return _LazyKernel(VT, slots)
 
 
 def lazy_block_batch_reference(Vs, H0s, xs, ws, *, eps, kmax, done=None,
@@ -456,51 +515,90 @@ def lazy_block_batch(Vs, H0s, xs, ws, *, eps, kmax, done=None, away=True,
                                   away=away, xtol=xtol)
 
 
-def _lazy_refresh(H0, C, beta, alpha):
+def _live_rows(C, beta, nrun):
+    """C and beta with the rows at and past ``nrun`` (a device count, one
+    per instance for a stack) set to zero: those rows are unspecified, and
+    the mask keeps the fold free of a host read of ``nrun``."""
+    live = (torch.arange(C.shape[-2], device=C.device)
+            < torch.as_tensor(nrun, device=C.device)[..., None])
+    return (torch.where(live[..., None], C, 0.0),
+            torch.where(live, beta, 0.0))
+
+
+def _lazy_refresh(H0, C, beta, alpha, nrun=None):
     """Fold the block's rank buffer back: H0' = alpha H0 + C^T diag(beta) C
-    (an FP64 matmul outside the kernel, as the JAX package leaves it to
-    XLA)."""
+    over the ``nrun`` rows that ran (all rows for None), an FP64 matmul
+    outside the kernel, as the JAX package leaves it to XLA.  A block that
+    ran no iteration (alpha = 1) leaves H0 as it was."""
+    if nrun is not None:
+        C, beta = _live_rows(C, beta, nrun)
     return alpha * H0 + (C.T * beta) @ C
 
 
+def _group_size(maxitrs, refresh_every, checkpoint, cap):
+    """JAX's default launch blocks per host round trip: the whole budget
+    rounded to a power of two (never below 8), at most ``cap``, at most the
+    refresh cadence's blocks, and at most 32 under a checkpoint (the
+    snapshot cadence)."""
+    nb = min(_next_pow2(max(1, -(-maxitrs // _KR))), cap)
+    if refresh_every:
+        nb = min(nb, _next_pow2(max(1, -(-refresh_every // _KR))))
+    if checkpoint:
+        nb = min(nb, 32)
+    return nb
+
+
 def dopt_fw_lazy(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
-                 chunk=None, refresh_every=0, checkpoint=None, device=None):
+                 chunk=None, refresh_every=0, checkpoint=None, device=None,
+                 group=None):
     """D-opt FW(-away) through lazy-H blocks (the port of
     ``dopt_fw_pallas_lazy``).  Same contract as ``D_opt_FW_away``: returns
     ``(x, F, SP, SN, T)`` truncated at the stopping iteration (``chunk`` is
     accepted and unused: a block is ``_KR`` iterations).
 
+    ``group``: launch blocks per host round trip (JAX's default for None:
+    the whole budget, up to 256 blocks, capped by ``refresh_every`` and a
+    checkpoint).  The blocks of a group and their H0 folds are enqueued
+    with no host read, the stop flag passing from block to block on the
+    card; one copy then reads the group's rows.  Blocks past the budget
+    are never enqueued, so only a stop by eps inside a group leaves frozen
+    launches (each leaves at once) behind it.
+
     ``refresh_every``: full FP64 refactorization cadence, rounded UP to
-    block boundaries.  ``checkpoint``: ``.npz`` snapshot at every block
+    group boundaries.  ``checkpoint``: ``.npz`` snapshot at every group
     boundary, the JAX ``dopt_fw_pallas_lazy`` format and fingerprint; a
     resume refactorizes from the saved iterate."""
     dev = resolve_device(device, like=V)
     V = as_f64(V, dev).contiguous()
     m, n = V.shape
-    # prepared once for the solve (on the card: plan, scratch and output
-    # buffers; C and beta are folded before the next launch)
-    kernel = _prepared(V)
+    G = (_group_size(maxitrs, refresh_every, checkpoint is not None, 256)
+         if group is None else max(1, int(group)))
+    # prepared once for the solve (on the card: plan, scratch, output
+    # buffers with one slot per block of a group, the stop flag)
+    kernel = _prepared(V, slots=G)
 
     def fresh_state(x):
         H0, w, ld = factorize(V, x)
         return dict(x=x, w=w, H0=H0, ld=float(ld))
 
-    def launch(state, kmax):
-        blk = kernel.run(state["H0"], state["x"], state["w"], eps=eps,
-                         kmax=kmax, done=False, away=away, xtol=XTOL)
-        misc, hist = kernel.host_rows()
-        nrun = int(misc[3])
-        if nrun:
-            state["H0"] = _lazy_refresh(state["H0"], blk.C[:nrun],
-                                        blk.beta[:nrun], blk.misc[2])
-        state["x"], state["w"] = blk.x, blk.w
-        return state, misc[0] > 0.5, hist[:, :int(misc[1])]
+    def launch(state, kmaxes):
+        H0, x, w = state["H0"], state["x"], state["w"]
+        for slot, kmax in enumerate(kmaxes):
+            blk = kernel.run(H0, x, w, eps=eps, kmax=kmax, away=away,
+                             xtol=XTOL, slot=slot)
+            H0 = _lazy_refresh(H0, blk.C, blk.beta, blk.misc[2],
+                               blk.misc[3])
+            x, w = blk.x, blk.w
+        state.update(H0=H0, x=x, w=w)
+        misc, hist = kernel.host_rows(len(kmaxes))
+        return state, [(misc[b, 0] > 0.5, hist[b, :, :int(misc[b, 1])])
+                       for b in range(len(kmaxes))]
 
     name = ("Frank-Wolfe method with away steps" if away
             else "Frank-Wolfe method")
     return run_blocks(
         launch, fresh_state, as_f64(x0, dev), m, eps, maxitrs,
-        block_len=_KR, verbose=verbose, verbskip=verbskip,
+        block_len=_KR, group=G, verbose=verbose, verbskip=verbskip,
         refresh_every=refresh_every, checkpoint=checkpoint,
         fingerprint=(f"dopt_fw_pallas_lazy|m={m}|n={n}|away={bool(away)}"
                      f"|eps={float(eps)!r}"),
@@ -508,17 +606,10 @@ def dopt_fw_lazy(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
 
 
 def _lazy_refresh_batch(H0s, C, beta, alpha, nrun):
-    """``_lazy_refresh`` for K instances in one batched GEMM.  Rows at and
-    past ``nrun[k]`` of C and beta are unspecified and are masked out, so
-    an instance that ran no iteration (alpha = 1) keeps its H0 bit for
-    bit."""
-    top = int(max(nrun))
-    if top == 0:
-        return H0s
-    live = (torch.arange(top, device=C.device)
-            < torch.as_tensor(nrun, device=C.device)[:, None])
-    Cm = torch.where(live[..., None], C[:, :top], 0.0)
-    bm = torch.where(live, beta[:, :top], 0.0)
+    """``_lazy_refresh`` for K instances in one batched GEMM, each over its
+    own ``nrun[k]`` rows (a device array: no host read), so an instance
+    that ran no iteration (alpha = 1) keeps its H0 bit for bit."""
+    Cm, bm = _live_rows(C, beta, nrun)
     return torch.baddbmm(H0s * alpha[:, None, None],
                          Cm.transpose(1, 2) * bm[:, None, :], Cm)
 
@@ -557,20 +648,25 @@ def dopt_fw_lazy_batch(Vs, x0s, eps, num_iters, away=True, group=None,
     row count; an instance stops at its first row with SP <= eps and
     SN <= eps and its later rows repeat that row.
 
-    Each block runs every live instance (a stopped one re-enters with
-    kmax = 0 and keeps its state), then one batched fold.
-    ``refresh_every``: the w-only refresh w = diag(V^T H0 V) from the
-    folded H0, on the JAX cadence: the JAX engine dispatched ``group``
-    blocks at a time (by default ``nb = min(next_pow2(ceil(num_iters /
-    256)), 32)``, capped at ``next_pow2(ceil(refresh_every / 256))``, with
-    next_pow2 never below 8) and refreshed after a dispatch once
-    ``nb * 256 >= refresh_every`` iterations had accumulated; here the
-    same count of blocks makes one round."""
+    ``group``: launch blocks per host round trip (JAX's default for None:
+    ``min(next_pow2(ceil(num_iters / 256)), 32)``, with next_pow2 never
+    below 8, capped at ``next_pow2(ceil(refresh_every / 256))``).  Each
+    block runs every instance and one batched fold follows; the stop
+    flags pass from block to block on the card (a stopped instance's
+    launch leaves at once and keeps its state), and one copy reads the
+    group's rows.  The live instances run in lockstep (each block takes
+    the same ``kmax``), so the host knows every block's budget in advance
+    and enqueues none past it.  ``refresh_every``: the w-only refresh
+    w = diag(V^T H0 V) from the folded H0 after a group once
+    ``group * 256 >= refresh_every`` iterations have accumulated, JAX's
+    cadence."""
     dev = resolve_device(device, like=Vs)
     Vs = as_f64(Vs, dev).contiguous()
     K, m, n = Vs.shape
     x = as_f64(x0s, dev).clone()
-    kernel = _prepared(Vs)
+    nb = (_group_size(num_iters, refresh_every, False, 32) if group is None
+          else max(1, int(group)))
+    kernel = _prepared(Vs, slots=nb)
     parts = [factorize(Vs[k], x[k]) for k in range(K)]
     H0 = torch.stack([p[0] for p in parts])
     w = torch.stack([p[1] for p in parts])
@@ -581,40 +677,35 @@ def dopt_fw_lazy_batch(Vs, x0s, eps, num_iters, away=True, group=None,
         i, wi, j, wj = pivots(w[k], x[k], away, XTOL)
         first.append((-ld[k], (wi - m_f) / m_f, (m_f - wj) / m_f))
 
-    if group is None:
-        nb = min(_next_pow2(max(1, -(-num_iters // _KR))), 32)
-        if refresh_every:
-            nb = min(nb, _next_pow2(max(1, -(-refresh_every // _KR))))
-    else:
-        nb = max(1, int(group))
     rows = [([], [], []) for _ in range(K)]
     stopped = np.zeros(K, bool)
     emitted = np.zeros(K, np.int64)
+    k_done = 0  # rows every live instance has run (they run in lockstep)
     since_refresh = 0
-    while (~stopped).any() and (emitted[~stopped] < num_iters).any():
-        for _ in range(nb):
-            if stopped.all():
-                break  # the rest of the JAX dispatch would be no-ops
-            kmax = [0 if stopped[k] else int(min(_KR, num_iters - emitted[k]))
-                    for k in range(K)]
-            blk = kernel.run(H0, x, w, eps=eps, kmax=kmax, done=None,
-                             away=away, xtol=XTOL)
-            misc, hist = kernel.host_rows()
+    while not stopped.all() and k_done < num_iters:
+        kmaxes = [min(_KR, num_iters - k_done - b * _KR) for b in range(nb)
+                  if k_done + b * _KR < num_iters]
+        for slot, kmax in enumerate(kmaxes):
+            blk = kernel.run(H0, x, w, eps=eps, kmax=kmax, away=away,
+                             xtol=XTOL, slot=slot)
             x, w = blk.x, blk.w
             H0 = _lazy_refresh_batch(H0, blk.C, blk.beta, blk.misc[:, 2],
-                                     misc[:, 3].astype(np.int64))
+                                     blk.misc[:, 3])
+        misc, hist = kernel.host_rows(len(kmaxes))
+        k_done += sum(kmaxes)
+        for b in range(len(kmaxes)):
             for k in range(K):
                 if stopped[k]:
                     continue
-                nv = int(misc[k, 1])
+                nv = int(misc[b, k, 1])
                 if nv:
-                    F_k, ld[k] = f_rows(ld[k], hist[k, 0, :nv],
-                                        hist[k, 1, :nv], m)
-                    for dst, src in zip(rows[k], (F_k, hist[k, 2, :nv],
-                                                  hist[k, 3, :nv])):
+                    F_k, ld[k] = f_rows(ld[k], hist[b, k, 0, :nv],
+                                        hist[b, k, 1, :nv], m)
+                    for dst, src in zip(rows[k], (F_k, hist[b, k, 2, :nv],
+                                                  hist[b, k, 3, :nv])):
                         dst.append(src)
                     emitted[k] += nv
-                if misc[k, 0] > 0.5 or emitted[k] >= num_iters:
+                if misc[b, k, 0] > 0.5 or emitted[k] >= num_iters:
                     stopped[k] = True
         if verbose:
             print(f"# lazy batch: emitted={emitted.tolist()} "

@@ -42,8 +42,10 @@ and the script exits non-zero without the result line:
    per thread), the time of a prepared block as the drivers launch it, the
    bound, two blocks from one state compared bit for bit and, for the
    1000x5000 kernel, the clocks of CTA 0 per phase, two cuBLAS DGEMV
-   times as yardsticks of its phases, and a launch after a smaller design's
-   kernel was prepared in between; the dense kernel (B=4 and B=32 of
+   times as yardsticks of its phases, a launch that enters with the stop
+   flag set against the plain version (no row, x and w untouched) and
+   its time, and a launch after a smaller design's kernel was prepared in
+   between; the dense kernel (B=4 and B=32 of
    30x1000, and B=1: the launch plan, registers and spills, two launches
    from one state bit for bit, and thread 0 of CTA 0's clocks per phase),
    the Burg-simplex multiplier (the first
@@ -63,7 +65,8 @@ and the script exits non-zero without the result line:
       1000x2000 (seeds 1, 2, 3) from ``D_opt_KYinit`` starts, FW-away,
       refresh_every=4096, cut to a 20000 budget and eps=1e-7; it must run
       the lazy-H batch kernel, stop every instance and certify it at its
-      stop row;
+      stop row; then against ``group=1`` in one call (bit for bit; warm
+      walls, host reads per sweep, a trace of each);
    c. one instance through ``D_opt_FW_away(u_mode="pallas")`` at 30x1000
       to eps=1e-8, against the CPU exact engine;
    d. the main path: ``D_opt_FW_away`` on the 1000x5000 seed-10 design
@@ -71,8 +74,10 @@ and the script exits non-zero without the result line:
       budget, ``u_mode="auto"`` and no ``device`` (the port's default is
       the card); it must go through the lazy-H kernel and its final
       iterate must certify against the known optimum by a fresh float64
-      slogdet; one more solve is traced (device busy and idle shares, the
-      kernel's share), as is one more large-m sweep;
+      slogdet, with its host round trips counted (one per group of
+      blocks); then against ``group=1`` in one call (bit for bit; warm
+      walls, host reads per solve, and a trace of each: device busy and
+      idle shares, the kernel's share);
    e. the Bregman path: ``ABPG_gain`` (gamma=2, 9000 iterations) on
       ``D_opt_design(30, 10000, randseed=10, device="cuda")`` with
       ``BurgEntropySimplex(use_pallas=True)``; every prox must launch the
@@ -120,7 +125,7 @@ and the script exits non-zero without the result line:
    k. the inexact-oracle and constrained drivers at the examples' sizes,
       where only kernel 5 may launch: AIBM (noiseless and with noise
       1e-6), AdaptFGM and UniversalGM on the 2000x1000 Poisson problem of
-      ``examples/ex_aibm_poisson.py`` (seed 1, gamma 2, 1000 iterations,
+      ``examples/ex_aibm_poisson.py`` (seed 1, gamma 2, 500 iterations,
       ``BurgEntropySimplex(eps=1e-7, use_pallas=True)``: kernel 5's
       launches, the first 100 rows of F against the port on the CPU at
       rtol 1e-8), the three on the synthetic 700x2000 SVM ball with
@@ -144,8 +149,8 @@ and the script exits non-zero without the result line:
       reach -16.0963 (phase e's bound), with its wall, its gates
       (``fastgram.COUNTS``: settled, fallen back, reruns), and host syncs,
       device operations and idle share per iteration over iterations
-      0-99 and 100-199 beside phase e's route's; then BPG (line search),
-      ABPG, ABPG_expo and ABDA with fast_gram at 30x1000 seed 10, 300
+      0-49 and 50-99 beside phase e's route's; then BPG (line search),
+      ABPG, ABPG_expo and ABDA with fast_gram at 30x1000 seed 10, 150
       iterations, each against the port on the CPU on the same arrays
       (rtol 1e-9 over the first 30 rows: later rows may part by
       amplification);
@@ -164,9 +169,20 @@ and the script exits non-zero without the result line:
       and ``kl_regression`` (cut to 1000 iterations) and
       ``examples/ex_SymNMF.py``'s ``start`` with the import changed to
       the port's; last ``examples/ex_Dopt_sweep.py``'s
-      ``start_full(fast_gram=True)`` (cut to K=1, 300 iterations) with
+      ``start_full(fast_gram=True)`` (cut to K=1, 150 iterations) with
       its JAX lines replaced (the replacements are printed), whose FW
       rows run "auto" on the card (their kernel launches are printed);
+   o. the graph chunk (``algorithms/driver.py``), no kernel launch: the
+      exact D-opt engine at 30x1000 (phase 4c's design, eps 1e-8) and
+      ``FW_alg_descent_step`` on phase 4i's illcond logistic problem and
+      SymNMF (the first h), each captured at its first solve and replayed
+      at its second (one capture, none at the second), against the eager
+      loop (bit for bit, or within 1e-13 relative where cuBLAS took
+      another algorithm under capture, then said) and against the port on
+      the CPU from the earlier phase (rtol 1e-9: 300 rows, 200 rows, all
+      rows); walls, replays per solve, host launches per chunk (CPU-side
+      trace), capture time and the graph's memory; a step that reads a
+      value back must make the capture raise;
 5. the kernels' JSON line (launches on the path, error against the plain
    version, kernel and plain times, the bound from this run's inputs and
    the time of a PyTorch call for the same function where one exists), the
@@ -208,39 +224,46 @@ SIMPLEX_STALL = 1e-8
 # the Frank-Wolfe paths: the "illcond" regime of examples/ex_fw_l0l1.py at
 # its 1000x1000 config with run_regime's defaults (2000 iterations,
 # ls_ratio 2.2), its first FW_CPU_ROWS rows held against the port on the
-# CPU; the examples/ex_fw_rs.py panels (500 iterations) and the
-# examples/ex_params_free_symnmf.py run (n=200, r=20, 600 iterations)
+# CPU, its costs over FW_COST_ITERS (100; 200 until the graph phase 4o
+# came, for the script's time); the examples/ex_fw_rs.py panels (500
+# iterations) and the examples/ex_params_free_symnmf.py run (n=200, r=20,
+# 600 iterations)
 FW_ILL = dict(seed=63, radius=25.0, rho=0.99, col_scale=1.0, flip_y=0.2,
               noise=0.1)
 FW_NS, FW_NF, FW_ITERS, FW_LS_RATIO = 1000, 1000, 2000, 2.2
-FW_CPU_ROWS, FW_COST_ITERS, FW_RTOL = 200, 200, 1e-9
+FW_CPU_ROWS, FW_COST_ITERS, FW_RTOL = 200, 100, 1e-9
 FW_RS_ITERS, FW_SYM_N, FW_SYM_R, FW_SYM_ITERS = 500, 200, 20, 600
 # the single-solve shapes whose walls on the three engines set "auto"
 AUTO_SHAPES = ((30, 1000), (100, 1000), (200, 1000))
 # the [extras] phase, at the examples' own sizes: examples/ex_aibm_poisson.py
 # (Poisson_regr_simplex_acc(2000, 1000, noise=0.001) after seed 1, gamma 2,
-# 1000 iterations, its first EX_HELD_ROWS rows held against the port on the
+# EXP_ITERS iterations (500; 1000 until the graph phase 4o came, for the
+# script's time), its first EX_HELD_ROWS rows held against the port on the
 # CPU at EX_RTOL, the error over EX_CPU_ROWS reported beside the row where
 # a 1e-14 relative change of every prox multiplier moves the CPU's own run
 # past EX_RTOL), examples/ex_aibm_svm.py (the synthetic 700x2000 SVM
 # ball), examples/ex_primal_dual.py's figure (n=400, r=10) and
 # examples/ex_universal_fw.py (n=400, r=1, noise 0.1 and 10), EX_ITERS
 # iterations each (100; 200 until the fast_gram, sharding and examples
-# phases came, for the script's time); the costs over EX_COST_ITERS
-EXP_M, EXP_N, EXP_ITERS, EXP_GAMMA = 2000, 1000, 1000, 2.0
+# phases came, for the script's time); the costs over EX_COST_ITERS (40, a
+# quarter of it for the SVM ball; 100 and 25 until the graph phase 4o came,
+# for the script's time: a profiler's trace of these costs is long)
+EXP_M, EXP_N, EXP_ITERS, EXP_GAMMA = 2000, 1000, 500, 2.0
 EX_ITERS, EX_CPU_ROWS, EX_HELD_ROWS, EX_RTOL = 100, 100, 30, 1e-8
-EX_COST_ITERS = 100
+EX_COST_ITERS = 40
 PD_N, PD_R, UFW_N, UFW_R, UFW_NOISES = 400, 10, 400, 1, (0.1, 10.0)
 # phase 4l: the fast_gram paths (ABPG_gain at GAIN_M x GAIN_N for
-# GAIN_ITERS; its per-iteration costs over FG_COST_ITERS; the other four
-# drivers at BPG_M x BPG_N for FG_SMALL_ITERS, their first FG_CPU_ROWS rows
-# against the CPU at FG_RTOL: later rows may part by amplification)
-FG_COST_ITERS, FG_SMALL_ITERS, FG_CPU_ROWS, FG_RTOL = 100, 300, 30, 1e-9
+# GAIN_ITERS; its per-iteration costs over two windows of FG_COST_ITERS, 50
+# since the graph phase 4o came, 100 before; the other four
+# drivers at BPG_M x BPG_N for FG_SMALL_ITERS (150 since phase 4o came, 300
+# before), their first FG_CPU_ROWS rows against the CPU at FG_RTOL: later
+# rows may part by amplification)
+FG_COST_ITERS, FG_SMALL_ITERS, FG_CPU_ROWS, FG_RTOL = 50, 150, 30, 1e-9
 # phase 4m: the sharded solves on a one-card mesh
 SH_GAIN_ITERS, SH_FW_ITERS = 100, 500
 # phase 4n: examples/ex_Dopt_sweep.py's start_full and ex_Poisson_KL.py's
 # runs, cut for the time
-SWEEP_K, SWEEP_ITERS, EXAMPLE_ITERS = 1, 300, 1000
+SWEEP_K, SWEEP_ITERS, EXAMPLE_ITERS = 1, 150, 1000
 # the block lengths of the primal-dual ascent timed for h_oracles.DUAL_BLOCK
 DUAL_BLOCKS = (8, 32, 128)
 # kernel vs plain version on the card, over one 256-iteration block: x, w
@@ -489,17 +512,80 @@ def compare_block(dl, V, eps):
     kernel = dl._LazyKernel(VT)
     run = dict(eps=eps, kmax=dl._KR, done=False, away=True, xtol=1e-8)
     ms = time_launches(lambda: kernel.run(H0, x0, w0, **run), 10)
+    frozen_us = frozen_launch(dl, kernel, V, H0, x0, w0, eps)
     bound_ms, bound_by = lazy_bound(m, n, [nrun])
     plan = kernel.plan
     print(f"[kernel] {m}x{n}: {iters} iterations, pivots identical, two "
           f"launches bit for bit, max |kernel - plain| {max(errs):.3e}; per "
           f"block kernel {ms:.3f} ms ({ms * 1e3 / max(nrun, 1):.2f} us per "
           f"iteration), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (by "
-          f"{bound_by}); {plan.group} CTAs of {plan.col_base}-"
+          f"{bound_by}); a launch entering stopped {frozen_us}, state "
+          f"untouched; {plan.group} CTAs of {plan.col_base}-"
           f"{plan.col_base + (plan.col_extra > 0)} columns, {plan.resident} "
           f"resident in {plan.smem_bytes} B of shared memory, the rest "
           f"streamed; {kernel.regs} registers per thread", flush=True)
     return max(errs), ms, plain_ms, bound_ms, bound_by
+
+
+def frozen_launch(dl, kernel, V, H0, x0, w0, eps):
+    """A launch that enters with the stop flag set (the rest of a group
+    after a stop by eps) against the plain version: no row, misc [1, 0, 1,
+    0], x and w handed through bit for bit; returns its time per call
+    (us: by CUDA events over back-to-back calls, paced by the wrapper,
+    and the kernel's device time in a trace), the flag carried on the card
+    from launch to launch."""
+    run = dict(eps=eps, kmax=dl._KR, away=True, xtol=1e-8)
+    out = kernel.run(H0, x0, w0, done=True, **run)
+    ref = dl.lazy_block_reference(V, H0, x0, w0, done=True, **run)
+    torch.cuda.synchronize()
+    if not (out.misc.cpu().tolist() == ref.misc.tolist() == [1.0, 0.0, 1.0,
+                                                             0.0]
+            and torch.equal(out.x, x0) and torch.equal(out.w, w0)):
+        raise AssertionError(f"a stopped launch changed the state: misc "
+                             f"{out.misc.cpu().tolist()}")
+    def call():
+        return kernel.run(H0, x0, w0, **run)
+
+    us = time_launches(call, 50) * 1e3
+    device_us = kernel_device_us(call, "dopt_lazy_kernel", 20)
+    if int(kernel._done[0]) != 1:
+        raise AssertionError("the stop flag did not stay set on the card")
+    return f"{us_text(device_us)} device time in a trace, {us:.2f} us " \
+        f"per call by events"
+
+
+def count_reads(dl):
+    """Count the lazy kernel's host reads (``_LazyKernel.host_rows``, one
+    per group): returns a one-element list that the wrapper adds to."""
+    reads = [0]
+    rows = dl._LazyKernel.host_rows
+
+    def counted(self, *args, **kwargs):
+        reads[0] += 1
+        return rows(self, *args, **kwargs)
+
+    dl._LazyKernel.host_rows = counted
+    return reads
+
+
+def warm_walls(runs, reps=2):
+    """``{name: [wall, ...]}`` of ``reps`` alternating warm calls of each
+    of ``runs`` (``{name: fn}``), each returning its host reads."""
+    out = {name: [] for name in runs}
+    for _ in range(reps):
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            reads = fn()
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t, reads))
+    return out
+
+
+def walls_reads_text(walls):
+    return "; ".join(
+        f"{name}: " + " ".join(f"{w:.4f}" for w, _ in v) + " s, "
+        f"{v[-1][1]} host reads" for name, v in walls.items())
 
 
 def same_bits(name, a, b, nrun_each):
@@ -869,13 +955,42 @@ def large_sweep(port, dl, dev):
           f"{LARGE_K}/{LARGE_K} stopped at 1e-7 and certified at the stop "
           f"row (fresh slacks within {LARGE_CERT_TOL}, F rtol 1e-9); "
           f"iterations to eps 1e-3..1e-7 per instance: {table}", flush=True)
-    trace_line(f"large sweep K={LARGE_K} of {LARGE_M}x{LARGE_N}",
-               lambda: port.dopt_fw_batch(Vs, x0s, LARGE_EPS, LARGE_BUDGET,
-                                          away=True, precision="auto",
-                                          refresh_every=LARGE_REFRESH,
-                                          device=dev),
+    default = lambda: port.dopt_fw_batch(  # noqa: E731
+        Vs, x0s, LARGE_EPS, LARGE_BUDGET, away=True, precision="auto",
+        refresh_every=LARGE_REFRESH, device=dev)
+    one = lambda: dl.dopt_fw_lazy_batch(  # noqa: E731
+        Vs, x0s, LARGE_EPS, LARGE_BUDGET, away=True,
+        refresh_every=LARGE_REFRESH, device=dev, group=1)
+    ref = one()
+    if not (torch.equal(ref[0], x) and all(
+            np.array_equal(p, q) for p, q in zip(ref[1:], (F, SP, SN)))):
+        raise AssertionError("large sweep: the default group and group=1 "
+                             "differ")
+    walls = warm_walls({"default group": lambda: reads_of(default),
+                        "group=1": lambda: reads_of(one)})
+    group = dl._group_size(LARGE_BUDGET, LARGE_REFRESH, False, 32)
+    print(f"[large sweep] default group ({group} blocks) against group=1 "
+          f"in one call, "
+          f"x, F, SP, SN bit for bit; warm walls and host reads per sweep: "
+          f"{walls_reads_text(walls)}", flush=True)
+    trace_line(f"large sweep K={LARGE_K} of {LARGE_M}x{LARGE_N}", default,
                "dopt_lazy_kernel")
+    trace_line(f"large sweep K={LARGE_K} of {LARGE_M}x{LARGE_N} group=1",
+               one, "dopt_lazy_kernel")
     return launches, Vs, x0s
+
+
+READS = [0]  # the lazy kernel's host reads, counted from main()
+# runs on the CPU (and problems) that phase 4o holds its graphs against,
+# kept from the phases that made them
+CPU_RUNS = {}
+
+
+def reads_of(run):
+    """The lazy kernel's host reads in one call of ``run``."""
+    before = READS[0]
+    run()
+    return READS[0] - before
 
 
 def single_pallas(port, dd, dev):
@@ -899,6 +1014,7 @@ def single_pallas(port, dd, dev):
                                              verbose=False, u_mode="exact",
                                              device="cpu")
     wall_cpu = time.perf_counter() - t
+    CPU_RUNS["exact"] = (V, x0, Fe)
     if abs(len(F) - len(Fe)) > 0.01 * len(Fe):
         raise AssertionError(f"u_mode='pallas': {len(F)} iterations, the "
                              f"CPU exact engine {len(Fe)}")
@@ -926,22 +1042,18 @@ def auto_walls(port):
     size: one ``D_opt_FW_away`` solve (seed 1, uniform start, eps 1e-8, the
     dense budget) per shape of AUTO_SHAPES on each of the three engines,
     warm (the kernels' engines run once before the timed solve; the exact
-    engine after a short warm-up solve).  Returns ``{(m, n): {engine:
-    (wall, iterations)}}``."""
+    engine after a 300-iteration solve of the shape, which captures its
+    graph chunk).  Returns ``{(m, n): {engine: (wall, iterations)}}``."""
     out = {}
-    np.random.seed(1)
-    V = np.random.randn(*AUTO_SHAPES[0])
-    port.D_opt_FW_away(V, np.full(V.shape[1], 1.0 / V.shape[1]), EPS, 50,
-                       verbose=False, u_mode="exact")
     for m, n in AUTO_SHAPES:
         np.random.seed(1)
         V = np.random.randn(m, n)
         x0 = np.full(n, 1.0 / n)
         row = {}
         for engine in ("exact", "pallas", "pallas_lazy"):
-            if engine != "exact":
-                port.D_opt_FW_away(V, x0, EPS, DENSE_BUDGET, verbose=False,
-                                   u_mode=engine)
+            port.D_opt_FW_away(V, x0, EPS,
+                               300 if engine == "exact" else DENSE_BUDGET,
+                               verbose=False, u_mode=engine)
             torch.cuda.synchronize()
             t = time.perf_counter()
             x, F, SP, SN, _ = port.D_opt_FW_away(V, x0, EPS, DENSE_BUDGET,
@@ -1416,6 +1528,8 @@ def fw_illcond(port, card):
                 raise AssertionError(f"{name}: LOG_STEPS[-1] {steps[-1]} < "
                                      f"rows - 1 = {len(F) - 1}")
         cpu = run(f_cpu, x0.cpu(), lmo_cpu, FW_CPU_ROWS)
+        if name == "FW_alg_descent_step":
+            CPU_RUNS["illcond"] = (f, h, x0, cpu[1])
         held = min(FW_CPU_ROWS, len(F))
         err = fw_against_cpu(name, F, cpu[1], rows=held)
         syncs, ops, idle, rows = fw_syncs_and_ops(
@@ -1507,6 +1621,8 @@ def fw_symnmf(port):
                 verbose=False)
             torch.cuda.synchronize()
             runs[dev + "_wall"] = time.perf_counter() - t
+        if which == 0:
+            CPU_RUNS["symnmf"] = (M, runs["cpu"][1])
         F = np.asarray(runs["cuda"][1])
         if not (np.all(np.isfinite(F)) and F[-1] < F[0]):
             raise AssertionError(f"SymNMF: F[0] {F[0]} F[-1] {F[-1]}")
@@ -1702,7 +1818,7 @@ def extras_svm(port):
         # the k=0 row and the first step are held, the rest reported
         F_cpu = np.asarray(run(f_cpu, x0.cpu(), EX_HELD_ROWS)[1])
         err = fw_against_cpu(f"SVM {name}", F, F_cpu, rows=2, rtol=EX_RTOL)
-        cost = fw_syncs_and_ops(lambda: run(f, x0, EX_ITERS // 4))
+        cost = fw_syncs_and_ops(lambda: run(f, x0, EX_COST_ITERS // 4))
         out.append(extras_row(name, wall, F, cost, err, 2)
                    + f" (first row past {EX_RTOL} of {len(F_cpu)}: "
                    f"{past_rtol(F, F_cpu)})")
@@ -2365,6 +2481,180 @@ def block_times(root, solves, gain_iters):
     return 0
 
 
+def main_group_one(port, dl, V64, x0, got):
+    """Phase 4d: the main path under the default group (one host round
+    trip) against ``group=1`` (one per block) in one call: bit for bit,
+    warm walls, host reads and traces."""
+    dev = torch.device("cuda")
+
+    def default():
+        return port.D_opt_FW_away(V64, x0, eps=EPS, maxitrs=REF_ITERS,
+                                  verbose=False)
+
+    def one():
+        return dl.dopt_fw_lazy(V64, x0, EPS, REF_ITERS, verbose=False,
+                               device=dev, group=1)
+
+    ref = one()
+    if not (torch.equal(ref[0], got[0]) and all(
+            np.array_equal(p, q) for p, q in zip(ref[1:4], got[1:]))):
+        raise AssertionError("main path: the default group and group=1 "
+                             "differ")
+    walls = warm_walls({"default group": lambda: reads_of(default),
+                        "group=1": lambda: reads_of(one)})
+    group = dl._group_size(REF_ITERS, 0, False, 256)
+    print(f"[main] default group ({group} blocks) against group=1 in one "
+          f"call, x, F, SP, SN bit for bit; "
+          f"warm walls and host reads per solve: {walls_reads_text(walls)}",
+          flush=True)
+    trace_line(f"main path {M}x{N}", default, "dopt_lazy_kernel")
+    trace_line(f"main path {M}x{N} group=1", one, "dopt_lazy_kernel")
+
+
+def host_launches(run):
+    """Runtime calls that launch work on the card (kernels, graphs, copies,
+    fills) in one call of ``run``, from a CPU-side trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+             "cudaMemcpyAsync", "cudaMemsetAsync", "cuLaunchKernel")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name in names)
+
+
+def graph_against_eager(driver, label, run, short, cpu_F, cpu_rows):
+    """One path of phase 4o: ``run`` (a solve returning ``(x, F, ...)``)
+    as a graph, captured at its first call (the cache cleared) and
+    replayed at its second, against the eager loop: bit for bit, or within
+    1e-13 relative where cuBLAS took another algorithm under capture (then
+    said); the card against the CPU's F (``cpu_F``) at rtol 1e-9 over
+    ``cpu_rows`` rows; walls, captures, replays, host launches per chunk
+    (``short(n)``: the same solve with a budget of n; a graph chunk's
+    launches are those of 512 less those of 256, an eager chunk's those of
+    256 less the graph run's set-up), capture time and the graph's
+    memory.  Returns the line's text."""
+    driver.clear_graph_cache()
+    before = dict(driver.GRAPH_STATS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = run()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    captures = driver.GRAPH_STATS["captures"] - before["captures"]
+    entries = list(driver._GRAPHS.values())
+    mid = dict(driver.GRAPH_STATS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    graph = run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    replays = driver.GRAPH_STATS["replays"] - mid["replays"]
+    again = driver.GRAPH_STATS["captures"] - mid["captures"]
+    if captures != 1 or again:
+        raise AssertionError(f"{label}: {captures} captures at the first "
+                             f"solve, {again} at the second (1 and 0)")
+    one = host_launches(lambda: short(256))
+    graph_launches = host_launches(lambda: short(512)) - one
+    with driver.eager_chunks():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eager = run()
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t
+        # the set-up outside the chunks is the graph run's
+        eager_launches = host_launches(lambda: short(256)) - (
+            one - graph_launches)
+    F_g, F_e = np.asarray(graph[1]), np.asarray(eager[1])
+    same = (torch.equal(graph[0], eager[0]) and np.array_equal(F_g, F_e)
+            and np.array_equal(np.asarray(first[1]), F_g))
+    if same:
+        agree = "bit for bit"
+    else:
+        if len(F_g) != len(F_e):
+            raise AssertionError(f"{label}: {len(F_g)} rows as a graph, "
+                                 f"{len(F_e)} eager")
+        rel = float(np.max(np.abs(F_g - F_e) / np.abs(F_e)))
+        if not rel <= 1e-13:
+            raise AssertionError(f"{label}: graph vs eager F rel err "
+                                 f"{rel:.3e} > 1e-13")
+        agree = (f"F within {rel:.1e} relative (not bit for bit: cuBLAS "
+                 f"may pick another algorithm for a GEMV under capture)")
+    err = fw_against_cpu(label, F_g, cpu_F, rows=cpu_rows)
+    pool = sum(e.pool_bytes for e in entries) / 2 ** 20
+    cap_s = sum(e.capture_s for e in entries)
+    return (f"{label}: {len(F_g)} rows; graph {warm:.3f} s warm ({cold:.3f} "
+            f"s with the capture of {cap_s:.3f} s), eager {eager_wall:.3f} "
+            f"s; {replays} replays a solve, {graph_launches} host launches "
+            f"per chunk against {eager_launches} eager; graph "
+            f"memory {pool:.1f} MiB; graph vs eager {agree}; card vs CPU "
+            f"{err:.1e} over {cpu_rows or len(F_g)} rows")
+
+
+def graph_paths(port, card, counters):
+    """Phase 4o: the graph chunk on the exact D-opt engine and on
+    ``FW_alg_descent_step`` (phase 4i's problems), each against the eager
+    loop and the CPU; a failed capture raises.  No kernel launches."""
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    lines = []
+    V, x0, F_cpu = CPU_RUNS["exact"]  # phase 4c's CPU run
+    lines.append(graph_against_eager(
+        driver, f"exact engine {DENSE_M}x{DENSE_N} eps 1e-8",
+        lambda: port.D_opt_FW_away(V, x0, EPS, DENSE_BUDGET, verbose=False,
+                                   u_mode="exact"),
+        lambda n: port.D_opt_FW_away(V, x0, EPS, n, verbose=False,
+                                     u_mode="exact"),
+        F_cpu, 300))
+
+    f, h, x_ill, F_cpu = CPU_RUNS["illcond"]  # phase 4i's problem and run
+    lmo = port.lmo_l2_ball(FW_ILL["radius"])
+    lines.append(graph_against_eager(
+        driver, f"FW_alg_descent_step illcond {FW_NS}x{FW_NF}",
+        lambda: port.FW_alg_descent_step(f, h, x_ill, FW_ITERS, lmo,
+                                         verbose=False),
+        lambda n: port.FW_alg_descent_step(f, h, x_ill, n, lmo,
+                                           verbose=False),
+        F_cpu, FW_CPU_ROWS))
+
+    M, F_cpu = CPU_RUNS["symnmf"]  # phase 4i's run with the first h
+    np.random.seed(0)
+    fs, hs, _, X0 = port.FrobeniusSymLossResMeasEx(M, FW_SYM_R,
+                                                   device="cuda")
+    lmo = port.lmo_linf_ball(radius=1, center=1)
+    lines.append(graph_against_eager(
+        driver, f"FW_alg_descent_step SymNMF {FW_SYM_N}x{FW_SYM_R} "
+                f"{type(hs[0]).__name__}",
+        lambda: port.FW_alg_descent_step(fs, hs[0], X0, FW_SYM_ITERS, lmo,
+                                         epsilon=1e-9, verbose=False),
+        lambda n: port.FW_alg_descent_step(fs, hs[0], X0, n, lmo,
+                                           epsilon=1e-9, verbose=False),
+        F_cpu, None))
+
+    def reads_back(cfg, prob, c, k):
+        v = c["v"] * (0.5 if float(c["v"]) > 0 else 2.0)  # a host read
+        return dict(done=c["done"], v=v), dict(F=v, _stop=v < 0)
+
+    carry = dict(done=torch.tensor(False, device="cuda"),
+                 v=torch.tensor(1.0, device="cuda"))
+    try:
+        driver.run_driver(reads_back, carry, 20, verbose=False,
+                          problem=dict(s=1.0))
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0][:80]
+    else:
+        raise AssertionError("a step that reads back was captured")
+    launched = no_launches("the graph paths", counters)
+    print(f"[graph] phase 4o ({card}): " + "; ".join(lines)
+          + f"; a capture that reads back raises ({raised!r}); kernel "
+          f"launches {launched}; phase 4o in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--blocks-only", action="store_true",
@@ -2473,6 +2763,8 @@ def main():
           flush=True)
 
     # ---- 4. the paths -------------------------------------------------------
+    global READS
+    READS = count_reads(dl)
     dense_batch_launches = dense_sweep(port, dd, dev)
     batch_launches, large_Vs, large_x0s = large_sweep(port, dl, dev)
     lazy_batch = compare_lazy_batch(
@@ -2483,12 +2775,14 @@ def main():
 
     x0 = np.full(N, 1.0 / N)
     dl.LAUNCHES = 0
+    reads = READS[0]
     torch.cuda.synchronize()
     t = time.perf_counter()
     # numpy input and no device: the port's default is the card
     x, F, SP, SN, T = D_opt_FW_away(V64, x0, eps=EPS, maxitrs=REF_ITERS,
                                     verbose=False)
     torch.cuda.synchronize()
+    reads = READS[0] - reads
     if x.device.type != "cuda":
         raise AssertionError(f"the main path ran on {x.device}, not the card")
     wall = time.perf_counter() - t
@@ -2507,14 +2801,10 @@ def main():
                              f"gap {gap:.3e} (limit {GAP_TOL})")
     print(f"[main] D_opt_FW_away {M}x{N} seed {SEED} on cuda: "
           f"wall {wall:.3f} s (after build), {iters} iterations "
-          f"(reference {REF_ITERS}), {launches} kernel launches, "
-          f"final SP {SP[-1]:.4e} SN {SN[-1]:.4e}, certified gap {gap:.3e}",
-          flush=True)
-
-    trace_line(f"main path {M}x{N}",
-               lambda: D_opt_FW_away(V64, x0, eps=EPS, maxitrs=REF_ITERS,
-                                     verbose=False),
-               "dopt_lazy_kernel")
+          f"(reference {REF_ITERS}), {launches} kernel launches in "
+          f"{reads} host round trips, final SP {SP[-1]:.4e} SN "
+          f"{SN[-1]:.4e}, certified gap {gap:.3e}", flush=True)
+    main_group_one(port, dl, V64, x0, (x, F, SP, SN))
 
     simplex_launches = gain_path(port, sm)
     bpg_path(port, sm)
@@ -2523,6 +2813,7 @@ def main():
     counters = [(dl, "LAUNCHES"), (dl, "BATCH_LAUNCHES"), (dd, "LAUNCHES"),
                 (sm, "LAUNCHES")]
     fw_paths(port, card, counters)
+    graph_paths(port, card, counters)
     extras_paths(port, card, counters, sm)
     fastgram_paths(port, counters)
     sharded_paths(port, counters)

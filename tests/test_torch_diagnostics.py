@@ -235,7 +235,8 @@ def test_scan_full_runs_the_frozen_step():
     H, w, ld = factorize(V, x0)
     carry = dict(done=False, x=x0, w=w, H=H, logdet=ld)
     c, hist = port.scan_full(
-        lambda c, k: d_opt._dopt_step(True, V, 1e-6, c, k), carry, 400)
+        lambda c, k: d_opt._dopt_step(d_opt._DOptCfg(away=True),
+                                      dict(V=V, eps=1e-6), c, k), carry, 400)
     n = len(ref[1])
     assert n < 400 and int(hist["_valid"].sum()) == n
     np.testing.assert_array_equal(hist["F"][:n].numpy(), ref[1])

@@ -223,9 +223,11 @@ def test_refresh_every_rounds_up_to_blocks(problem, acc, monkeypatch):
 
     monkeypatch.setattr(dl, "factorize", spy)
     x, F, *_ = dl.dopt_fw_lazy(V, x0, 1e-8, 64, verbose=False,
-                               refresh_every=20, device="cpu")
-    # blocks end at 16, 32, 48, 64: refreshes after 32 and 64 (20 rounded
-    # up to a block boundary), plus the initial factorization
+                               refresh_every=20, device="cpu", group=1)
+    # one block per round trip: blocks end at 16, 32, 48, 64, refreshes
+    # after 32 and 64 (20 rounded up to a block boundary), plus the
+    # initial factorization.  The default group (8 blocks, JAX's rule)
+    # rounds up to group boundaries instead.
     assert len(calls) == 3
     xe, Fe, *_ = acc.D_opt_FW_away(V, x0, 1e-8, 64, verbose=False)
     np.testing.assert_allclose(F, Fe, rtol=F_RTOL)
@@ -488,7 +490,7 @@ def test_engine_on_card_matches_cpu(problem, cuda_dev, monkeypatch, eps,
     monkeypatch.setattr(dl, "_KR", 32)
     before = dl.LAUNCHES
     x, F, SP, SN, T = dl.dopt_fw_lazy(V, x0, eps, budget, verbose=False,
-                                      device=cuda_dev)
+                                      device=cuda_dev, group=1)
     assert dl.LAUNCHES - before == -(-len(F) // 32)
     xc, Fc, *_ = dl.dopt_fw_lazy(V, x0, eps, budget, verbose=False,
                                  device="cpu")
