@@ -1,0 +1,81 @@
+"""Bounded data-dependent loops for the port's steps: ``device_while``.
+
+JAX's steps write a line search or a Newton solve as a ``lax.while_loop``
+that runs on the device inside the compiled chunk.  ``device_while`` is its
+counterpart: a Python loop that reads its condition each turn outside a
+graph chunk, and a fixed number of masked bodies inside one
+(``algorithms/driver.py::_masked_steps`` sets ``OVERFLOW``), where the
+loop sets an overflow flag when it needs more.  The PyTorch of the card
+(2.11) has no conditional graph nodes, so the masked bodies are JAX's
+``_masked_scan_body`` idea: every body runs and ``torch.where`` keeps the
+live ones.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._device import full
+
+# While a chunk is built to run without a host read (``_masked_steps``), the
+# list that each bounded loop of the current iteration adds its overflow
+# flag to; None outside such a chunk, where a loop reads its condition.
+OVERFLOW = [None]
+# Inside a masked body of an enclosing bounded loop: whether that body is
+# live (a 0-d bool tensor), so that a loop nested in it overflows only there.
+LIVE = [None]
+# Set to a dict to tally, per loop name, how many bodies each Python-form
+# loop took (``{name: {bodies: count}}``): the counts the masked bodies
+# per loop are chosen from.
+TALLY = [None]
+
+
+def _select(pred, new, old):
+    """``new`` where ``pred`` holds, else ``old``, leaf by leaf (a tuple, a
+    list or a dict of tensors)."""
+    if isinstance(old, dict):
+        return {k: torch.where(pred, new[k], old[k]) for k in old}
+    return type(old)(torch.where(pred, a, b) for a, b in zip(new, old))
+
+
+def device_while(cond, body, state, bound, bodies, name=None):
+    """JAX's ``lax.while_loop(cond, body, state)``, with at most ``bound``
+    bodies (None: no bound), in the form that fits where it runs:
+
+    * outside a graph chunk (the eager chunks, the CPU, the continuation of
+      an overflowed iteration): a Python loop that reads ``cond`` each turn
+      (a host sync on the card);
+    * inside one (``_masked_steps``): ``bodies`` masked bodies, each
+      computed and taken through ``torch.where`` while the condition
+      holds, JAX's ``_masked_scan_body`` idea.  Where it still holds after
+      them and the bound allows more, the iteration's overflow flag is set:
+      the chunk freezes there and the host runs that iteration again in the
+      Python form.  Both forms take the same bodies in the same order, so
+      they give the same bits.
+
+    ``state`` is a tuple, list or dict of tensors (in the Python form it may
+    hold anything ``body`` takes); ``name`` keys the loop in ``TALLY``."""
+    flags = OVERFLOW[0]
+    if flags is None:
+        n = 0
+        while (bound is None or n < bound) and bool(full(cond(state))):
+            state = body(state)
+            n += 1
+        if TALLY[0] is not None:
+            counts = TALLY[0].setdefault(name, {})
+            counts[n] = counts.get(n, 0) + 1
+        return state
+    outer = LIVE[0]
+    go = cond(state) if outer is None else outer & cond(state)
+    n = bodies if bound is None else min(bodies, bound)
+    for _ in range(n):
+        LIVE[0] = go
+        try:
+            new = body(state)
+        finally:
+            LIVE[0] = outer
+        state = _select(go, new, state)
+        go = go & cond(state)
+    if bound is None or n < bound:
+        flags.append(go)
+    return state

@@ -5,19 +5,22 @@ reference: accbpg/algorithms.py:11-514): the same math, signatures, return
 tuples and printed tables, for the plain steps (one oracle evaluation per
 query, no carried Gram).
 
-The JAX steps ran whole line searches inside a compiled scan as
-``lax.while_loop``s over a device flag.  In eager PyTorch every trial's
-accept/reject decision has to come back to the host, so the steps keep
-their scalar recurrences there, in Python floats (IEEE doubles): L, theta,
-the gain G, gamma, ``sumlogG`` and the multipliers of the acceptance tests.
-Only the vectors (iterates, gradients) stay on the device.  Each trial ends
-in one read of the few scalars it computed (values, inner products,
-divergences) and decides on the host with the JAX expressions in the JAX
-order, so a trajectory follows the JAX one decision for decision.  Host
-syncs per iteration on CUDA: one per line-search trial (per iteration for
-ABPG and ABDA), plus the prox's own (none with
-``BurgEntropySimplex(use_pallas=True)``; ``3 + Newton steps`` with the
-default h).
+The plain steps (``_bpg_step``, ``_abpg_step``, ``_abpg_expo_step``,
+``_abpg_gain_step``, ``_abda_step``) are JAX's device-scalar steps: the
+carry is all tensors on the solve's device (``done`` a bool, ``L``,
+``theta``, ``G``, ``sumlogG``, ``F_prev``, ``fx`` 0-d float64, ``kk``
+int64), the problem's numbers are 0-d float64 tensors there too, and the
+restart rules and the ``kk == 0`` branches are ``torch.where`` selects of
+JAX's expressions in JAX's order.  The line searches are
+``device_while`` loops with JAX's bound (``_LS_MAX``); so are theta's
+Newton (``theta.solve_theta``) and the default simplex prox's
+(``roots.simplex_inv_multiplier``).  On the card a chunk of them is a CUDA
+graph (``driver.py``): the loops run as a fixed number of masked bodies
+(``BPG_BODIES``, ``EXPO_BODIES``, ``GAIN_BODIES``), the host reads the
+chunk's rows once, and an iteration whose loop needs more bodies runs
+again eagerly.  Eagerly (the CPU, ``driver.eager_chunks``, a sharded run
+with its scalars replicated, a noise key on the host) each loop reads its
+exit test once per turn.
 
 Checkpoints use the JAX drivers' carry keys, history names and
 fingerprints, so a run saved by either package resumes in the other.
@@ -27,7 +30,10 @@ driver's ``seed``, where the JAX drivers split theirs (``_rng``: the same
 chain of keys; the carry holds the key as JAX's does).
 
 ``fast_gram=True`` runs the JAX drivers' stateful linear-Gram steps
-(``_*_dopt_step``) for an oracle with the fast-Gram protocol
+(``_*_dopt_step``), which keep their scalars on the host in Python floats
+(IEEE doubles) and read each trial's scalars and decision back in one read
+(a Python-bool ``done``: ``driver.py``'s host chunks), for an oracle with
+the fast-Gram protocol
 (``DOptimalObj``): carried m x m Grams, a warm-started Schulz inverse and
 trace-series logdet shifts (``fastgram.py``), one fresh Gram per trial and
 a recontraction at every chunk boundary.  Their branch gates ride the
@@ -44,14 +50,29 @@ from typing import NamedTuple
 import torch
 
 from .. import _rng
-from .._device import as_f64, resolve_device
+from .._device import as_f64, replicate_like, resolve_device
+from .._loops import device_while
 from .._scalar import div, exp, log, power, read
 from ..ops.base import vdot
 from . import fastgram as _fg
 from .driver import run_driver
-from .theta import solve_theta
+from .theta import solve_theta, solve_theta_host
 
 _LS_MAX = 200  # safety bound; backtracking terminates long before this
+
+# Masked bodies of the plain steps' loops in a graph chunk: the line-search
+# trials after the first (BPG, ABPG_gain) and the gamma trials (ABPG_expo).
+# An iteration that needs more runs again eagerly (a continuation), and the
+# rest of its chunk is replayed.  Chosen from the bodies the two paths of
+# PERF.md took under ``eager_chunks`` on the card over 9000 iterations: BPG
+# 30x1000 (default h) at most 6 bodies, more than 5 in 2 iterations;
+# ABPG_gain 30x10000 a tail to 14, more than 6 in 10 iterations, all within
+# the first 2000.  Fewer bodies cost more continuations than they save.
+BPG_BODIES = 5
+EXPO_BODIES = 4
+GAIN_BODIES = 6
+# Iterations a captured graph holds; a chunk replays it back to back.
+GRAPH_SPAN = 32
 
 
 def _draw(cfg, c, fn, x):
@@ -91,6 +112,28 @@ def _start(f, x0):
     """x0 as float64 on the f-oracle's device (x0's own, or the CPU, for
     an oracle without one)."""
     return as_f64(x0, resolve_device(getattr(f, "device", None), like=x0))
+
+
+def _num(like, v, dtype=torch.float64):
+    """``v`` as a 0-d tensor on ``like``'s device (replicated on its mesh
+    where ``like`` is a DTensor): a fill, so no copy from the host."""
+    return replicate_like(torch.full((), v, dtype=dtype, device=like.device),
+                          like)
+
+
+def _scalars(like, **vals):
+    """The JAX drivers' ``jnp.asarray(v, dt)`` of each number."""
+    return {k: _num(like, float(v)) for k, v in vals.items()}
+
+
+def _device_carry(x0, **vals):
+    """A plain step's initial carry: ``done`` a bool tensor and the named
+    numbers as 0-d float64 tensors (``kk`` int64), on x0's device."""
+    carry = dict(done=_num(x0, False, torch.bool), x=x0)
+    for k, v in vals.items():
+        carry[k] = (_num(x0, 0, torch.int64) if k == "kk" else
+                    v if isinstance(v, torch.Tensor) else _num(x0, v))
+    return carry
 
 
 def _read(**vals):
@@ -162,6 +205,12 @@ def _comb(theta, a, b):
     return (1.0 - theta) * a + theta * b
 
 
+def _plus(a, delta):
+    """``a + delta`` for an allowance of ``_accept_delta``: an exact
+    oracle's 0.0 adds no operation (and changes no bit but -0's)."""
+    return a if isinstance(delta, float) and not delta else a + delta
+
+
 def _accept_delta(f, scale):
     """Inexact-oracle allowance for descent acceptances:
     ``accept_tol * (1 + |scale|)`` for oracles that declare their noise,
@@ -187,6 +236,31 @@ def _restart(cfg, F_prev, k, Fk, gd, x_new, z_new, theta, kk, k_guard,
     return out if Gz_new is not None else out[:3]
 
 
+def _past_first(k, cond):
+    """``(k > 0) & cond`` for ``k`` an int64 tensor (a graph chunk's) or a
+    host int (an eager chunk's; a DTensor ``cond`` takes no Python bool)."""
+    if isinstance(k, torch.Tensor):
+        return (k > 0) & cond
+    return cond if k > 0 else torch.zeros_like(cond)
+
+
+def _restart_where(cfg, c, k, Fk, g, x_new, z_new, theta, kk, k_guard):
+    """JAX's ``_abpg_restart`` for the plain steps: the function ('f') or
+    gradient ('g') restart as ``torch.where`` selects; ``(theta, kk, z)``
+    after it.  ``k_guard`` keeps plain ABPG's explicit k > 0 gate (the
+    others rely on F_prev starting at +inf)."""
+    if not cfg.restart:
+        return theta, kk, z_new
+    if cfg.restart_rule == 'f':
+        trig = Fk > c["F_prev"]
+    else:
+        trig = vdot(g, x_new - c["x"]) > 0
+    if k_guard:
+        trig = _past_first(k, trig)
+    return (torch.where(trig, 1.0, theta), torch.where(trig, 0, kk),
+            torch.where(trig, x_new, z_new))
+
+
 def _wants_gd(cfg):
     return cfg.restart and cfg.restart_rule != 'f'
 
@@ -210,7 +284,7 @@ def _run(step, cfg, prob, carry, maxitrs, title, columns, names, verbose,
                       verbskip=verbskip, header=header,
                       print_row=_printer(names), chunk=chunk,
                       checkpoint=checkpoint, between_chunks=between,
-                      problem=prob, cfg=cfg)
+                      problem=prob, cfg=cfg, graph_span=GRAPH_SPAN)
 
 
 # ---------------------------------------------------------------------------
@@ -228,36 +302,29 @@ class _BPGCfg(NamedTuple):
 def _bpg_step(cfg, prob, c, k):
     f, h = prob["f"], prob["h"]
     x, Lk = c["x"], c["L"]
-    kc, (fx_t, g) = _draw(cfg, c, f.value_and_grad, x)
-    psi_t = h.extra_psi(x)
+    kc, (fx, g) = _draw(cfg, c, f.value_and_grad, x)
+    Fk = fx + h.extra_psi(x)
+    stop = _past_first(k, torch.abs(Fk - c["F_prev"]) < prob["eps"])
 
     if cfg.linesearch:
         ls_ratio = prob["ls_ratio"]
-
-        def trial(Lt, **extra):
-            x1 = h.div_prox_map(x, g, Lt)
-            return x1, _read(f1=f.value(x1), gd=vdot(g, x1 - x),
-                             dv=h.divergence(x1, x), **extra)
-
-        Lt = Lk / ls_ratio
-        x_new, s = trial(Lt, fx=fx_t, psi=psi_t)
-        fx, psi = s["fx"], s["psi"]
         delta = _accept_delta(f, fx)
-        t = 0
-        # NaN-robust acceptance: a trial that leaves the domain (NaN)
-        # fails and L backs off
-        while (not s["f1"] <= fx + s["gd"] + Lt * s["dv"] + delta
-               and t < _LS_MAX):
-            Lt = Lt * ls_ratio
-            x_new, s = trial(Lt)
-            t += 1
-        Lk = Lt
+
+        def trial(Lt):
+            x1 = h.div_prox_map(x, g, Lt)
+            # NaN-robust acceptance: a trial that leaves the domain (NaN)
+            # fails and L backs off
+            fail = ~(f.value(x1) <= _plus(fx + vdot(g, x1 - x)
+                                          + Lt * h.divergence(x1, x), delta))
+            return Lt, x1, fail
+
+        Lk, x_new, _ = device_while(lambda s: s[2],
+                                    lambda s: trial(s[0] * ls_ratio),
+                                    trial(Lk / ls_ratio), _LS_MAX, BPG_BODIES,
+                                    "BPG trials")
     else:
         x_new = h.div_prox_map(x, g, Lk)
-        fx, psi = read(fx_t, psi_t)
 
-    Fk = fx + psi
-    stop = k > 0 and abs(Fk - c["F_prev"]) < prob["eps"]
     return (dict(done=c["done"], x=x_new, L=Lk, F_prev=Fk, **kc),
             dict(F=Fk, Ls=Lk, _stop=stop))
 
@@ -329,11 +396,14 @@ def BPG(f, h, L, x0, maxitrs, epsilon=1e-14, linesearch=True, ls_ratio=1.2,
     line-search trial, a matmul-only inverse, trace-series logdets."""
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, eps=float(epsilon), ls_ratio=float(ls_ratio))
-    carry = dict(done=False, x=x0, L=float(L), F_prev=float("inf"))
     step, between = _bpg_step, None
     if fast_gram:
+        carry = dict(done=False, x=x0, L=float(L), F_prev=float("inf"))
         between = _fast_start(f, h, x0, prob, carry, with_z=False)
         step = _bpg_dopt_step
+    else:
+        prob.update(_scalars(x0, eps=epsilon, ls_ratio=ls_ratio))
+        carry = _device_carry(x0, L=L, F_prev=float("inf"))
     cfg = _BPGCfg(linesearch=bool(linesearch),
                   stochastic=_stoch_carry(f, carry, seed, fast_gram))
     carry, hist, T = _run(step, cfg, prob, carry, maxitrs,
@@ -357,33 +427,39 @@ class _ABPGCfg(NamedTuple):
 
 
 def _abpg_theta(cfg, gam, c):
-    """theta from the Newton equality or gamma/(k + gamma)."""
+    """theta from the Newton equality (1 at kk == 0) or gamma/(kk + gamma),
+    on the device."""
+    kk = c["kk"]
     if cfg.theta_eq:
-        return solve_theta(c["theta"], gam) if c["kk"] > 0 else 1.0
+        return torch.where(kk > 0, solve_theta(c["theta"], gam), 1.0)
+    return gam / (kk.to(torch.float64) + gam)
+
+
+def _abpg_theta_host(cfg, gam, c):
+    """``_abpg_theta`` in Python floats, for the fast-Gram steps."""
+    if cfg.theta_eq:
+        return solve_theta_host(c["theta"], gam) if c["kk"] > 0 else 1.0
     return gam / (float(c["kk"]) + gam)
 
 
 def _abpg_step(cfg, prob, c, k):
     f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
     x, z = c["x"], c["z"]
-    fx_t = f.value(x)
+    fx = f.value(x)
+    Fk = fx + h.extra_psi(x)
     theta = _abpg_theta(cfg, gam, c)
     y = _comb(theta, x, z)
     kc, g = _draw(cfg, c, f.grad, y)
-    z_new = h.div_prox_map(z, g, power(theta, gam - 1.0) * L)
+    z_new = h.div_prox_map(z, g, theta ** (gam - 1.0) * L)
     x_new = _comb(theta, x, z_new)
     dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
-    s = _read(fx=fx_t, psi=h.extra_psi(x), dxy=dxy, dzz=dzz,
-              gd=vdot(g, x_new - x) if _wants_gd(cfg) else 0.0)
-    Fk = s["fx"] + s["psi"]
-    Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
-
-    theta_c, kk, z_new = _restart(cfg, c["F_prev"], k, Fk, s["gd"], x_new,
-                                  z_new, theta, c["kk"] + 1, k_guard=True)
+    Gdr = dxy / dzz / theta ** gam
+    theta_c, kk, z_new = _restart_where(cfg, c, k, Fk, g, x_new, z_new,
+                                        theta, c["kk"] + 1, k_guard=True)
     return (dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
                  F_prev=Fk, **kc),
-            dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
-                 _stop=s["dzz"] < prob["eps"]))
+            dict(F=Fk, G=Gdr, theta=theta, dxy=dxy, dzz=dzz,
+                 _stop=dzz < prob["eps"]))
 
 
 def _abpg_dopt_step(cfg, prob, c, k):
@@ -396,7 +472,7 @@ def _abpg_dopt_step(cfg, prob, c, k):
     x, z, Gx, Gz = c["x"], c["z"], c["Gx"], c["Gz"]
     fx = c["fx"]
     ld_x = -fx
-    theta = _abpg_theta(cfg, gam, c)
+    theta = _abpg_theta_host(cfg, gam, c)
     y = _comb(theta, x, z)
     Gy = _comb(theta, Gx, Gz)
 
@@ -442,12 +518,16 @@ def ABPG(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=False,
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
                 eps=float(epsilon))
-    carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
-                 F_prev=float("inf"))
     step, between = _abpg_step, None
     if fast_gram:
+        carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
+                     F_prev=float("inf"))
         between = _fast_start(f, h, x0, prob, carry)
         step = _abpg_dopt_step
+    else:
+        prob.update(_scalars(x0, L=L, gamma=gamma, eps=epsilon))
+        carry = _device_carry(x0, z=x0, theta=1.0, kk=0,
+                              F_prev=float("inf"))
     cfg = _ABPGCfg(theta_eq=bool(theta_eq), restart=bool(restart),
                    restart_rule=str(restart_rule),
                    stochastic=_stoch_carry(f, carry, seed, fast_gram))
@@ -479,48 +559,39 @@ def _abpg_expo_step(cfg, prob, c, k):
     x, z, kk, gamma = c["x"], c["z"], c["kk"], c["gamma"]
     # f(x) carried from the previous accepted trial (see _abpg_gain_step)
     fx = c["fx"]
+    Fk = fx + h.extra_psi(x)
     theta = _abpg_theta(cfg, gamma, c)
     y = _comb(theta, x, z)
-    kc, (fy_t, g) = _draw(cfg, c, f.value_and_grad, y)
+    kc, (fy, g) = _draw(cfg, c, f.value_and_grad, y)
 
-    def attempt(gm, **extra):
-        z_new = h.div_prox_map(z, g, power(theta, gm - 1.0) * L)
+    def attempt(gm):
+        z_new = h.div_prox_map(z, g, theta ** (gm - 1.0) * L)
         x_new = _comb(theta, x, z_new)
         dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
-        q = dict(dxy=dxy, dzz=dzz, **extra)
-        if not cfg.checkdiv:
-            q.update(fxn=f.value(x_new), vd=vdot(g, x_new - y))
-        if _wants_gd(cfg):
-            q["gd"] = vdot(g, x_new - x)
-        return z_new, x_new, _read(**q)
-
-    gm = gamma
-    z_new, x_new, s = attempt(gm, fy=fy_t, psi=h.extra_psi(x))
-    fy, psi = s["fy"], s["psi"]
-
-    def fails(gm, s):
-        thg = power(theta, gm)
+        Gdr = dxy / dzz / theta ** gm
         if cfg.checkdiv:
-            return not s["dxy"] <= Gmargin * thg * s["dzz"]
-        return not (s["fxn"] <= fy + s["vd"] + thg * L * s["dzz"]
-                    + _accept_delta(f, fy))
+            fxn = torch.full_like(dzz, float("nan"))  # filled in after
+            fail = ~(dxy <= Gmargin * theta ** gm * dzz)
+        else:
+            fxn = f.value(x_new)
+            fail = ~(fxn <= _plus(fy + vdot(g, x_new - y)
+                                  + theta ** gm * L * dzz,
+                                  _accept_delta(f, fy)))
+        return dict(gamma=gm, z=z_new, x=x_new, dxy=dxy, dzz=dzz, Gdr=Gdr,
+                    fxn=fxn, fail=fail)
 
-    while fails(gm, s) and gm > 1.0:
-        gm = max(gm - delta, 1.0)
-        z_new, x_new, s = attempt(gm)
-
-    dxy, dzz = s["dxy"], s["dzz"]
-    Gdr = div(div(dxy, dzz), power(theta, gm))
-    fx_new = read(f.value(x_new))[0] if cfg.checkdiv else s["fxn"]
-    Fk = fx + psi
-
-    theta_c, kk, z_new = _restart(cfg, c["F_prev"], k, Fk, s.get("gd"),
-                                  x_new, z_new, theta, kk + 1,
-                                  k_guard=False)
+    s = device_while(lambda s: s["fail"] & (s["gamma"] > 1.0),
+                     lambda s: attempt(torch.clamp_min(s["gamma"] - delta,
+                                                       1.0)),
+                     attempt(gamma), None, EXPO_BODIES, "ABPG_expo trials")
+    gamma, z_new, x_new = s["gamma"], s["z"], s["x"]
+    fx_new = f.value(x_new) if cfg.checkdiv else s["fxn"]
+    theta_c, kk, z_new = _restart_where(cfg, c, k, Fk, g, x_new, z_new,
+                                        theta, kk + 1, k_guard=False)
     return (dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
-                 gamma=gm, F_prev=Fk, fx=fx_new, **kc),
-            dict(F=Fk, Gamma=gm, G=Gdr, theta=theta, dxy=dxy, dzz=dzz,
-                 _stop=dzz < prob["eps"]))
+                 gamma=gamma, F_prev=Fk, fx=fx_new, **kc),
+            dict(F=Fk, Gamma=gamma, G=s["Gdr"], theta=theta, dxy=s["dxy"],
+                 dzz=s["dzz"], _stop=s["dzz"] < prob["eps"]))
 
 
 def _abpg_expo_dopt_step(cfg, prob, c, k):
@@ -533,7 +604,7 @@ def _abpg_expo_dopt_step(cfg, prob, c, k):
     x, z, gamma, Gx, Gz = c["x"], c["z"], c["gamma"], c["Gx"], c["Gz"]
     fx = c["fx"]
     ld_x = -fx
-    theta = _abpg_theta(cfg, gamma, c)
+    theta = _abpg_theta_host(cfg, gamma, c)
     y = _comb(theta, x, z)
     Gy = _comb(theta, Gx, Gz)
 
@@ -607,14 +678,17 @@ def ABPG_expo(f, h, L, x0, gamma0, maxitrs, epsilon=1e-14, delta=0.2,
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, L=float(L), eps=float(epsilon), delta=float(delta),
                 Gmargin=float(Gmargin))
-    carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
-                 gamma=float(gamma0), F_prev=float("inf"))
     step, between = _abpg_expo_step, None
     if fast_gram:
+        carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
+                     gamma=float(gamma0), F_prev=float("inf"))
         between = _fast_start(f, h, x0, prob, carry)
         step = _abpg_expo_dopt_step
     else:
-        carry["fx"] = read(f.value(x0))[0]
+        prob.update(_scalars(x0, L=L, eps=epsilon, delta=delta,
+                             Gmargin=Gmargin))
+        carry = _device_carry(x0, z=x0, theta=1.0, kk=0, gamma=gamma0,
+                              F_prev=float("inf"), fx=f.value(x0))
     cfg = _ABPGExpoCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
                        restart=bool(restart), restart_rule=str(restart_rule),
                        stochastic=_stoch_carry(f, carry, seed, fast_gram))
@@ -650,55 +724,54 @@ def _abpg_gain_step(cfg, prob, c, k):
     # (the descent acceptance evaluates f(x_new)); the carry threads it
     # forward, initialized at f(x0)
     fx = c["fx"]
-    psi_t = h.extra_psi(x)
+    Fk = fx + h.extra_psi(x)
 
-    def attempt(G, key, **extra):
-        if kk == 0:
-            theta = theta_1
-        elif cfg.theta_eq:
-            theta = solve_theta(theta_1, gam, G / G_1)
+    started, gam1 = kk > 0, gam - 1.0
+
+    def attempt(G, key):
+        if cfg.theta_eq:
+            theta = torch.where(started, solve_theta(theta_1, gam, G / G_1),
+                                theta_1)
         else:
             alpha = G / G_1
-            theta = theta_1 * ((1.0 + alpha * (gam - 1.0))
-                               / (gam * alpha + theta_1))
+            theta = torch.where(
+                started,
+                theta_1 * ((1.0 + alpha * gam1) / (gam * alpha + theta_1)),
+                theta_1)
         y = _comb(theta, x, z)
-        key, (fy_t, g) = _trial_draw(cfg, f.value_and_grad, y, key)
-        z_new = h.div_prox_map(z, g, power(theta, gam - 1.0) * G * L)
+        # a stochastic oracle draws fresh noise per trial (each has its y)
+        key, (fy, g) = _trial_draw(cfg, f.value_and_grad, y, key)
+        z_new = h.div_prox_map(z, g, theta ** gam1 * G * L)
         x_new = _comb(theta, x, z_new)
         dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
-        q = dict(fy=fy_t, dxy=dxy, dzz=dzz, **extra)
-        if not cfg.checkdiv:
-            q.update(fxn=f.value(x_new), vd=vdot(g, x_new - y))
-        if _wants_gd(cfg):
-            q["gd"] = vdot(g, x_new - x)
-        s = _read(**q)
-        thg = power(theta, gam)
-        Gdr = div(div(s["dxy"], s["dzz"]), thg)
+        early = dzz < eps
+        Gdr = dxy / dzz / theta ** gam
         if cfg.checkdiv:
-            fail = not Gdr <= G
+            fxn = torch.full_like(dzz, float("nan"))  # filled in after
+            fail = ~(Gdr <= G)
         else:
-            fail = not (s["fxn"] <= s["fy"] + s["vd"] + thg * G * L * s["dzz"]
-                        + _accept_delta(f, s["fy"]))
-        early = s["dzz"] < eps
-        return dict(s, G=G, theta=theta, z=z_new, x=x_new, Gdr=Gdr,
-                    fail=fail and not early, key=key)
+            fxn = f.value(x_new)
+            fail = ~(fxn <= _plus(fy + vdot(g, x_new - y)
+                                  + theta ** gam * G * L * dzz,
+                                  _accept_delta(f, fy)))
+        s = dict(G=G, theta=theta, z=z_new, x=x_new, dxy=dxy, dzz=dzz,
+                 Gdr=Gdr, fxn=fxn, fail=fail & ~early)
+        if _wants_gd(cfg):  # the gradient restart's <g, x+ - x>
+            s["g"] = g
+        if cfg.stochastic:
+            s["key"] = key
+        return s
 
-    s = attempt(G_1 / ls_dec, c.get("key"), psi=psi_t)
-    psi = s["psi"]
-    t = 0
-    while s["fail"] and t < _LS_MAX:
-        t += 1
-        s = attempt(s["G"] * ls_inc, s["key"])
-    G, theta, z_new, x_new = s["G"], s["theta"], s["z"], s["x"]
-    fx_new = read(f.value(x_new))[0] if cfg.checkdiv else s["fxn"]
-
-    sumlogG = c["sumlogG"] + log(G)
-    Gavg = exp(sumlogG / (gam + float(k)))
-    Fk = fx + psi
-
-    theta_c, kk, z_new = _restart(cfg, c["F_prev"], k, Fk, s.get("gd"),
-                                  x_new, z_new, theta, kk + 1,
-                                  k_guard=False)
+    s = device_while(lambda s: s["fail"],
+                     lambda s: attempt(s["G"] * ls_inc, s.get("key")),
+                     attempt(G_1 / ls_dec, c.get("key")), _LS_MAX,
+                     GAIN_BODIES, "ABPG_gain trials")
+    G, theta, x_new = s["G"], s["theta"], s["x"]
+    fx_new = f.value(x_new) if cfg.checkdiv else s["fxn"]
+    sumlogG = c["sumlogG"] + torch.log(G)
+    Gavg = torch.exp(sumlogG / (gam + k))
+    theta_c, kk, z_new = _restart_where(cfg, c, k, Fk, s.get("g"), x_new,
+                                        s["z"], theta, kk + 1, k_guard=False)
     kc = {"key": s["key"]} if cfg.stochastic else {}
     return (dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
                  G=G, sumlogG=sumlogG, F_prev=Fk, fx=fx_new, **kc),
@@ -713,7 +786,7 @@ def _gain_theta(cfg, c, gam, G):
     if c["kk"] == 0:
         return theta_1
     if cfg.theta_eq:
-        return solve_theta(theta_1, gam, G / G_1)
+        return solve_theta_host(theta_1, gam, G / G_1)
     alpha = G / G_1
     return theta_1 * ((1.0 + alpha * (gam - 1.0)) / (gam * alpha + theta_1))
 
@@ -816,14 +889,19 @@ def ABPG_gain(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, G0=1,
     gam, G0 = float(gamma), float(G0)
     prob = dict(f=f, h=h, L=float(L), gamma=gam, eps=float(epsilon),
                 ls_inc=float(ls_inc), ls_dec=float(ls_dec))
-    carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0, G=G0,
-                 sumlogG=gam * log(G0), F_prev=float("inf"))
     step, between = _abpg_gain_step, None
     if fast_gram:
+        carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0, G=G0,
+                     sumlogG=gam * log(G0), F_prev=float("inf"))
         between = _fast_start(f, h, x0, prob, carry)
         step = _abpg_gain_dopt_step
     else:
-        carry["fx"] = read(f.value(x0))[0]
+        prob.update(_scalars(x0, L=L, gamma=gam, eps=epsilon, ls_inc=ls_inc,
+                             ls_dec=ls_dec))
+        G0t = _num(x0, G0)
+        carry = _device_carry(x0, z=x0, theta=1.0, kk=0, G=G0t,
+                              sumlogG=prob["gamma"] * torch.log(G0t),
+                              F_prev=float("inf"), fx=f.value(x0))
     cfg = _ABPGGainCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
                        restart=bool(restart), restart_rule=str(restart_rule),
                        stochastic=_stoch_carry(f, carry, seed, fast_gram))
@@ -852,23 +930,22 @@ class _ABDACfg(NamedTuple):
 def _abda_step(cfg, prob, c, k):
     f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
     x, z, kk = c["x"], c["z"], c["kk"]
-    fx_t = f.value(x)
+    fx = f.value(x)
+    Fk = fx + h.extra_psi(x)
     theta = _abpg_theta(cfg, gam, c)
     y = _comb(theta, x, z)
     kc, g = _draw(cfg, c, f.grad, y)
-    w = power(theta, 1.0 - gam)
+    w = theta ** (1.0 - gam)
     gavg = c["gavg"] + w * g
     csum = c["csum"] + w
     z_new = h.prox_map(gavg / csum, L / csum)
     x_new = _comb(theta, x, z_new)
     dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
-    s = _read(fx=fx_t, psi=h.extra_psi(x), dxy=dxy, dzz=dzz)
-    Fk = s["fx"] + s["psi"]
-    Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
+    Gdr = dxy / dzz / theta ** gam
     return (dict(done=c["done"], x=x_new, z=z_new, theta=theta, kk=kk + 1,
                  gavg=gavg, csum=csum, F_prev=Fk, **kc),
-            dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
-                 _stop=s["dzz"] < prob["eps"]))
+            dict(F=Fk, G=Gdr, theta=theta, dxy=dxy, dzz=dzz,
+                 _stop=dzz < prob["eps"]))
 
 
 def _abda_dopt_step(cfg, prob, c, k):
@@ -880,7 +957,7 @@ def _abda_dopt_step(cfg, prob, c, k):
     x, z, Gx, Gz = c["x"], c["z"], c["Gx"], c["Gz"]
     fx = c["fx"]
     ld_x = -fx
-    theta = _abpg_theta(cfg, gam, c)
+    theta = _abpg_theta_host(cfg, gam, c)
     y = _comb(theta, x, z)
     Gy = _comb(theta, Gx, Gz)
     w = power(theta, 1.0 - gam)
@@ -927,12 +1004,18 @@ def ABDA(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=True,
     x0 = _start(f, x0)
     prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
                 eps=float(epsilon))
-    carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
-                 gavg=torch.zeros_like(x0), csum=0.0, F_prev=float("inf"))
     step, between = _abda_step, None
     if fast_gram:
+        carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
+                     gavg=torch.zeros_like(x0), csum=0.0,
+                     F_prev=float("inf"))
         between = _fast_start(f, h, x0, prob, carry, warm="prox_map_warm")
         step = _abda_dopt_step
+    else:
+        prob.update(_scalars(x0, L=L, gamma=gamma, eps=epsilon))
+        carry = _device_carry(x0, z=x0, theta=1.0, kk=0,
+                              gavg=torch.zeros_like(x0), csum=0.0,
+                              F_prev=float("inf"))
     cfg = _ABDACfg(theta_eq=bool(theta_eq),
                    stochastic=_stoch_carry(f, carry, seed, fast_gram))
     carry, hist, T = _run(

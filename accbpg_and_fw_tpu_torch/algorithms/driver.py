@@ -13,32 +13,44 @@ A chunk runs in one of three ways, chosen from the carry's types and
 device before anything runs (``chunk_mode``):
 
 * ``"graph"``: ``done`` and every other leaf a plain tensor on one CUDA
-  device (the exact D-opt engine, ``FW_alg_descent_step``).  The chunk of
-  ``chunk`` iterations is captured once as a ``torch.cuda.CUDAGraph`` and
-  replayed, the counterpart of JAX's compiled chunk: the carry, the
+  device, and no oracle of the problem that reads the host inside its
+  calls (``host_reads``): the exact D-opt engine, ``FW_alg_descent_step``
+  and the five Bregman drivers' plain steps.  The chunk is captured once
+  as a ``torch.cuda.CUDAGraph`` of ``span`` iterations (the whole chunk
+  unless the caller asks for fewer) and replayed back to back until the
+  chunk is done, the counterpart of JAX's compiled chunk: the carry, the
   problem's tensors (those of its oracles included) and the first
   iteration ``k0`` go in through static buffers, ``k`` reaches the step as
   an int64 tensor on the card (JAX passes a traced int32), and the
-  histories come out of a static buffer read once per chunk.  A partial
-  last chunk replays the same graph with a device ``limit`` past which
-  the carry freezes, as JAX's ``_masked_scan_body``; only the real stop
-  persists into the carry.  Graphs are cached within the process on JAX's
-  key (step, cfg, chunk, and the shapes, dtypes and devices of problem and
-  carry; see ``graph_key``), so a second solve of the same shapes replays
-  without a new capture.  A capture that fails raises: nothing falls back
-  to the eager loop.
+  histories come out of a device buffer read once per chunk.  A partial
+  last chunk replays the same graph with a device ``limit`` past which the
+  carry freezes, as JAX's ``_masked_scan_body``; only the real stop
+  persists into the carry.  A data-dependent loop inside a step (a line
+  search, a Newton solve) is a ``device_while``: in the graph it is a fixed
+  number of masked bodies, and an iteration whose loop needs more sets an
+  overflow flag that freezes the carry there without stopping the run;
+  the host reads the flag with the rows, runs that one iteration again on
+  the card in the loop's Python form, and replays from the next one
+  (``GRAPH_STATS["continuations"]``).  Graphs are cached within the
+  process on JAX's key (step, cfg, chunk, span, and the shapes, dtypes and
+  devices of problem and carry; see ``graph_key``), so a second solve of
+  the same shapes replays without a new capture.  A capture that fails
+  raises: nothing falls back to the eager loop.
 * ``"eager"``: the same frozen steps run one Python dispatch at a time
-  with no read inside a chunk (``k`` a host int), for a carry on the CPU
-  (where the tests run it), a carry with a host leaf (``_rng``'s key chain
-  lives on the host) and a DTensor carry (``d_opt._pivot``'s c10d
-  all-gather).  Once ``done`` is set the carry freezes through a
-  ``torch.where`` select, as the JAX scan body does.
-* ``"host"``: ``done`` a Python bool (the Bregman drivers, the line-search
-  FW drivers and the extras, whose line searches read each trial's
-  decision back anyway): the step keeps its scalars on the host, returns
-  host numbers in ``hist``, and the chunk ends at the stop row, which is
-  the iteration the JAX driver's frozen carry stops at.  The carry may mix
-  tensors with Python floats, ints and bools.
+  with no read inside a chunk but those of the steps' own loops
+  (``device_while`` in its Python form reads its condition each turn;
+  ``k`` a host int), for a carry on the CPU (where the tests run it), a
+  carry with a host leaf (``_rng``'s key chain lives on the host), a
+  DTensor carry (``d_opt._pivot``'s c10d all-gather; a sharded Bregman
+  run, whose scalars are replicated) and a problem whose oracle reads the
+  host.  Once ``done`` is set the carry freezes through a ``torch.where``
+  select, as the JAX scan body does.
+* ``"host"``: ``done`` a Python bool (the line-search FW drivers, the
+  extras and the ``fast_gram`` Bregman steps, whose line searches read
+  each trial's decision back): the step keeps its scalars on the host,
+  returns host numbers in ``hist``, and the chunk ends at the stop row,
+  which is the iteration the JAX driver's frozen carry stops at.  The
+  carry may mix tensors with Python floats, ints and bools.
 
 The chunk boundary is where ``between_chunks`` runs, where checkpoints are
 written and where the verbose table is printed.
@@ -63,9 +75,10 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
-from .. import _scalar
-from .._device import full, is_dtensor
+from .. import _loops, _scalar
+from .._device import full, is_dtensor, replicated
 
 _CKPT_VERSION = 3
 
@@ -143,9 +156,12 @@ _PKG = __name__.split(".")[0]
 _GRAPHS: OrderedDict = OrderedDict()
 _GRAPH_CACHE_CAP = 16
 
-# Process-wide counts of the graph chunks: captures, replays, and the host
-# seconds the captures took (set-up, like a compile).
-GRAPH_STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
+# Process-wide counts of the graph chunks: captures, replays (one per graph
+# launch, so a chunk of several spans counts each), the host seconds the
+# captures took (set-up, like a compile), and continuations: iterations
+# whose bounded loops overflowed in a replay and ran again eagerly.
+GRAPH_STATS = {"captures": 0, "replays": 0, "capture_s": 0.0,
+               "continuations": 0}
 
 _EAGER = [False]
 
@@ -179,11 +195,20 @@ def _fingerprint(step, cfg):
     return f"{mod}.{name}|{type(cfg).__name__ if '0x' in r else r}"
 
 
-def chunk_mode(carry):
+def host_reads(problem):
+    """Whether an oracle of the problem (a value of the problem dict)
+    declares ``host_reads``: it reads values back inside its calls (a
+    blocked inner loop), so its steps cannot be captured."""
+    return isinstance(problem, dict) and any(
+        getattr(v, "host_reads", False) for v in problem.values())
+
+
+def chunk_mode(carry, problem=None):
     """How a chunk of this carry runs: ``"host"`` for a Python-bool
     ``done``; ``"graph"`` where every leaf is a plain tensor on one CUDA
-    device (outside ``eager_chunks``); else ``"eager"`` (a CPU carry, a
-    host leaf such as the noise key, or a DTensor)."""
+    device (outside ``eager_chunks``) and no oracle of ``problem`` reads the
+    host; else ``"eager"`` (a CPU carry, a host leaf such as the noise key,
+    a DTensor, or a problem with ``host_reads``)."""
     if isinstance(carry["done"], bool):
         return "host"
     if _EAGER[0]:
@@ -195,6 +220,8 @@ def chunk_mode(carry):
         return "eager"
     devices = {v.device for v in leaves}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        return "eager"
+    if host_reads(problem):
         return "eager"
     return "graph"
 
@@ -276,39 +303,57 @@ def _as_device_numbers(problem, device):
     return {k: conv(v) for k, v in problem.items()}
 
 
-def graph_key(step, cfg, chunk, problem, carry):
+def graph_key(step, cfg, chunk, problem, carry, span=None):
     """The cache key of a captured chunk, JAX's ``_get_compiled_chunk``
-    key: the step, the config, the chunk length, and the structure,
-    shapes, dtypes and devices of problem and carry.  Returns ``(key,
-    leaves, keep)``: the problem's tensors in order, and the objects the
-    key names by identity (the entry keeps them alive)."""
+    key: the step, the config, the chunk length, the iterations per graph
+    (``span``, None for the whole chunk), and the structure, shapes, dtypes
+    and devices of problem and carry.  Returns ``(key, leaves, keep)``: the
+    problem's tensors in order, and the objects the key names by identity
+    (the entry keeps them alive)."""
     leaves, keep = [], []
     pspec = _spec(problem, leaves, keep)
     cspec = tuple((k, tuple(v.shape), str(v.dtype), str(v.device))
                   for k, v in sorted(carry.items()))
-    return (step, cfg, int(chunk), pspec, cspec), leaves, keep
+    return (step, cfg, int(chunk), span, pspec, cspec), leaves, keep
 
 
-def _masked_steps(step, carry, k0, limit, n):
+def _masked_steps(step, carry, k0, limit, n, halted=None):
     """``n`` iterations ``k = k0, k0 + 1, ...`` (``k0`` and ``limit`` 0-d
     int64 tensors) with no host read: the carry freezes once ``done`` is
     set or past ``limit``, and only the real stop persists into the carry
-    (JAX's ``_masked_scan_body``).  Returns the carry and the histories
-    packed into one float64 tensor (names x n) with their names and
-    dtypes."""
+    (JAX's ``_masked_scan_body``).  The steps' ``device_while`` loops take
+    their masked form; from the first iteration where one overflowed the
+    carry freezes too, without a stop (``halted``, a 0-d bool tensor that a
+    chunk carries over its spans, says that one did before).  Returns the
+    carry and the histories packed into one float64 tensor (names x n) with
+    their names and dtypes; ``_done`` is the carry's flag and ``_halt`` the
+    overflow's after each row."""
+    if halted is None:
+        halted = torch.zeros((), dtype=torch.bool, device=k0.device)
     ks = k0 + torch.arange(n, device=k0.device)
     rows = []
     for i in range(n):
         k = ks[i]
-        frozen = carry["done"] | (k >= limit)
-        new, h = step(carry, k)
+        frozen = carry["done"] | (k >= limit) | halted
+        flags = []
+        _loops.OVERFLOW[0] = flags
+        try:
+            new, h = step(carry, k)
+        finally:
+            _loops.OVERFLOW[0] = None
+        hold = frozen
+        if flags:
+            over = torch.stack(flags).any()
+            hold = frozen | over
+            halted = halted | (over & torch.logical_not(frozen))
         h = dict(h)
-        h["_valid"] = torch.logical_not(frozen)
+        h["_valid"] = torch.logical_not(hold)
         new = dict(new)
         new["done"] = carry["done"] | new["done"] | h["_stop"]
-        carry = {key: torch.where(frozen, carry[key], new[key])
+        carry = {key: torch.where(hold, carry[key], new[key])
                  for key in carry}
         h["_done"] = carry["done"]  # the carry's flag, read with the rows
+        h["_halt"] = halted
         rows.append(h)
     names = list(rows[0])
     dtypes = [r.dtype if isinstance(r, torch.Tensor) else
@@ -324,87 +369,171 @@ def _masked_steps(step, carry, k0, limit, n):
 
 
 class _GraphChunk:
-    """One chunk of ``chunk`` iterations captured as a CUDA graph, with its
-    static buffers: the carry (read at the start of a replay and written
-    at its end), the problem's tensors, ``k0``, ``limit`` and the packed
-    histories."""
+    """A chunk of ``chunk`` iterations as replays of a CUDA graph of
+    ``span`` iterations, with its static buffers: the carry and the
+    overflow flag (read at the start of a replay and written at its end),
+    the problem's tensors, ``k0``, ``limit``, the packed histories of a
+    replay and those of the chunk.  On the CPU (where the tests run the
+    same code) nothing is captured: a replay runs ``_masked_steps``."""
 
     def __init__(self, step, cfg, chunk, problem, leaves, carry, keep,
-                 cached):
+                 cached, span=None):
         dev = carry["done"].device
         self.keep = keep
+        self.span = min(int(span or chunk), chunk)
         self.leaves = [t.clone() for t in leaves]
         self.problem = _rebuild(problem, iter(self.leaves))
         self.carry = {k: v.clone() for k, v in carry.items()}
         self.k0 = torch.zeros((), dtype=torch.int64, device=dev)
         self.limit = torch.zeros((), dtype=torch.int64, device=dev)
-        run = ((lambda c, k: step(cfg, self.problem, c, k)) if cached
-               else step)
+        self.halted = torch.zeros((), dtype=torch.bool, device=dev)
+        # the step on this entry's problem; a closure over ``self`` would be
+        # a reference cycle, freed by the collector at any moment, a
+        # capture's included
+        self.run = (functools.partial(step, cfg, self.problem) if cached
+                    else step)
+        self.graph, self.capture_s, self.pool_bytes = None, 0.0, 0
+        if dev.type != "cuda":
+            _, _, self.names, self.dtypes = _masked_steps(
+                self.run, self.carry, self.k0, self.limit, 1, self.halted)
+            self.rows = self._rows(chunk, dev)
+            return
         t = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             # one step outside the capture: the libraries' handles and
             # workspaces exist before the capture needs them
-            _masked_steps(run, self.carry, self.k0, self.limit, 1)
+            _masked_steps(self.run, self.carry, self.k0, self.limit, 1,
+                          self.halted)
         torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
+        # the graph is kept beside its executable, so that its nodes can
+        # be counted (``raw_cuda_graph``)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(self.graph, stream=side):
             # entering emptied the allocator's cache: what is reserved
             # from here on is the graph's private pool
             before = torch.cuda.memory_reserved(dev)
             out, self.hist, self.names, self.dtypes = _masked_steps(
-                run, self.carry, self.k0, self.limit, chunk)
-            for k, v in out.items():
-                self.carry[k].copy_(v)
+                self.run, self.carry, self.k0, self.limit, self.span,
+                self.halted)
+            self._store(out)
+        self.graph.instantiate()
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t
+        self.rows = self._rows(chunk, dev)
         static = self.leaves + list(self.carry.values())
-        # card memory the entry holds: its pool and its static inputs
+        # card memory the entry holds: its pool and its static buffers
         self.pool_bytes = (torch.cuda.memory_reserved(dev) - before
-                           + sum(a.numel() * a.element_size() for a in static))
+                           + sum(a.numel() * a.element_size()
+                                 for a in static + [self.hist]
+                                 + ([self.rows] if self.rows is not None
+                                    else [])))
         GRAPH_STATS["captures"] += 1
         GRAPH_STATS["capture_s"] += self.capture_s
+
+    def _rows(self, chunk, dev):
+        """The chunk's packed histories, where it takes several spans (its
+        last span may run past the chunk, masked by ``limit``)."""
+        if self.span >= chunk:
+            return None
+        spans = -(-chunk // self.span)
+        return torch.empty((len(self.names), spans * self.span),
+                           dtype=torch.float64, device=dev)
 
     def load_problem(self, leaves):
         for dst, src in zip(self.leaves, leaves):
             if dst.data_ptr() != src.data_ptr():
                 dst.copy_(src)
 
+    def _store(self, carry):
+        """A span's carry and overflow into the static buffers."""
+        for k, v in carry.items():
+            self.carry[k].copy_(v)
+        self.halted.copy_(self.hist[self.names.index("_halt"), -1] != 0)
+
+    def _launch(self):
+        """One span from the static buffers."""
+        if self.graph is not None:
+            self.graph.replay()
+            return
+        out, self.hist, _, _ = _masked_steps(
+            self.run, self.carry, self.k0, self.limit, self.span,
+            self.halted)
+        self._store(out)
+
     def replay(self, carry, k0, limit):
         """Run iterations ``k0 <= k < limit`` (at most a chunk) from
-        ``carry``; returns the carry (the static buffers), the host
-        histories and the carry's ``done``, read in one copy."""
+        ``carry``, span after span with no read between them; returns the
+        carry (the static buffers), the host histories, the carry's ``done``
+        and whether an iteration overflowed (its row and those after it
+        are invalid), all read in one copy."""
         for k, v in carry.items():
             if v is not self.carry[k]:
                 self.carry[k].copy_(v)
-        self.k0.fill_(k0)
+        self.halted.fill_(False)
         self.limit.fill_(limit)
-        self.graph.replay()
-        GRAPH_STATS["replays"] += 1
-        packed = self.hist.cpu().numpy()
+        spans = -(-(limit - k0) // self.span)
+        for j in range(spans):
+            self.k0.fill_(k0 + j * self.span)
+            self._launch()
+            if spans > 1:
+                self.rows[:, j * self.span:(j + 1) * self.span].copy_(
+                    self.hist)
+        GRAPH_STATS["replays"] += spans
+        packed = (self.hist if spans == 1 else
+                  self.rows[:, :spans * self.span]).cpu().numpy()
         hist = {name: packed[i].astype(_np_dtype(dt))
                 for i, (name, dt) in enumerate(zip(self.names, self.dtypes))}
-        return dict(self.carry), hist, bool(hist.pop("_done")[-1])
+        return (dict(self.carry), hist, bool(hist.pop("_done")[-1]),
+                bool(hist.pop("_halt")[-1]))
+
+
+def _graph_run(graph, step, carry, k0, limit):
+    """Iterations ``k0 <= k < limit`` by replays of ``graph``, one read
+    each: an iteration whose bounded loops overflowed runs again by
+    ``step`` in the loops' Python form, on the same device with the same
+    arithmetic, and the replays resume after it.  Returns ``(carry, hist,
+    done)``."""
+    parts = []
+    while True:
+        carry, hist, done, halted = graph.replay(carry, k0, limit)
+        if not halted:
+            parts.append(hist)
+            break
+        nv = int(hist["_valid"].sum())
+        parts.append({name: v[:nv] for name, v in hist.items()})
+        k0 += nv
+        GRAPH_STATS["continuations"] += 1
+        carry, row = _device_chunk(step, dict(carry), k0, k0 + 1)
+        parts.append(row)
+        k0 += 1
+        done = bool(full(carry["done"]))
+        if done or k0 >= limit:
+            break
+    if len(parts) == 1:
+        return carry, parts[0], done
+    return carry, {name: np.concatenate([p[name] for p in parts])
+                   for name in parts[0]}, done
 
 
 def _np_dtype(dt):
     return torch.empty((), dtype=dt).numpy().dtype
 
 
-def _graph_chunk(step, cfg, chunk, problem, carry, cached=True):
+def _graph_chunk(step, cfg, chunk, problem, carry, cached=True, span=None):
     """The ``_GraphChunk`` for this solve, its static problem buffers
     loaded with this problem's tensors: from the cache for the cached step
     form (captured on a miss), captured for this call alone for the
     closure form, as JAX compiles a closure per call."""
-    key, leaves, keep = graph_key(step, cfg, chunk, problem, carry)
+    key, leaves, keep = graph_key(step, cfg, chunk, problem, carry, span)
     if not cached:
         return _GraphChunk(step, cfg, chunk, problem, leaves, carry, keep,
-                           False)
+                           False, span)
     entry = _GRAPHS.get(key)
     if entry is None:
         entry = _GraphChunk(step, cfg, chunk, problem, leaves, carry, keep,
-                            True)
+                            True, span)
         _GRAPHS[key] = entry
         while len(_GRAPHS) > _GRAPH_CACHE_CAP:
             _GRAPHS.popitem(last=False)
@@ -437,9 +566,32 @@ def _frozen_steps(step, carry, k0, limit):
     return carry, rows, host
 
 
+class _ReplicatedScalars(TorchFunctionMode):
+    """Inside a sharded eager chunk: each 0-d DTensor that holds a partial
+    (a sum or an extreme over a sharded axis) is reduced before an
+    operation takes it, so the steps' scalars are replicated, as the host
+    reads of the Python-float steps made them.  DTensor's dispatch cache
+    cannot take a partial scalar met by a Python number and later by a
+    tensor (``Partial + 0.0`` before ``Partial + Replicate`` raises)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        def rep(a):
+            if (is_dtensor(a) and a.dim() == 0
+                    and any(p.is_partial() for p in a.placements)):
+                return replicated(a)
+            return a
+
+        return func(*map(rep, args),
+                    **{k: rep(v) for k, v in (kwargs or {}).items()})
+
+
 def _device_chunk(step, carry, k0, limit):
     """``_frozen_steps`` with the histories read once."""
-    carry, rows, host = _frozen_steps(step, carry, k0, limit)
+    if any(is_dtensor(v) for v in carry.values()):
+        with _ReplicatedScalars():
+            carry, rows, host = _frozen_steps(step, carry, k0, limit)
+    else:
+        carry, rows, host = _frozen_steps(step, carry, k0, limit)
     hist = {name: (full(torch.stack([r[name] for r in rows])).cpu().numpy()
                    if isinstance(rows[0][name], torch.Tensor)
                    else np.asarray([r[name] for r in rows]))
@@ -493,6 +645,7 @@ def run_driver(
     problem=None,
     cfg=None,
     k_start: int = 0,
+    graph_span: Optional[int] = None,
 ):
     """Run ``step`` for iterations ``k_start <= k < maxitrs`` in chunks.
 
@@ -507,7 +660,9 @@ def run_driver(
     chunk always saved); if it exists when the run starts, the run resumes
     from it exactly, even with another ``chunk`` or a larger budget.  The
     file records JAX's fingerprint of ``(step, cfg)``; a file saved under
-    another is refused.
+    another is refused.  ``graph_span``: the iterations a graph chunk
+    captures (the whole chunk for None), replayed back to back to fill the
+    chunk, still with one read per chunk.
 
     Returns ``(carry, hist, T)``: ``hist`` maps each history name to a host
     numpy array truncated at the stopping iteration (inclusive); ``T`` is
@@ -537,7 +692,7 @@ def run_driver(
                 nrows = len(next(iter(block.values())))
                 blocks.append((block, 0.0, t_spent, nrows))
 
-    mode = chunk_mode(carry)
+    mode = chunk_mode(carry, problem)
     graph = None
     if mode == "graph":
         # chosen from the carry before any capture; JAX's cached form
@@ -546,26 +701,26 @@ def run_driver(
         if problem is not None:
             graph = _graph_chunk(
                 raw, cfg, chunk,
-                _as_device_numbers(problem, carry["done"].device), carry)
+                _as_device_numbers(problem, carry["done"].device), carry,
+                span=graph_span)
         else:
             graph = _graph_chunk(step, None, chunk, None, carry,
-                                 cached=False)
+                                 cached=False, span=graph_span)
     chunk_fn = {"host": _host_chunk, "eager": _device_chunk}.get(mode)
 
     t0 = time.time() - t_spent
-    done = bool(carry["done"])
+    done = bool(full(carry["done"]))
     while k_next < maxitrs and not done:
         t_a = time.time() - t0
         # the chunk grid is absolute, so hooks fire at the same k whether or
         # not the run was resumed from a checkpoint
         limit = min(maxitrs, (k_next // chunk + 1) * chunk)
         if graph is not None:
-            carry, hist, done = graph.replay(carry, k_next, limit)
-            launched = chunk
+            carry, hist, done = _graph_run(graph, step, carry, k_next, limit)
         else:
             carry, hist = chunk_fn(step, carry, k_next, limit)
-            launched = len(hist["_valid"])
-            done = bool(carry["done"])
+            done = bool(full(carry["done"]))
+        launched = len(hist["_valid"])
         t_b = time.time() - t0
         nv = int(hist["_valid"].sum())
         block = {name: v[:nv] for name, v in hist.items()}
@@ -603,12 +758,12 @@ def run_driver(
         carry = {k: v.clone() for k, v in carry.items()}
 
     # concatenate + truncate with the reference's inclusive-stop semantics
-    full = {name: np.concatenate([b[0][name] for b in blocks])
-            for name in blocks[0][0].keys()}
-    full.pop("_valid", None)
-    full.pop("_stop", None)
-    n = min(len(next(iter(full.values()))), maxitrs - k_start)
-    out = {name: v[:n] for name, v in full.items()}
+    joined = {name: np.concatenate([b[0][name] for b in blocks])
+              for name in blocks[0][0].keys()}
+    joined.pop("_valid", None)
+    joined.pop("_stop", None)
+    n = min(len(next(iter(joined.values()))), maxitrs - k_start)
+    out = {name: v[:n] for name, v in joined.items()}
 
     # each block's rows spread linearly over its measured [t_a, t_b]
     T = np.zeros(n)

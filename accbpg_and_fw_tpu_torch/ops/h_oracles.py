@@ -1,9 +1,13 @@
 """Legendre kernels (h-oracles) of the port.
 
 Port of ``accbpg_and_fw_tpu/ops/h_oracles.py`` (reference:
-functions.py:238-905): float64 tensors in and out, the kernels' scalars
-(``L``, ``lamda``, ``alpha``, ``sigma``, a radius, a multiplier) as Python
-floats.  Ported: the Burg-entropy family (``BurgEntropy``,
+functions.py:238-905): float64 tensors in and out, the kernels' own
+constants (``lamda``, ``alpha``, ``sigma``, a radius) as Python floats, and
+``L`` a number or a 0-d tensor on the solve's device (the plain Bregman
+steps keep their scalars there).  Every prox runs with no host read, so a
+graph chunk captures it, but ``SumOf2nd4thPowersDualProxMap``'s, which
+declares ``host_reads``, and ``SumOf2nd4thPowersWithFrankWolfe``'s, which
+reads as its LMO does.  Ported: the Burg-entropy family (``BurgEntropy``,
 ``BurgEntropyL1``, ``BurgEntropyL2``, ``BurgEntropySimplex``,
 ``BurgEntropyL2Ball``), the Shannon-entropy family, the 2nd+4th-power
 kernels (``SumOf2nd4thPowersDualProxMap``'s prox runs its inner loop in
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from .._scalar import read
 from .base import LegendreOracle, fnorm, vdot
 from .roots import (bisect_monotone, project_simplex_burg,
                     simplex_inv_multiplier, solve_cubic)
@@ -46,7 +51,7 @@ class BurgEntropy(LegendreOracle):
         # x == y == 0 coordinates are structurally absent (zero-padded
         # columns): their contribution is the limit 0, not 0/0 = NaN.  Other
         # domain violations still give inf or NaN.
-        t = torch.where((x == 0) & (y == 0), torch.zeros_like(t), t)
+        t = torch.where((x == 0) & (y == 0), 0.0, t)
         return torch.sum(t)
 
     def prox_map(self, g, L):
@@ -86,20 +91,24 @@ class BurgEntropyL2(BurgEntropy):
         # x = L/g (= 1/gg) instead
         gg = g / L
         lamda_L = self.lamda / L
-        if lamda_L == 0:
-            return torch.div(1.0, gg)
-        return (torch.sqrt(gg * gg + 4.0 * lamda_L) - gg) / (2.0 * lamda_L)
+        if not isinstance(lamda_L, torch.Tensor):
+            lamda_L = torch.full((), lamda_L, dtype=gg.dtype, device=gg.device)
+        safe = torch.where(lamda_L == 0, 1.0, lamda_L)
+        root = (torch.sqrt(gg * gg + 4.0 * safe) - gg) / (2.0 * safe)
+        return torch.where(lamda_L == 0, torch.div(1.0, gg), root)
 
 
 class BurgEntropySimplex(BurgEntropy):
     """Burg entropy restricted to the unit simplex (reference :326-356).
 
     ``prox_map`` solves ``sum_i 1/(g_i/L + c) = 1`` for the multiplier c
-    with ``roots.simplex_inv_multiplier`` (a warm-startable Newton whose
-    scalar recurrence runs on the host: ``3 + (Newton steps)`` host syncs on
-    CUDA).  ``use_pallas=True`` takes the one-kernel multiplier of
-    ``ops/simplex.py`` instead: the Hopper kernel on CUDA (one launch, no
-    host sync), its plain version on the CPU.  Opt-in, as in JAX.
+    with ``roots.simplex_inv_multiplier`` (a warm-startable Newton on the
+    device: a graph chunk captures it; eagerly it reads its exit test once
+    per Newton step).  ``use_pallas=True`` takes the one-kernel multiplier
+    of ``ops/simplex.py`` instead: the Hopper kernel on CUDA (one launch, no
+    host sync), its plain version on the CPU.  Opt-in, as in JAX.  The
+    warm-started pair returns the multiplier as a Python float, read once,
+    for the ``fast_gram`` steps that carry it on the host.
     """
 
     def __init__(self, eps=1e-8, use_pallas=False):
@@ -120,7 +129,7 @@ class BurgEntropySimplex(BurgEntropy):
     def prox_map_warm(self, g, L, c_prev):
         gg = g / L
         c = simplex_inv_multiplier(gg, self.eps, c_warm=c_prev)
-        return torch.div(1.0, gg + c), c
+        return torch.div(1.0, gg + c), read(c)[0]
 
     def div_prox_map_warm(self, y, g, L, c_prev):
         return self.prox_map_warm(g + torch.div(L, y), L, c_prev)
@@ -137,11 +146,21 @@ class BurgEntropyL2Ball(BurgEntropy):
         self.center = center
         self.delta = float(delta)
 
+    def _center(self, x):
+        """The center on ``x``'s device, copied there once (a copy from the
+        host cannot be captured)."""
+        if self.center is None:
+            return torch.zeros_like(x)
+        if (not isinstance(self.center, torch.Tensor)
+                or self.center.device != x.device
+                or self.center.dtype != x.dtype):
+            self.center = torch.as_tensor(self.center, dtype=x.dtype,
+                                          device=x.device)
+        return self.center.expand(x.shape)
+
     def div_prox_map(self, y, g, L):
         x = torch.div(L, g + torch.div(L, y))
-        center = (torch.zeros_like(x) if self.center is None else
-                  torch.as_tensor(self.center, dtype=x.dtype,
-                                  device=x.device).expand(x.shape))
+        center = self._center(x)
         x = x - center
         x = x / torch.clamp_min(fnorm(x), self.radius)
         x = x * self.radius
@@ -308,7 +327,10 @@ class SumOf2nd4thPowersDualProxMap(SumOf2nd4thPowers):
     in blocks of ``DUAL_BLOCK`` steps instead: once the exit test has
     fired the state freezes through ``torch.where`` (as the JAX
     ``while_loop`` leaves it), and the host reads one flag per block, so
-    the result is the iterate at which the JAX loop stops."""
+    the result is the iterate at which the JAX loop stops.  Those reads
+    make the drivers run its chunks eagerly (``host_reads``)."""
+
+    host_reads = True
 
     def __init__(self, alpha=1.0, sigma=1.0, num_iters=7000, eta_base=1e-2,
                  tolerance=1e-4, radius=15.0):

@@ -1,29 +1,36 @@
 """Root-finding for the Bregman prox maps.
 
 Port of ``accbpg_and_fw_tpu/ops/roots.py``.  The JAX package wrote each
-data-dependent loop as a bounded ``lax.while_loop``; here a loop whose exit
-test depends on the data is a bounded Python loop, and each test reads one
-value back from the device (a host sync on CUDA).  Fixed-count loops
-(``bisect_monotone``) stay on the device and never read back.
+data-dependent loop as a bounded ``lax.while_loop``; here such a loop is a
+``device_while`` (``_loops.py``) on 0-d tensors: a Python loop that reads
+its exit test each turn outside a graph chunk (a host sync on CUDA), and
+a fixed number of masked steps with an overflow flag inside one, so a
+graph chunk captures the prox whole.  Fixed-count loops (``bisect_monotone``) never
+read back.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from .._device import replicate_like, replicated
-from .._scalar import div, read
+from .._loops import device_while
+
+# Masked Newton passes of ``simplex_inv_multiplier`` in a graph chunk (past
+# them the iteration runs again in the loop's Python form).  BPG-LS 30x1000
+# with the default h took 8 in 17276 of 17991 calls over 9000 iterations
+# under ``eager_chunks`` on the card, never more (PERF.md).
+NEWTON_BODIES = 8
 
 
 def _f64(a, like=None):
-    """``a`` as a float64 tensor; a number on ``like``'s device (replicated
-    on its mesh when ``like`` is a DTensor, so the two can meet)."""
+    """``a`` as a float64 tensor; a number on ``like``'s device (a fill on
+    the device, so a capture may take it; replicated on its mesh when
+    ``like`` is a DTensor, so the two can meet)."""
     if isinstance(a, torch.Tensor):
         return a.to(torch.float64)
     dev = like.device if isinstance(like, torch.Tensor) else None
-    return replicate_like(torch.tensor(a, dtype=torch.float64, device=dev),
+    return replicate_like(torch.full((), a, dtype=torch.float64, device=dev),
                           like)
 
 
@@ -61,66 +68,59 @@ def simplex_inv_multiplier(gg, eps, max_newton=100, c_warm=None):
 
     The KKT multiplier of ``argmin_{x in simplex} <g,x> - L*sum log x``,
     whose solution is ``x = 1/(gg + c)`` with ``gg = g/L`` (Burg-entropy
-    simplex prox; reference: functions.py:336-356).  Same algorithm as the
-    JAX function:
+    simplex prox; reference: functions.py:336-356).  The JAX function's
+    structure (JAX ``roots.py:67-168``):
 
     * the certified from-below start ``max(cmin + 1, c_hm)`` with the AM-HM
       point ``c_hm = n - mean(gg)`` over the finite coordinates (a +inf
       coordinate contributes exactly 0);
-    * an optional warm start ``c_warm``, taken only when finite, inside the
-      domain ``c > cmin`` and below the root bound ``cmin + n``;
-    * Newton on the convex decreasing residual, one fused pass per step,
-      until ``|resid| <= eps`` or ``max_newton`` steps, with the domain
-      safeguard (bisect back toward ``cmin``) and the freeze guard (an
-      update that does not move c ends the loop);
+    * an optional warm start ``c_warm``, taken by ``torch.where`` only when
+      finite, inside the domain ``c > cmin`` and below the root bound
+      ``cmin + n``;
+    * Newton on the convex decreasing residual, one fused pass per step, as
+      a ``device_while`` until ``|resid| <= eps`` or ``max_newton`` steps,
+      with the domain safeguard (bisect back toward ``cmin``) and the
+      freeze guard (an update that does not move c zeroes the residual);
     * two unconditional polish steps.
 
-    The scalar recurrence runs on the host: one read for ``(min, n, sum)``,
-    one per pass for the two sums, so a call costs ``3 + (Newton steps)``
-    host syncs on CUDA (two fewer when the polish freezes).  Returns ``c``
-    as a Python float.
+    Returns ``c`` as a 0-d tensor on ``gg``'s device, with no host read in
+    a graph chunk (``NEWTON_BODIES`` masked passes there).
     """
     gg = _f64(gg)
-    finite = torch.isfinite(gg)
-    cmin, n_eff, gg_sum = read(-gg.min(), finite.sum(dtype=torch.float64),
-                               torch.where(finite, gg, 0.0).sum())
     eps = float(eps)
+    cmin = -gg.min()
+    finite = torch.isfinite(gg)
+    n_eff = finite.sum(dtype=torch.float64)
+    gg_sum = torch.where(finite, gg, 0.0).sum()
 
     def resid_and_deriv(c):
         r = torch.div(1.0, gg + c)
-        s1, s2 = read(r.sum(), (r * r).sum())
-        return s1 - 1.0, -s2
+        return r.sum() - 1.0, -(r * r).sum()
 
-    c0 = cmin + 1.0
-    c_hm = n_eff - div(gg_sum, n_eff)
-    c = c_hm if (c_hm > c0 or math.isnan(c_hm)) else c0
+    c = torch.maximum(cmin + 1.0, n_eff - gg_sum / n_eff)
     if c_warm is not None:
-        (cw,) = read(c_warm)
-        if math.isfinite(cw) and cw > cmin and cw <= cmin + n_eff and cw > c:
-            c = cw
+        cw = _f64(c_warm, like=gg)
+        ok = torch.isfinite(cw) & (cw > cmin) & (cw <= cmin + n_eff)
+        c = torch.where(ok, torch.maximum(c, cw), c)
 
-    fc, fpc = resid_and_deriv(c)
-    it = 0
-    while abs(fc) > eps and it < max_newton:
-        c_new = c - div(fc, fpc)
+    def newton(s):
+        c, fc, fpc = s
+        c_new = c - fc / fpc
         # domain safeguard: never fires from a below-root start; a
         # from-above warm start that overshoots past cmin bisects back
-        if not c_new > cmin:
-            c_new = 0.5 * (c + cmin)
-        if c_new == c:  # the update underflowed: freeze (reference :348)
-            fc = 0.0
-        else:
-            fc, fpc = resid_and_deriv(c_new)
-        c = c_new
-        it += 1
+        c_new = torch.where(c_new > cmin, c_new, 0.5 * (c + cmin))
+        # an update that underflowed freezes (reference :348)
+        fc_new, fpc_new = resid_and_deriv(c_new)
+        return c_new, torch.where(c_new == c, 0.0, fc_new), fpc_new
+
+    c, fc, fpc = device_while(lambda s: torch.abs(s[1]) > eps, newton,
+                              (c,) + resid_and_deriv(c), int(max_newton),
+                              NEWTON_BODIES, "multiplier Newton")
     # two polish steps (the second one's residual is never used)
-    c_new = c - div(fc, fpc)
-    if c_new == c:
-        fc = 0.0
-    else:
-        fc, fpc = resid_and_deriv(c_new)
-    c = c_new
-    return c - div(fc, fpc)
+    c_new = c - fc / fpc
+    fc_new, fpc = resid_and_deriv(c_new)
+    fc = torch.where(c_new == c, 0.0, fc_new)
+    return c_new - fc / fpc
 
 
 def project_simplex_burg(y, eps=1e-8):
@@ -146,13 +146,14 @@ def bisect_monotone(fn, lo, hi, iters=64):
 
 
 def newton_scalar(fn, dfn, x0, tol, max_iters=100):
-    """Bounded scalar Newton iteration: stops once ``|fn(x)| <= tol`` (one
-    host read per step when ``fn`` returns a tensor)."""
-    x = x0
-    fx = fn(x)
-    it = 0
-    while it < max_iters and abs(read(fx)[0]) > tol:
-        x = x - fx / dfn(x)
-        fx = fn(x)
-        it += 1
-    return x
+    """Bounded scalar Newton iteration: stops once ``|fn(x)| <= tol``
+    (JAX's ``newton_scalar``, a ``device_while``: one host read per step
+    outside a graph chunk when ``fn`` returns a tensor)."""
+
+    def body(s):
+        x = s[0] - s[1] / dfn(s[0])
+        return x, fn(x)
+
+    x0 = _f64(x0)
+    return device_while(lambda s: torch.abs(s[1]) > tol, body,
+                        (x0, fn(x0)), int(max_iters), NEWTON_BODIES)[0]

@@ -12,8 +12,13 @@ it in FP64.
 On a CUDA tensor it launches the Hopper kernel ``csrc/simplex_mult.cu``
 (one thread-block cluster per solve, laid out by ``simplex_plan``: each CTA
 keeps its slice of the vector in shared memory and the CTAs exchange their
-partial sums through distributed shared memory) and counts the launch in
-``LAUNCHES``; the result stays on the device, so a call makes no host read.
+partial sums through distributed shared memory) and counts the launch
+twice: in ``LAUNCHES`` on the host, and on the card in an int64 that the
+wrapper adds one to on the launch's stream (``device_launches``).  A CUDA
+graph captures the wrapper once and replays the launch and its count, so
+only the device's count tells how often the kernel ran from a replay.  The
+result stays on the device, so a call makes no host read; the output comes
+from the allocator, which under a capture is the graph's pool.
 On a CPU tensor it runs ``simplex_multiplier_reference``, the plain version.
 Any other device raises, and a failed build or launch raises: nothing falls
 back to the plain version on the card.
@@ -35,8 +40,35 @@ _STALL = 1e-8
 
 # Kernel launches made by ``simplex_inv_multiplier_pallas`` on a CUDA tensor
 # (never by the plain version), so a run can show that it went through the
-# kernel.
+# kernel: counted on the host when the wrapper runs (under a capture, once
+# per captured launch) ...
 LAUNCHES = 0
+# ... and on the card, one int64 per device that each launch adds one to in
+# its stream, so a graph's replays count too (``device_launches``).
+_DEVICE_COUNTS: dict = {}
+
+
+def _device_count(device):
+    """The card's launch count on ``device``, made at the first launch there
+    (a graph's warm-up step launches before its capture)."""
+    count = _DEVICE_COUNTS.get(device.index)
+    if count is None:
+        count = torch.zeros((), dtype=torch.int64, device=device)
+        _DEVICE_COUNTS[device.index] = count
+    return count
+
+
+def device_launches():
+    """The launches the cards counted since the last reset, summed over
+    devices (one host read)."""
+    return sum(int(c) for c in _DEVICE_COUNTS.values())
+
+
+def reset_device_launches():
+    """Set the cards' counts to 0 in place (captured graphs keep adding to
+    the same tensors)."""
+    for c in _DEVICE_COUNTS.values():
+        c.zero_()
 
 
 def _check(gg):
@@ -93,6 +125,7 @@ def simplex_inv_multiplier_pallas(gg):
     global LAUNCHES
     out = _launch_cuda(gg)
     LAUNCHES += 1
+    _device_count(gg.device).add_(1)
     return out
 
 

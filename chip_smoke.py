@@ -4,11 +4,20 @@
     python3 chip_smoke.py --blocks-only [--root DIR] [--solves N]
                           [--gain-iters N]
     python3 chip_smoke.py --micro
+    python3 chip_smoke.py --bodies
 
 With ``--micro`` it builds and runs ``csrc/micro_cluster.cu``: the clocks
 of the primitives the cluster kernels are built from (an exchange across a
 cluster by a store and the cluster barrier or by ``st.async`` and a
 transaction barrier, an IEEE FP64 division, the Newton reciprocal).
+
+With ``--bodies`` it measures what the Bregman paths' masked loops are
+chosen from: ABPG_gain 30x10000 (kernel route) and BPG-LS 30x1000
+(default h) under ``driver.eager_chunks`` over their 9000 iterations with
+``_loops.TALLY`` (the bodies each loop took, per loop), then each as
+graph chunks over 2000 iterations at several masked bodies per line
+search (walls, continuations, nodes per graph), and one ABPG_gain graph
+of 256 iterations against one of 32 (nodes, capture seconds).
 
 With ``--blocks-only`` it prints only the lazy-H kernel's block times
 (1000x5000, and K=3 of 1000x2000), the dense kernel's block times (B=1 and
@@ -80,24 +89,39 @@ and the script exits non-zero without the result line:
       idle shares, the kernel's share);
    e. the Bregman path: ``ABPG_gain`` (gamma=2, 9000 iterations) on
       ``D_opt_design(30, 10000, randseed=10, device="cuda")`` with
-      ``BurgEntropySimplex(use_pallas=True)``; every prox must launch the
-      multiplier kernel and land on the simplex (|sum x - 1| <= 1e-8 plus
-      the sum's rounding), and the fresh float64 F of the final iterate
-      must reach -16.0963 (the reference notebook's numpy run: -16.096434);
+      ``BurgEntropySimplex(use_pallas=True)``, as graph chunks (one CUDA
+      graph per 32 iterations, replayed; the line search, theta's Newton
+      and the restart rules inside it): one capture; every prox must
+      launch the multiplier kernel (the card's own count of launches and of
+      prox calls, which a replay adds to, against the trials of the gain
+      history) and land on the simplex (|sum x - 1| <= 1e-8 plus the sum's
+      rounding), and the fresh float64 F of the final iterate must reach
+      -16.0963 (the reference notebook's numpy run: -16.096434); then the
+      same solve under ``driver.eager_chunks`` over 500 iterations, its
+      rows against the graph's first 500 (bit for bit, or within 1e-13
+      relative where cuBLAS took another algorithm under capture), and a
+      traced window of 32 iterations of each (the device's idle share);
    f. ``BPG`` with its line search (9000 iterations) on the 30x1000 seed-10
-      design with the default h on the card: the last F row within 1e-7 of
-      the reference's -8.62103647488 (its history's last row), the returned
-      iterate (one step further) at or below it by a fresh float64
-      slogdet, and no multiplier kernel launch;
+      design with the default h on the card, as graph chunks (the prox's
+      Newton inside them): the last F row within 1e-7 of the reference's
+      -8.62103647488 (its history's last row), the returned iterate (one
+      step further) at or below it by a fresh float64 slogdet, and no
+      multiplier kernel launch; the eager side run and traces as in e.
+      One ``[bregman graph]`` line gives for both: walls, host syncs per
+      solve, continuations (iterations run again eagerly after an
+      overflow of their masked loops), nodes per graph, capture seconds,
+      the graph's memory and the idle shares, beside the eager side run;
    g. the README example's BPG, ABPG, ABPG_expo and ABPG_gain calls
       (``examples/ex_Dopt_random.py``) at 80x200 seed 10 on the card with
-      ``use_pallas=True``: finite F, BPG and ABPG within 0.05 of 17.59 and
+      ``use_pallas=True``: finite F, the card's count of multiplier
+      launches at least the rows, BPG and ABPG within 0.05 of 17.59 and
       17.585 at 900 iterations; and ABPG_gain for 300 iterations on the
       card against the CPU (the kernel's plain version), F rtol 1e-9 over
       the first 100 rows;
    h. per-iteration costs of the five Bregman drivers at 30x1000 on the
-      card, with each h: host syncs (``torch.cuda.set_sync_debug_mode``)
-      and device operations (``torch.profiler``) per iteration;
+      card, with each h, as graphs and under ``driver.eager_chunks``: host
+      syncs (``torch.cuda.set_sync_debug_mode``) and device operations
+      (``torch.profiler``) per iteration;
    i. the Frank-Wolfe paths, which launch none of the kernels (their
       counts must stay 0): the five FW drivers on the ``"illcond"``
       logistic problem of ``examples/ex_fw_l0l1.py`` at 1000x1000 (rho
@@ -219,6 +243,12 @@ GAIN_M, GAIN_N, GAIN_ITERS, GAIN_F_BOUND = 30, 10000, 9000, -16.0963
 BPG_M, BPG_N, BPG_ITERS, BPG_F_REF, BPG_F_TOL = 30, 1000, 9000, \
     -8.62103647488, 1e-7
 README_M, README_N, README_ITERS = 80, 200, 900
+# the Bregman paths' side runs: the eager loop (driver.eager_chunks) over
+# BREG_EAGER iterations against the graph's first rows, and a traced window
+# of BREG_TRACE iterations of each for the device's idle share (one graph
+# span: 256 took the profiler minutes, a graph of 32 iterations holding
+# 40-53k nodes)
+BREG_EAGER, BREG_TRACE = 500, 32
 # the multiplier kernel's Newton stall threshold
 SIMPLEX_STALL = 1e-8
 # the Frank-Wolfe paths: the "illcond" regime of examples/ex_fw_l0l1.py at
@@ -1260,86 +1290,279 @@ def gain_trials(Gain, G0, ratio):
 
 
 class ProxProbe:
-    """Counts the prox calls of an h-oracle and keeps the largest
-    |sum x - 1| of their outputs on the device (no host read)."""
+    """Counts on the card the prox calls of an h-oracle the device ran (a
+    graph captures the probe once and replays its count) and keeps the
+    largest |sum x - 1| of their outputs there (no host read)."""
 
     def __init__(self, h):
-        self.calls, self.worst = 0, None
+        self.calls = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.worst = torch.zeros((), dtype=torch.float64, device="cuda")
         inner = h.prox_map
 
         def prox_map(g, L):
             x = inner(g, L)
-            self.calls += 1
-            e = (x.sum() - 1.0).abs()
-            self.worst = e if self.worst is None else torch.maximum(
-                self.worst, e)
+            self.calls.add_(1)
+            torch.maximum(self.worst, (x.sum() - 1.0).abs(), out=self.worst)
             return x
 
         h.prox_map = prox_map
 
 
-def gain_path(port, sm):
-    """Phase 4e; returns the kernel's launches in it."""
+def graph_nodes(entries):
+    """Nodes of the captured graphs (the driver API's cuGraphGetNodes on
+    each kept graph), or None where it does not answer."""
+    import ctypes
+
+    try:
+        cu = ctypes.CDLL("libcuda.so.1")
+        total = 0
+        for e in entries:
+            n = ctypes.c_size_t(0)
+            if cu.cuGraphGetNodes(ctypes.c_void_p(e.graph.raw_cuda_graph()),
+                                  None, ctypes.byref(n)):
+                return None
+            total += n.value
+        return total
+    except (OSError, AttributeError, RuntimeError):
+        return None
+
+
+def synced(run):
+    """``run()`` timed and with its host syncs counted
+    (``torch.cuda.set_sync_debug_mode``): ``(result, wall s, syncs)``."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, wall, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def idle_share(run):
+    """The device's idle share over one traced call of ``run`` (the
+    profiler's own cost included), or None without device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy = sum(e.device_time for e in prof.events()
+               if e.device_type == DeviceType.CUDA) * 1e-6
+    return 1.0 - busy / wall if busy else None
+
+
+def pct(share):
+    return "not measured" if share is None else f"{100 * share:.1f}%"
+
+
+def bregman_graph(driver, label, run, iters, check):
+    """One Bregman path, ``run(n)`` a solve of n iterations: the graph path
+    over ``iters`` iterations, captured at this call, then
+    ``check(result)`` (the quality gate; returns its text); the eager loop
+    (``driver.eager_chunks``) over BREG_EAGER iterations against the
+    graph's first rows (bit for bit, or within 1e-13 relative where cuBLAS
+    took another algorithm under capture); the idle share of a traced
+    window of each.  Returns ``(result, the [bregman graph] text)``."""
+    driver.clear_graph_cache()
+    before = dict(driver.GRAPH_STATS)
+    res, wall, syncs = synced(lambda: run(iters))
+    st = {k: driver.GRAPH_STATS[k] - before[k] for k in before}
+    entries = list(driver._GRAPHS.values())
+    if st["captures"] != 1 or not entries:
+        raise AssertionError(f"{label}: {st['captures']} captures, the "
+                             "graph path was not taken")
+    gate = check(res)
+    nodes = graph_nodes(entries)
+    span = entries[0].span
+    g_idle = idle_share(lambda: run(BREG_TRACE))
+    with driver.eager_chunks():
+        eager, e_wall, e_syncs = synced(lambda: run(BREG_EAGER))
+        e_idle = idle_share(lambda: run(BREG_TRACE))
+    F_g, F_e = np.asarray(res[1][:BREG_EAGER]), np.asarray(eager[1])
+    if len(F_e) != BREG_EAGER:
+        raise AssertionError(f"{label}: {len(F_e)} eager rows")
+    if np.array_equal(F_g, F_e):
+        agree = "bit for bit"
+    else:
+        rel = float(np.max(np.abs(F_g - F_e) / np.abs(F_e)))
+        if not rel <= 1e-13:
+            raise AssertionError(f"{label}: graph vs eager F rel err "
+                                 f"{rel:.3e} > 1e-13")
+        agree = (f"F within {rel:.1e} relative (not bit for bit: cuBLAS "
+                 "may pick another algorithm under capture)")
+    node_txt = ("not measured" if nodes is None else
+                f"{nodes} nodes ({nodes / span:.0f} per iteration)")
+    text = (f"{label}: graph {len(res[1])} iterations in {wall:.3f} s "
+            f"({1e3 * wall / len(res[1]):.3f} ms per iteration; capture "
+            f"{entries[0].capture_s:.2f} s of it), a graph of {span} "
+            f"iterations with {node_txt}, pool "
+            f"{entries[0].pool_bytes / 2**20:.1f} MiB, {st['replays']} "
+            f"replays, {st['continuations']} continuations, {syncs} host "
+            f"syncs per solve, device idle {pct(g_idle)} ({BREG_TRACE} "
+            f"iterations traced); eager_chunks {BREG_EAGER} iterations in "
+            f"{e_wall:.3f} s ({1e3 * e_wall / BREG_EAGER:.3f} ms per "
+            f"iteration), {e_syncs / BREG_EAGER:.2f} host syncs per "
+            f"iteration, device idle {pct(e_idle)}; first {BREG_EAGER} rows "
+            f"{agree}; {gate}")
+    return res, text
+
+
+def bodies_study(iters=2000):
+    """``--bodies`` (see the module docstring).  Each path runs as graphs
+    first, then eagerly: the order of phases 4e-4f."""
+    import accbpg_and_fw_tpu_torch as port
+    from accbpg_and_fw_tpu_torch import _loops
+    from accbpg_and_fw_tpu_torch.algorithms import bpg, driver
+    from accbpg_and_fw_tpu_torch.ops import _build
+
+    _build.build_all(["simplex_mult"])
+    print(f"[bodies] torch {torch.__version__}; {card_line()}", flush=True)
+
+    def gain_run():
+        f, _, L, x0 = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
+                                        device="cuda")
+        h = port.BurgEntropySimplex(use_pallas=True)
+        return lambda n: port.ABPG_gain(f, h, L, x0, gamma=2, maxitrs=n,
+                                        verbose=False)
+
+    def bpg_run():
+        f, h, L, x0 = port.D_opt_design(BPG_M, BPG_N, randseed=10,
+                                        device="cuda")
+        return lambda n: port.BPG(f, h, L, x0, maxitrs=n, verbose=False)
+
+    paths = (("ABPG_gain", gain_run, GAIN_ITERS, "GAIN_BODIES", (4, 6, 8)),
+             ("BPG-LS", bpg_run, BPG_ITERS, "BPG_BODIES", (3, 5)))
+    for name, make, full_iters, attr, choices in paths:
+        run = make()
+        chosen = getattr(bpg, attr)
+        parts = []
+        for bodies in choices:
+            setattr(bpg, attr, bodies)
+            driver.clear_graph_cache()
+            before = dict(driver.GRAPH_STATS)
+            run(iters)  # the capture
+            cont = driver.GRAPH_STATS["continuations"] - before[
+                "continuations"]
+            _, ms = timed_plain(lambda: run(iters))
+            nodes = graph_nodes(list(driver._GRAPHS.values()))
+            parts.append(f"{bodies} bodies {ms / 1e3:.2f} s warm, {cont} "
+                         f"continuations, {nodes} nodes per graph")
+        setattr(bpg, attr, chosen)
+        print(f"[bodies] {name} as graphs over {iters} iterations: "
+              + "; ".join(parts) + f" ({attr} = {chosen})", flush=True)
+        if name == "ABPG_gain":
+            spans, chosen_span = [], bpg.GRAPH_SPAN
+            for span in (256, 32):
+                bpg.GRAPH_SPAN = span
+                driver.clear_graph_cache()
+                run(256)
+                entry = next(iter(driver._GRAPHS.values()))
+                spans.append(f"span {span}: {graph_nodes([entry])} nodes, "
+                             f"capture {entry.capture_s:.2f} s, pool "
+                             f"{entry.pool_bytes / 2**20:.1f} MiB")
+            bpg.GRAPH_SPAN = chosen_span
+            print("[bodies] ABPG_gain graphs: " + "; ".join(spans),
+                  flush=True)
+        _loops.TALLY[0] = {}
+        with driver.eager_chunks():
+            _, ms = timed_plain(lambda: run(full_iters))
+        tally, _loops.TALLY[0] = _loops.TALLY[0], None
+        print(f"[bodies] {name} eager_chunks {full_iters} iterations in "
+              f"{ms / 1e3:.2f} s; bodies taken per loop: " + "; ".join(
+                  f"{loop} {sorted(counts.items())}"
+                  for loop, counts in tally.items()), flush=True)
+    return 0
+
+
+def gain_path(port, sm, driver):
+    """Phase 4e; returns the kernel's launches in it (the card's count)
+    and the [bregman graph] text."""
     f, _, L, x0 = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
                                     device="cuda")
     h = port.BurgEntropySimplex(use_pallas=True)
     probe = ProxProbe(h)
+    counts = {}
+
+    def run(n):
+        return port.ABPG_gain(f, h, L, x0, gamma=2, maxitrs=n, verbose=False)
+
+    def check(res):
+        x, F, Gain = res[0], res[1], res[2]
+        counts["launches"] = sm.device_launches()
+        counts["calls"] = int(probe.calls)
+        trials = int(gain_trials(Gain, 1.0, 1.2).sum())
+        if not counts["launches"] >= counts["calls"] >= trials:
+            raise AssertionError(f"ABPG_gain path: {counts['launches']} "
+                                 f"kernel launches, {counts['calls']} prox "
+                                 f"calls, {trials} trials")
+        worst = float(probe.worst)
+        if not worst <= SIMPLEX_STALL + GAIN_N * 2.0**-52:
+            raise AssertionError(f"a prox output is off the simplex by "
+                                 f"{worst}")
+        Ff = fresh_F(f, x)
+        if not (np.all(np.isfinite(F)) and Ff <= GAIN_F_BOUND):
+            raise AssertionError(f"ABPG_gain path: fresh F {Ff!r} above "
+                                 f"{GAIN_F_BOUND}")
+        return (f"{trials} line-search trials, {counts['calls']} prox calls "
+                f"and {counts['launches']} kernel 5 launches on the card "
+                f"(masked trials included), fresh F {Ff:.9f} (recorded "
+                f"{F[-1]:.9f}; numpy reference -16.096434), worst |sum x - "
+                f"1| of a prox {worst:.3e}")
+
+    sm.reset_device_launches()
     sm.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    x, F, Gain, Gdiv, Gavg, T = port.ABPG_gain(f, h, L, x0, gamma=2,
-                                               maxitrs=GAIN_ITERS,
-                                               verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = sm.LAUNCHES
-    trials = int(gain_trials(Gain, 1.0, 1.2).sum())
-    if not launches >= probe.calls >= trials:
-        raise AssertionError(f"ABPG_gain path: {launches} kernel launches, "
-                             f"{probe.calls} prox calls, {trials} trials")
-    worst = float(probe.worst)
-    if not worst <= SIMPLEX_STALL + GAIN_N * 2.0**-52:
-        raise AssertionError(f"a prox output is off the simplex by {worst}")
-    Ff = fresh_F(f, x)
-    if not (np.all(np.isfinite(F)) and Ff <= GAIN_F_BOUND):
-        raise AssertionError(f"ABPG_gain path: fresh F {Ff!r} above "
-                             f"{GAIN_F_BOUND}")
-    print(f"[bregman gain] ABPG_gain gamma=2 {GAIN_M}x{GAIN_N} seed 10 "
-          f"use_pallas=True on cuda: wall {wall:.3f} s (with the prox "
-          f"probe), {len(F)} iterations, {trials} line-search trials, "
-          f"{probe.calls} prox calls, {launches} kernel launches; fresh F "
-          f"{Ff:.9f} (recorded {F[-1]:.9f}; numpy reference -16.096434); "
-          f"worst |sum x - 1| of a prox {worst:.3e}", flush=True)
-    return launches
+    _, text = bregman_graph(
+        driver, f"ABPG_gain gamma=2 {GAIN_M}x{GAIN_N} use_pallas=True", run,
+        GAIN_ITERS, check)
+    print(f"[bregman gain] {text}", flush=True)
+    return counts["launches"], text
 
 
-def bpg_path(port, sm):
-    """Phase 4f."""
+def bpg_path(port, sm, driver):
+    """Phase 4f; returns the [bregman graph] text."""
     f, h, L, x0 = port.D_opt_design(BPG_M, BPG_N, randseed=10,
                                     device="cuda")
+    sm.reset_device_launches()
     sm.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    x, F, Ls, T = port.BPG(f, h, L, x0, maxitrs=BPG_ITERS, linesearch=True,
-                           verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    if sm.LAUNCHES != 0:
-        raise AssertionError("the default h launched the multiplier kernel")
-    # the reference's value is its history's last row, f(x_8999); the
-    # returned iterate is one step further, so it must lie at or below it
-    Ff, Fo = fresh_F(f, x), float(f.value(x))
-    if not (len(F) == BPG_ITERS and abs(F[-1] - BPG_F_REF) <= BPG_F_TOL
-            and Ff <= F[-1] and abs(Ff - Fo) <= 1e-12 * abs(Ff)):
-        raise AssertionError(f"BPG-LS path: {len(F)} rows, F[-1] {F[-1]!r} "
-                             f"(reference {BPG_F_REF}), fresh F of the "
-                             f"iterate {Ff!r}, oracle {Fo!r}")
-    trials = int(np.rint(np.log(Ls / np.concatenate([[L], Ls[:-1]])
-                                * 1.2) / np.log(1.2)).sum()) + len(Ls)
-    print(f"[bregman bpg] BPG-LS {BPG_M}x{BPG_N} seed 10 default h on cuda: "
-          f"wall {wall:.3f} s, {len(F)} iterations, {trials} line-search "
-          f"trials; F[-1] {F[-1]:.11f} (reference {BPG_F_REF}); the "
-          f"returned iterate's fresh F {Ff:.11f}", flush=True)
+
+    def run(n):
+        return port.BPG(f, h, L, x0, maxitrs=n, linesearch=True,
+                        verbose=False)
+
+    def check(res):
+        x, F, Ls = res[0], res[1], res[2]
+        if sm.LAUNCHES or sm.device_launches():
+            raise AssertionError("the default h launched the multiplier "
+                                 "kernel")
+        # the reference's value is its history's last row, f(x_8999); the
+        # returned iterate is one step further, so it must lie at or below
+        Ff, Fo = fresh_F(f, x), float(f.value(x))
+        if not (len(F) == BPG_ITERS and abs(F[-1] - BPG_F_REF) <= BPG_F_TOL
+                and Ff <= F[-1] and abs(Ff - Fo) <= 1e-12 * abs(Ff)):
+            raise AssertionError(f"BPG-LS path: {len(F)} rows, F[-1] "
+                                 f"{F[-1]!r} (reference {BPG_F_REF}), "
+                                 f"fresh F of the iterate {Ff!r}, oracle "
+                                 f"{Fo!r}")
+        trials = int(np.rint(np.log(Ls / np.concatenate([[L], Ls[:-1]])
+                                    * 1.2) / np.log(1.2)).sum()) + len(Ls)
+        return (f"{trials} line-search trials; F[-1] {F[-1]:.11f} "
+                f"(reference {BPG_F_REF}); the returned iterate's fresh F "
+                f"{Ff:.11f}")
+
+    _, text = bregman_graph(driver, f"BPG-LS {BPG_M}x{BPG_N} default h",
+                            run, BPG_ITERS, check)
+    print(f"[bregman bpg] {text}", flush=True)
+    return text
 
 
 def readme_path(port, sm):
@@ -1363,20 +1586,21 @@ def readme_path(port, sm):
     bars = {"BPG": 17.59, "ABPG": 17.585}
     parts = []
     for name, run in calls.items():
-        sm.LAUNCHES = 0
+        sm.reset_device_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
         F = run()[1]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        if sm.LAUNCHES < len(F) or not np.all(np.isfinite(F)):
-            raise AssertionError(f"README {name}: {sm.LAUNCHES} launches, "
+        launches = sm.device_launches()  # a graph's replays count there
+        if launches < len(F) or not np.all(np.isfinite(F)):
+            raise AssertionError(f"README {name}: {launches} launches, "
                                  f"finite F {np.all(np.isfinite(F))}")
         if name in bars and not abs(F[-1] - bars[name]) < 0.05:
             raise AssertionError(f"README {name}: F {F[-1]} not within 0.05 "
                                  f"of {bars[name]}")
         parts.append(f"{name} F {F[-1]:.6f} in {wall:.3f} s "
-                     f"({sm.LAUNCHES} launches)")
+                     f"({launches} launches)")
     print(f"[readme] {README_M}x{README_N} seed 10 use_pallas=True on cuda, "
           f"{n} iterations: " + "; ".join(parts), flush=True)
 
@@ -1394,8 +1618,10 @@ def readme_path(port, sm):
           f"(bar 1e-9); {len(F_gpu)} and {len(F_cpu)} rows", flush=True)
 
 
-def per_iteration_costs(port):
-    """Phase 4h: host syncs and device operations per iteration."""
+def per_iteration_costs(port, driver):
+    """Phase 4h: host syncs and device operations per iteration of the
+    five Bregman drivers with each h, as graphs and under
+    ``driver.eager_chunks``."""
     f, _, L, x0 = port.D_opt_design(BPG_M, BPG_N, randseed=10,
                                     device="cuda")
     iters = 30
@@ -1411,29 +1637,28 @@ def per_iteration_costs(port):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def costs(run):
+        run()  # warm-up (a graph's capture)
+        res, _, syncs = synced(run)
+        n_rows = len(res[1])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ops = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+        ops_txt = (f"{ops / n_rows:.1f}" if ops else "not measured "
+                   "(no device events in the trace)")
+        return f"{syncs / n_rows:.2f} syncs, {ops_txt} device ops"
+
     rows = []
     for name, run in drivers.items():
         for use_pallas in (True, False):
             h = port.BurgEntropySimplex(use_pallas=use_pallas)
-            run(h)  # warm-up
-            torch.cuda.synchronize()
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    n_rows = len(run(h)[1])
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-            syncs = sum("synchroniz" in str(w.message) for w in caught)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run(h)
-                torch.cuda.synchronize()
-            ops = sum(1 for e in prof.events()
-                      if e.device_type == DeviceType.CUDA)
-            ops_txt = (f"{ops / n_rows:.1f}" if ops else "not measured "
-                       "(no device events in the trace)")
-            rows.append(f"{name} use_pallas={use_pallas}: "
-                        f"{syncs / n_rows:.2f} syncs, {ops_txt} device ops")
+            graph = costs(lambda: run(h))
+            with driver.eager_chunks():
+                eager = costs(lambda: run(h))
+            rows.append(f"{name} use_pallas={use_pallas}: graph {graph}; "
+                        f"eager {eager}")
     print(f"[costs] per iteration at {BPG_M}x{BPG_N} on cuda ({iters} "
           f"iterations each): " + "; ".join(rows), flush=True)
 
@@ -2003,6 +2228,25 @@ def extras_paths(port, card, counters, sm):
 # ---- phases 4l-4n: fast_gram, sharding, diagnostics and examples ------------
 
 
+class DeviceCount:
+    """Kernel 5's launch count on the card as a counter of the phases'
+    ``(module, name)`` pairs: a graph's replays count there, not in the
+    wrapper's host count."""
+
+    def __init__(self, sm):
+        self.sm = sm
+        # read_counts keys it "simplex_device.LAUNCHES": a kernel 5 count
+        self.__name__ = "ops.simplex_device"
+
+    @property
+    def LAUNCHES(self):
+        return self.sm.device_launches()
+
+    @LAUNCHES.setter
+    def LAUNCHES(self, value):
+        self.sm.reset_device_launches()
+
+
 def reset_counts(counters):
     for mod, name in counters:
         setattr(mod, name, 0)
@@ -2457,6 +2701,10 @@ def block_times(root, solves, gain_iters):
                                         device="cuda")
         h = port.BurgEntropySimplex(use_pallas=True)
         port.ABPG_gain(f, h, L, xg, gamma=2, maxitrs=50, verbose=False)
+        # a graph replays launches without the wrapper: the card counts them
+        # where the checkout has that count
+        count = getattr(sm, "device_launches", lambda: sm.LAUNCHES)
+        getattr(sm, "reset_device_launches", lambda: None)()
         sm.LAUNCHES = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2465,7 +2713,7 @@ def block_times(root, solves, gain_iters):
         torch.cuda.synchronize()
         print(f"[blocks] {root}: ABPG_gain {GAIN_M}x{GAIN_N} use_pallas=True, "
               f"{gain_iters} iterations: wall {time.perf_counter() - t:.3f} "
-              f"s, {sm.LAUNCHES} kernel launches, F {Fg[-1]:.9f}", flush=True)
+              f"s, {count()} kernel launches, F {Fg[-1]:.9f}", flush=True)
 
     x0 = np.full(N, 1.0 / N)
     for rep in range(solves):
@@ -2669,6 +2917,9 @@ def main():
                          "over this many iterations")
     ap.add_argument("--micro", action="store_true",
                     help="build and run csrc/micro_cluster.cu")
+    ap.add_argument("--bodies", action="store_true",
+                    help="the Bregman loops' bodies and what masked "
+                         "bodies cost")
     args = ap.parse_args()
     # ---- 1. the card --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2680,6 +2931,8 @@ def main():
                            args.solves, args.gain_iters)
     if args.micro:
         return micro()
+    if args.bodies:
+        return bodies_study()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -2806,12 +3059,18 @@ def main():
           f"{SN[-1]:.4e}, certified gap {gap:.3e}", flush=True)
     main_group_one(port, dl, V64, x0, (x, F, SP, SN))
 
-    simplex_launches = gain_path(port, sm)
-    bpg_path(port, sm)
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+
+    t = time.perf_counter()
+    simplex_launches, gain_text = gain_path(port, sm, driver)
+    bpg_text = bpg_path(port, sm, driver)
+    print(f"[bregman graph] ({card}) phases 4e-4f in "
+          f"{time.perf_counter() - t:.1f} s; {gain_text}; {bpg_text}",
+          flush=True)
     readme_path(port, sm)
-    per_iteration_costs(port)
+    per_iteration_costs(port, driver)
     counters = [(dl, "LAUNCHES"), (dl, "BATCH_LAUNCHES"), (dd, "LAUNCHES"),
-                (sm, "LAUNCHES")]
+                (sm, "LAUNCHES"), (DeviceCount(sm), "LAUNCHES")]
     fw_paths(port, card, counters)
     graph_paths(port, card, counters)
     extras_paths(port, card, counters, sm)

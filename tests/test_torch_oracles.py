@@ -147,9 +147,9 @@ def test_simplex_inv_multiplier_matches_jax(case):
         jnp.asarray(gg), 1e-8,
         c_warm=None if warm is None else jnp.asarray(warm))
     cp = roots.simplex_inv_multiplier(_t(gg), 1e-8, c_warm=warm)
-    assert isinstance(cp, float)
+    assert isinstance(cp, torch.Tensor) and cp.dim() == 0
     _close(cp, cj, ROOT_RTOL)
-    x = 1.0 / (gg + cp)
+    x = 1.0 / (gg + float(cp))
     assert abs(x.sum() - 1.0) < 1e-12
 
 
@@ -203,7 +203,7 @@ def test_bisect_and_newton_scalar():
     (0.2, 2.5, 2.0), (0.9, 1.5, 0.5)])
 def test_solve_theta_matches_jax(theta, gamma, ratio):
     tp = port.solve_theta(theta, gamma, ratio)
-    assert isinstance(tp, float)
+    assert isinstance(tp, torch.Tensor) and tp.dim() == 0
     _close(tp, jax_solve_theta(jnp.asarray(theta), gamma, ratio), ROOT_RTOL)
 
 
