@@ -195,20 +195,23 @@ def _fingerprint(step, cfg):
     return f"{mod}.{name}|{type(cfg).__name__ if '0x' in r else r}"
 
 
-def host_reads(problem):
-    """Whether an oracle of the problem (a value of the problem dict)
-    declares ``host_reads``: it reads values back inside its calls (a
-    blocked inner loop), so its steps cannot be captured."""
-    return isinstance(problem, dict) and any(
-        getattr(v, "host_reads", False) for v in problem.values())
+def host_reads(problem, cfg=None):
+    """Whether an oracle of the problem (a value of the problem dict) or a
+    callable of the config (a field such as the LMO) declares
+    ``host_reads``: it reads values back inside its calls (a blocked inner
+    loop, an SVD's convergence check), so its steps cannot be captured."""
+    values = list(problem.values()) if isinstance(problem, dict) else []
+    if isinstance(cfg, tuple):
+        values += list(cfg)
+    return any(getattr(v, "host_reads", False) for v in values)
 
 
-def chunk_mode(carry, problem=None):
+def chunk_mode(carry, problem=None, cfg=None):
     """How a chunk of this carry runs: ``"host"`` for a Python-bool
     ``done``; ``"graph"`` where every leaf is a plain tensor on one CUDA
-    device (outside ``eager_chunks``) and no oracle of ``problem`` reads the
-    host; else ``"eager"`` (a CPU carry, a host leaf such as the noise key,
-    a DTensor, or a problem with ``host_reads``)."""
+    device (outside ``eager_chunks``) and no oracle of ``problem`` and no
+    callable of ``cfg`` reads the host; else ``"eager"`` (a CPU carry, a
+    host leaf such as the noise key, a DTensor, or ``host_reads``)."""
     if isinstance(carry["done"], bool):
         return "host"
     if _EAGER[0]:
@@ -221,7 +224,7 @@ def chunk_mode(carry, problem=None):
     devices = {v.device for v in leaves}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         return "eager"
-    if host_reads(problem):
+    if host_reads(problem, cfg):
         return "eager"
     return "graph"
 
@@ -692,7 +695,7 @@ def run_driver(
                 nrows = len(next(iter(block.values())))
                 blocks.append((block, 0.0, t_spent, nrows))
 
-    mode = chunk_mode(carry, problem)
+    mode = chunk_mode(carry, problem, cfg)
     graph = None
     if mode == "graph":
         # chosen from the carry before any capture; JAX's cached form

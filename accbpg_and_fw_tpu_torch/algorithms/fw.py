@@ -5,27 +5,28 @@ accbpg/algorithms_fw.py): the same math, signatures, return tuples,
 printed tables and checkpoints.  The LMO is a closure ``g -> s`` from
 ``ops/lmo.py``.
 
-The four drivers with a line search (``FW_alg_div_step``,
+Every step is JAX's device-scalar step: the carry is all tensors on the
+solve's device (``done`` a bool, ``L``, ``L0``, ``L1`` and ``F_prev`` 0-d
+float64, ``toggle`` and ``logsteps`` int32 as in JAX), the problem's
+numbers are 0-d float64 tensors there too, and the alternating toggles,
+the caps and the log/linear branch are ``torch.where`` selects of JAX's
+expressions in JAX's order.  The line searches of ``FW_alg_div_step``,
 ``FW_alg_L0_L1_shortest_step``, ``FW_l0l1_log_and_linear_step`` and
-``FW_l0l1_log_only``) keep their scalar recurrences on the host in Python
-floats, as ``algorithms/bpg.py`` does; the vectors (x, g, s, d, the trial
-iterate) stay on the device.  An iteration's first trial computes its step
-on the device, from the device's <g, d>, D_h(s, x) and norms, and ends in
-one read of everything the host decides on (f(x), Psi(x), <g, d>,
-D_h(s, x), the norms, the step and f of the trial point).  Every later
-trial computes its step on the host and reads f of its trial point back.
-So an iteration costs one host sync per trial on the card, and the host
-decides with the JAX expressions in the JAX order.
+``FW_l0l1_log_only`` are ``_loops.device_while`` loops with JAX's bound
+(``_LS_MAX``; the trial kept at the bound is JAX's).  On the card a chunk
+is replays of a CUDA graph of ``GRAPH_SPAN`` iterations (``driver.py``)
+whose loops run as a fixed number of masked bodies (``DIV_BODIES``,
+``SHORTEST_BODIES``, ``LOG_BODIES``, ``LOG_ONLY_BODIES``), with one read
+per chunk; an iteration that needs more bodies runs again eagerly.
+Eagerly (the CPU, ``driver.eager_chunks``, a sharded run, a stochastic
+oracle's key chain on the host, an LMO that declares ``host_reads``) each
+loop reads its exit test once per turn.  ``FW_alg_descent_step`` has no
+loop: its step 2/(k+2) is computed from the graph's ``k``.
 
-``FW_alg_descent_step`` has no line search: its stop test stays a device
-flag, and a chunk of iterations reads nothing back; on the card the chunk
-is a CUDA graph, its step 2/(k+2) computed on the card from the graph's
-``k`` (the ``"graph"`` chunk mode of ``driver.py``).
-
-Where the JAX drivers record a ``bad`` flag (the LMO returned a direction
-with <g, d> > delta) and raise after the run, the port raises the same
-``ValueError`` as soon as the host reads it, before any host step is
-computed from it.  Checkpoints use the JAX fingerprints, carry keys and
+Where the LMO returns a direction with <g, d> > delta, the step records a
+``bad`` flag in the history that stops the run at that row, and the
+driver raises JAX's ``ValueError`` after the run (JAX's
+``_raise_if_bad``).  Checkpoints use the JAX fingerprints, carry keys and
 history names, so a run saved by either package resumes in the other.
 ``FW_alg_div_step`` and ``FW_alg_descent_step`` give a stochastic
 f-oracle a fresh draw key per gradient from their ``seed``, as the JAX
@@ -40,65 +41,68 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .. import _scalar
+from .._loops import device_while
 from ..ops.base import fnorm, vdot
-from .bpg import _accept_delta, _draw, _read, _start, _stoch_carry
+from .bpg import (_accept_delta, _device_carry, _draw, _num, _past_first,
+                  _plus, _scalars, _start, _stoch_carry)
 from .driver import run_driver
 
 _LS_MAX = 200
-_LN2 = math.log(2.0)
 
-
-class _OnHost:
-    """The trial's scalar operations on Python floats (IEEE doubles, NaN
-    and inf where JAX gives them)."""
-    div = staticmethod(_scalar.div)
-    power = staticmethod(_scalar.power)
-    log = staticmethod(_scalar.log)
-    minimum = staticmethod(_scalar.minimum)
-
-    @staticmethod
-    def where(cond, a, b):
-        return a if cond else b
-
-
-class _OnDevice:
-    """The same operations on 0-d tensors (a number as the second operand
-    of ``minimum``)."""
-    div = staticmethod(torch.div)
-    power = staticmethod(torch.pow)
-    log = staticmethod(torch.log)
-    minimum = staticmethod(torch.clamp_max)
-    where = staticmethod(torch.where)
+# Masked bodies of the line searches in a graph chunk: the trials after the
+# first.  An iteration that needs more runs again eagerly (a
+# continuation, which also replays the rest of its chunk frozen: ~0.15 s
+# at the shortest step's 750 nodes an iteration).  Chosen from the bodies
+# the four drivers took under ``eager_chunks`` on the card over the 2000
+# illcond iterations of PERF.md (``chip_smoke.py --bodies``): div 0-4
+# trials, log 0-3, log-only 0-6 (its toggle backs off L0 and L1 in turn),
+# shortest 0-13 but once 65; with these no continuation but the
+# shortest step's 2.
+DIV_BODIES = 4
+SHORTEST_BODIES = 13
+LOG_BODIES = 3
+LOG_ONLY_BODIES = 6
+# Iterations a captured graph holds; a chunk replays it back to back (32:
+# a capture of 0.1-0.4 s against 0.7-2.6 s for 256, and no slower).
+GRAPH_SPAN = 32
 
 
 def _gdp_banded(g, d, delta):
-    """<g,d> with the reference's band-zeroing: values in (0, delta] -> 0
-    (a device scalar; the host reads it with the rest of the trial)."""
+    """<g,d> with the reference's band-zeroing: values in (0, delta] -> 0;
+    and ``bad``, whether it is still positive."""
     gdp = vdot(g, d)
-    return torch.where((gdp > 0) & (gdp <= delta), 0.0, gdp)
+    gdp = torch.where((gdp > 0) & (gdp <= delta), 0.0, gdp)
+    return gdp, gdp > 0
 
 
-def _raise_if_bad(gdp):
-    if gdp > 0:
+def _raise_if_bad(hist):
+    if len(hist["bad"]) and bool(np.asarray(hist["bad"]).any()):
         raise ValueError("grad_d_prod must be non-positive (LMO issue).")
 
 
 def _direction(cfg, h, x, g, delta):
-    """The LMO vertex s, d = s - x and the device scalars <g,d> (banded)
-    and D_h(s, x) (0 replaced by ``delta``)."""
+    """The LMO's direction d = s - x, D_h(s, x) (0 replaced by ``delta``),
+    <g,d> (banded) and ``bad``."""
     s = cfg.lmo(g)
     d = s - x
-    dv = h.divergence(s, x)
-    return d, _gdp_banded(g, d, delta), torch.where(dv == 0, delta, dv)
+    div = h.divergence(s, x)
+    div = torch.where(div == 0, delta, div)
+    return (d, div) + _gdp_banded(g, d, delta)
+
+
+def _stopped(prob, c, k, Fk, bad):
+    return _past_first(k, torch.abs(Fk - c["F_prev"]) < prob["eps"]) | bad
 
 
 def _run(step, cfg, prob, carry, maxitrs, header, row, verbose, verbskip,
          chunk, checkpoint):
-    return run_driver(step, carry, maxitrs, verbose=verbose,
-                      verbskip=verbskip, header=header, print_row=row,
-                      chunk=chunk, checkpoint=checkpoint, problem=prob,
-                      cfg=cfg)
+    carry, hist, T = run_driver(step, carry, maxitrs, verbose=verbose,
+                                verbskip=verbskip, header=header,
+                                print_row=row, chunk=chunk,
+                                checkpoint=checkpoint, problem=prob, cfg=cfg,
+                                graph_span=GRAPH_SPAN)
+    _raise_if_bad(hist)
+    return carry, hist, T
 
 
 # ---------------------------------------------------------------------------
@@ -114,45 +118,38 @@ class _FWDivCfg(NamedTuple):
     stochastic: bool = False
 
 
-def _div_alpha(o, gdp, Lt, dv, gamma):
-    return o.minimum(o.power(o.div(-gdp, 2.0 * Lt * dv),
-                             1.0 / (gamma - 1.0)), 1.0)
-
-
 def _fw_div_step(cfg, prob, c, k):
     f, h = prob["f"], prob["h"]
     gamma, ls_ratio = prob["gamma"], prob["ls_ratio"]
     x, Lk = c["x"], c["L"]
-    kc, (fx_t, g) = _draw(cfg, c, f.value_and_grad, x)
-    d, gdp_t, dv_t = _direction(cfg, h, x, g, prob["delta"])
+    kc, (fx, g) = _draw(cfg, c, f.value_and_grad, x)
+    Fk = fx + h.extra_psi(x)
+    d, div, gdp, bad = _direction(cfg, h, x, g, prob["delta"])
 
-    Lt = Lk / ls_ratio if cfg.linesearch else Lk
-    a_t = _div_alpha(_OnDevice, gdp_t, Lt, dv_t, gamma)
-    x_new = x + a_t * d
-    q = dict(fx=fx_t, psi=h.extra_psi(x), gdp=gdp_t, dv=dv_t, a=a_t)
-    if cfg.linesearch:
-        q["f1"] = f.value(x_new)
-    q = _read(**q)
-    fx, gdp, dv, a = q["fx"], q["gdp"], q["dv"], q["a"]
-    _raise_if_bad(gdp)
+    def alpha_of(Lt):
+        return torch.clamp_max(
+            (-gdp / (2.0 * Lt * div)) ** (1.0 / (gamma - 1.0)), 1.0)
 
     if cfg.linesearch:
         delta = _accept_delta(f, fx)
-        f1, t = q["f1"], 0
-        # NaN-robust acceptance: a NaN trial fails and L backs off
-        while (not f1 <= (fx + a * gdp + _scalar.power(a, gamma) * Lt * dv
-                          + delta) and t < _LS_MAX):
-            Lt = Lt * ls_ratio
-            a = _div_alpha(_OnHost, gdp, Lt, dv, gamma)
-            x_new = x + a * d
-            (f1,) = _scalar.read(f.value(x_new))
-            t += 1
-        Lk = Lt
 
-    Fk = fx + q["psi"]
-    stop = k > 0 and abs(Fk - c["F_prev"]) < prob["eps"]
+        def trial(Lt):
+            a = alpha_of(Lt)
+            x1 = x + a * d
+            # NaN-robust acceptance: a NaN trial fails and L backs off
+            fail = ~(f.value(x1) <= _plus(fx + a * gdp
+                                          + a ** gamma * Lt * div, delta))
+            return Lt, x1, fail
+
+        Lk, x_new, _ = device_while(lambda s: s[2],
+                                    lambda s: trial(s[0] * ls_ratio),
+                                    trial(Lk / ls_ratio), _LS_MAX,
+                                    DIV_BODIES, "FW div trials")
+    else:
+        x_new = x + alpha_of(Lk) * d
+
     return (dict(done=c["done"], x=x_new, L=Lk, F_prev=Fk, **kc),
-            dict(F=Fk, Ls=Lk, bad=False, _stop=stop))
+            dict(F=Fk, Ls=Lk, bad=bad, _stop=_stopped(prob, c, k, Fk, bad)))
 
 
 def FW_alg_div_step(f, h, L, x0, maxitrs, gamma, lmo, epsilon=1e-14,
@@ -175,10 +172,10 @@ def FW_alg_div_step(f, h, L, x0, maxitrs, gamma, lmo, epsilon=1e-14,
     if epsilon <= 0:
         raise ValueError("epsilon must be positive")
 
-    prob = dict(f=f, h=h, gamma=float(gamma), eps=float(epsilon), delta=1e-6,
-                ls_ratio=float(ls_ratio))
-    carry = dict(done=False, x=_start(f, x0), L=float(L),
-                 F_prev=float("inf"))
+    x0 = _start(f, x0)
+    prob = dict(f=f, h=h, **_scalars(x0, gamma=gamma, eps=epsilon,
+                                     delta=1e-6, ls_ratio=ls_ratio))
+    carry = _device_carry(x0, L=L, F_prev=float("inf"))
     stoch = _stoch_carry(f, carry, seed)
     header = "\nFW adaptive algorithm\n     k      F(x)         Lk       time"
 
@@ -266,59 +263,62 @@ class _FWL0L1Cfg(NamedTuple):
     linesearch: bool
 
 
-def _shortest_alpha(o, L0t, L1t, g_norm, gdp, dv, gamma, e):
-    a_k = L0t + L1t * g_norm
-    return a_k, o.minimum(o.power(o.div(-gdp, a_k * dv * e),
-                                  1.0 / (gamma - 1.0)), 1.0)
-
-
 def _fw_l0l1_shortest_step(cfg, prob, c, k):
     f, h = prob["f"], prob["h"]
     gamma, ls_ratio, e = prob["gamma"], prob["ls_ratio"], prob["e_const"]
-    x, L0t, L1t, tog = c["x"], c["L0"], c["L1"], c["toggle"]
-    fx_t, g = f.value_and_grad(x)
-    d, gdp_t, dv_t = _direction(cfg, h, x, g, prob["delta"])
-    gn_t = fnorm(g)
+    x, L0k, L1k = c["x"], c["L0"], c["L1"]
+    fx, g = f.value_and_grad(x)
+    Fk = fx + h.extra_psi(x)
+    d, div, gdp, bad = _direction(cfg, h, x, g, prob["delta"])
+    g_norm = fnorm(g)
 
+    a_k0 = L0k + L1k * g_norm
     if cfg.linesearch:
-        a_k0 = L0t + L1t * gn_t
-        L0t = L0t / (ls_ratio + L0t / a_k0)
-        L1t = L1t / (ls_ratio + (L1t * gn_t) / a_k0)
-    a_k, a = _shortest_alpha(_OnDevice, L0t, L1t, gn_t, gdp_t, dv_t, gamma, e)
-    x_new = x + a * d
-    q = dict(fx=fx_t, psi=h.extra_psi(x), gdp=gdp_t, dv=dv_t, gn=gn_t,
-             L0=L0t, L1=L1t, a_k=a_k, a=a)
-    if cfg.linesearch:
-        q["f1"] = f.value(x_new)
-    q = _read(**q)
-    fx, gdp, dv, gn = q["fx"], q["gdp"], q["dv"], q["gn"]
-    _raise_if_bad(gdp)
-    L0t, L1t, a_k, a = q["L0"], q["L1"], q["a_k"], q["a"]
-
-    if cfg.linesearch:
+        L0k = L0k / (ls_ratio + L0k / a_k0)
+        L1k = L1k / (ls_ratio + (L1k * g_norm) / a_k0)
         delta = _accept_delta(f, fx)
-        f1, t = q["f1"], 0
-        while (not f1 <= (fx + a * gdp
-                          + _scalar.power(a, gamma) * (a_k / 2.0) * e * dv
-                          + delta) and t < _LS_MAX):
-            # the reference's alternating toggle: back off L0, then L1
-            a_b = L0t + L1t * gn
-            if tog == 0:
-                L0t = L0t * (ls_ratio - _scalar.div(L0t, a_b))
-            else:
-                L1t = L1t * (ls_ratio - _scalar.div(L1t * gn, a_b))
-            tog = 1 - tog
-            t += 1
-            a_k, a = _shortest_alpha(_OnHost, L0t, L1t, gn, gdp, dv, gamma, e)
-            x_new = x + a * d
-            (f1,) = _scalar.read(f.value(x_new))
 
-    Fk = fx + q["psi"]
-    stop = k > 0 and abs(Fk - c["F_prev"]) < prob["eps"]
-    return (dict(done=c["done"], x=x_new, L0=L0t, L1=L1t, toggle=tog,
-                 F_prev=Fk),
-            dict(F=Fk, Ls=a_k, L0=L0t, L1=L1t, alpha=a, bad=False,
-                 _stop=stop))
+    def trial(L0t, L1t, tog):
+        a_k = L0t + L1t * g_norm
+        alpha = torch.clamp_max(
+            (-gdp / (a_k * div * e)) ** (1.0 / (gamma - 1.0)), 1.0)
+        x1 = x + alpha * d
+        st = dict(L0=L0t, L1=L1t, toggle=tog, a_k=a_k, alpha=alpha, x1=x1)
+        if cfg.linesearch:
+            st["fail"] = ~(f.value(x1) <= _plus(
+                fx + alpha * gdp + alpha ** gamma * (a_k / 2.0) * e * div,
+                delta))
+        return st
+
+    def body(st):
+        # the reference's alternating toggle: back off L0, then L1
+        a_k = st["L0"] + st["L1"] * g_norm
+        first = st["toggle"] == 0
+        L0t = torch.where(first, st["L0"] * (ls_ratio - st["L0"] / a_k),
+                          st["L0"])
+        L1t = torch.where(first, st["L1"],
+                          st["L1"] * (ls_ratio - (st["L1"] * g_norm) / a_k))
+        return trial(L0t, L1t, 1 - st["toggle"])
+
+    st = trial(L0k, L1k, c["toggle"])
+    if cfg.linesearch:
+        st = device_while(lambda s: s["fail"], body, st, _LS_MAX,
+                          SHORTEST_BODIES, "FW shortest trials")
+
+    return (dict(done=c["done"], x=st["x1"], L0=st["L0"], L1=st["L1"],
+                 toggle=st["toggle"], F_prev=Fk),
+            dict(F=Fk, Ls=st["a_k"], L0=st["L0"], L1=st["L1"],
+                 alpha=st["alpha"], bad=bad,
+                 _stop=_stopped(prob, c, k, Fk, bad)))
+
+
+def _l0l1_carry(x0, L0, L1, **ints):
+    """The (L0,L1) drivers' initial carry in JAX's order, the counters
+    int32 as there."""
+    carry = _device_carry(x0, L0=L0, L1=L1)
+    carry.update({k: _num(x0, v, torch.int32) for k, v in ints.items()})
+    carry["F_prev"] = _num(x0, float("inf"))
+    return carry
 
 
 def FW_alg_L0_L1_shortest_step(f, h, L0, L1, x0, maxitrs, gamma, lmo,
@@ -340,10 +340,11 @@ def FW_alg_L0_L1_shortest_step(f, h, L0, L1, x0, maxitrs, gamma, lmo,
     if epsilon <= 0:
         raise ValueError("epsilon must be positive")
 
-    prob = dict(f=f, h=h, gamma=float(gamma), eps=float(epsilon), delta=1e-8,
-                ls_ratio=float(ls_ratio), e_const=math.e)
-    carry = dict(done=False, x=_start(f, x0), L0=float(L0), L1=float(L1),
-                 toggle=0, F_prev=float("inf"))
+    x0 = _start(f, x0)
+    prob = dict(f=f, h=h, **_scalars(x0, gamma=gamma, eps=epsilon,
+                                     delta=1e-8, ls_ratio=ls_ratio,
+                                     e_const=math.e))
+    carry = _l0l1_carry(x0, L0, L1, toggle=0)
     header = ("\nFW (L0,L1)-smooth algorithm with shortest-step rule\n"
               "     k        F(x)          a_k           L0            L1"
               "        alpha        time")
@@ -371,75 +372,70 @@ class _FWLogCfg(NamedTuple):
     log_only: bool
 
 
-def _log_alpha(o, cfg, L0t, L1t, gx_norm, d_norm, gdp):
-    """(a_k, alpha, whether the log branch was taken)."""
-    a_k = L0t + L1t * gx_norm
-    z1 = L1t * d_norm
-    alpha_log = o.div(1.0, z1) * o.log(1.0 - o.div(L1t * gdp, a_k * d_norm))
-    alpha_lin = o.div(L1t * (-gdp), a_k * d_norm)
-    if cfg.log_only:
-        return a_k, alpha_log, True
-    use_log = z1 >= _LN2
-    return a_k, o.where(use_log, alpha_log, alpha_lin), use_log
-
-
 def _fw_l0l1_log_step(cfg, prob, c, k):
-    f, h = prob["f"], prob["h"]
+    f, h, ln2 = prob["f"], prob["h"], prob["ln2"]
     ls_ratio, L0cap, L1cap = prob["ls_ratio"], prob["L0cap"], prob["L1cap"]
-    x, L0t, L1t, tog = c["x"], c["L0"], c["L1"], c["toggle"]
-    fx_t, g = f.value_and_grad(x)
-    gx_t = fnorm(g)
+    x, L0k, L1k = c["x"], c["L0"], c["L1"]
+    fx, g = f.value_and_grad(x)
+    gx_norm = fnorm(g)
+    Fk = fx + h.extra_psi(x)
     d = cfg.lmo(g) - x
-    dn_t = fnorm(d)
-    gdp_t = _gdp_banded(g, d, prob["delta"])
+    d_norm = fnorm(d)
+    gdp, bad = _gdp_banded(g, d, prob["delta"])
 
     if cfg.linesearch:
-        L0t = L0t / ls_ratio
-        L1t = L1t / ls_ratio
-    if cfg.log_only:
-        L1t = torch.clamp_min(_LN2 / dn_t, L1t)  # propagates NaN
-    a_k, a, use_log = _log_alpha(_OnDevice, cfg, L0t, L1t, gx_t, dn_t, gdp_t)
-    x_new = x + a * d
-    q = dict(fx=fx_t, psi=h.extra_psi(x), gdp=gdp_t, gx=gx_t, dn=dn_t,
-             L0=L0t, L1=L1t, a_k=a_k, a=a, log=use_log)
-    if cfg.linesearch:
-        q["f1"] = f.value(x_new)
-    q = _read(**q)
-    fx, gdp, gx, dn = q["fx"], q["gdp"], q["gx"], q["dn"]
-    _raise_if_bad(gdp)
-    L0t, L1t, a_k, a = q["L0"], q["L1"], q["a_k"], q["a"]
-    nlog = c["logsteps"] + int(q["log"])
-
-    if cfg.linesearch:
+        L0k = L0k / ls_ratio
+        L1k = L1k / ls_ratio
         delta = _accept_delta(f, fx)
-        f1, t = q["f1"], 0
-        while True:
-            z = L1t * a * dn
-            exp_term = _scalar.expm1(z) - z if z < 50.0 else 0.5 * z * z
-            rhs = fx + a * gdp + _scalar.div(a_k, L1t * L1t) * exp_term
-            if f1 <= rhs + delta or t >= _LS_MAX:
-                break
-            if not cfg.log_only:
-                L0t = _scalar.minimum(L0t * ls_ratio, L0cap)
-                L1t = _scalar.minimum(L1t * ls_ratio, L1cap)
-            elif tog == 0:  # alternate the back-off between L0 and L1
-                L0t = _scalar.minimum(L0t * ls_ratio, L0cap)
-            else:
-                L1t = _scalar.minimum(L1t * ls_ratio, L1cap)
-            if cfg.log_only:
-                tog = 1 - tog
-            t += 1
-            a_k, a, use_log = _log_alpha(_OnHost, cfg, L0t, L1t, gx, dn, gdp)
-            nlog += int(use_log)
-            x_new = x + a * d
-            (f1,) = _scalar.read(f.value(x_new))
+    if cfg.log_only:
+        L1k = torch.maximum(ln2 / d_norm, L1k)  # propagates NaN
 
-    Fk = fx + q["psi"]
-    stop = k > 0 and abs(Fk - c["F_prev"]) < prob["eps"]
-    return (dict(done=c["done"], x=x_new, L0=L0t, L1=L1t, logsteps=nlog,
-                 toggle=tog, F_prev=Fk),
-            dict(F=Fk, Ls=a_k, L0=L0t, L1=L1t, LOG_STEPS=nlog, bad=False,
-                 _stop=stop))
+    def trial(L0t, L1t, tog, nlog):
+        a_k = L0t + L1t * gx_norm
+        z1 = L1t * d_norm
+        alpha_log = (1.0 / z1) * torch.log(1.0 - (L1t * gdp)
+                                           / (a_k * d_norm))
+        if cfg.log_only:
+            alpha, nlog = alpha_log, nlog + 1
+        else:
+            use_log = z1 >= ln2
+            alpha = torch.where(use_log, alpha_log,
+                                L1t * (-gdp) / (a_k * d_norm))
+            nlog = nlog + use_log.to(nlog.dtype)
+        x1 = x + alpha * d
+        st = dict(L0=L0t, L1=L1t, toggle=tog, a_k=a_k, alpha=alpha, x1=x1,
+                  nlog=nlog)
+        if cfg.linesearch:
+            z = L1t * alpha * d_norm
+            exp_term = torch.where(z < 50.0, torch.expm1(z) - z,
+                                   0.5 * z * z)
+            rhs = fx + alpha * gdp + (a_k / L1t ** 2) * exp_term
+            st["fail"] = ~(f.value(x1) <= _plus(rhs, delta))
+        return st
+
+    def body(st):
+        L0t = torch.minimum(st["L0"] * ls_ratio, L0cap)
+        L1t = torch.minimum(st["L1"] * ls_ratio, L1cap)
+        tog = st["toggle"]
+        if cfg.log_only:  # alternate the back-off between L0 and L1
+            first = tog == 0
+            L0t = torch.where(first, L0t, st["L0"])
+            L1t = torch.where(first, st["L1"], L1t)
+            tog = 1 - tog
+        return trial(L0t, L1t, tog, st["nlog"])
+
+    st = trial(L0k, L1k, c["toggle"], c["logsteps"])
+    if cfg.linesearch:
+        st = device_while(lambda s: s["fail"], body, st, _LS_MAX,
+                          LOG_ONLY_BODIES if cfg.log_only else LOG_BODIES,
+                          "FW log-only trials" if cfg.log_only
+                          else "FW log trials")
+
+    return (dict(done=c["done"], x=st["x1"], L0=st["L0"], L1=st["L1"],
+                 logsteps=st["nlog"], toggle=st["toggle"], F_prev=Fk),
+            dict(F=Fk, Ls=st["a_k"], L0=st["L0"], L1=st["L1"],
+                 LOG_STEPS=st["nlog"], bad=bad,
+                 _stop=_stopped(prob, c, k, Fk, bad)))
 
 
 def _l0l1_log_driver(f, h, L0, L1, x0, maxitrs, lmo, ls_ratio, epsilon,
@@ -454,12 +450,12 @@ def _l0l1_log_driver(f, h, L0, L1, x0, maxitrs, lmo, ls_ratio, epsilon,
     if epsilon <= 0:
         raise ValueError("epsilon must be positive")
 
-    prob = dict(f=f, h=h, eps=float(epsilon), delta=1e-8,
-                ls_ratio=float(ls_ratio),
-                L0cap=math.inf if L0_max is None else float(L0_max),
-                L1cap=math.inf if L1_max is None else float(L1_max))
-    carry = dict(done=False, x=_start(f, x0), L0=float(L0), L1=float(L1),
-                 logsteps=0, toggle=0, F_prev=float("inf"))
+    x0 = _start(f, x0)
+    prob = dict(f=f, h=h, **_scalars(
+        x0, eps=epsilon, delta=1e-8, ln2=math.log(2.0), ls_ratio=ls_ratio,
+        L0cap=math.inf if L0_max is None else L0_max,
+        L1cap=math.inf if L1_max is None else L1_max))
+    carry = _l0l1_carry(x0, L0, L1, logsteps=0, toggle=0)
 
     def row(k, r, t):
         print("{0:6d}   {1:10.3e}   {2:10.3e}   {3:10.3e}   {4:10.3e}   "

@@ -5,8 +5,10 @@ The port's own copy of the numpy helpers of
 numpy call sequences, so the same ``np.random`` state gives the same
 arrays bit for bit.  Every function here is numpy in and numpy out.
 ``generate_dataset_for_svm`` draws from an unseeded generator, as there.
-``load_libsvm_file`` is the JAX package's single-pass Python parse (its
-C++ parser is a build of the JAX package, which the port does not use).
+``load_libsvm_file`` parses a plain file with the port's copy of the JAX
+package's C++ parser (``native/libsvm_parser.cpp``, built by
+``native.load_native_library``) and a compressed one, or any file on a
+host without ``g++``, with the single-pass Python parse, as there.
 """
 
 from __future__ import annotations
@@ -35,13 +37,85 @@ def _open_maybe_compressed(filename):
     return open(filename, "r")
 
 
+def _load_libsvm_native(filename):
+    """mmap + C++ single-pass parse (``native/libsvm_parser.cpp``): the
+    ``(data, indices, indptr, labels)`` numpy arrays, or None where the
+    parser is not available (or cannot open the file: the Python parse then
+    raises)."""
+    import ctypes
+
+    from ..native import load_native_library
+
+    lib = load_native_library("libsvm_parser")
+    if lib is None:
+        return None
+    lib.libsvm_parse.restype = ctypes.c_void_p
+    lib.libsvm_parse.argtypes = [ctypes.c_char_p]
+    lib.libsvm_last_error.restype = ctypes.c_char_p
+    lib.libsvm_nnz.restype = ctypes.c_int64
+    lib.libsvm_nnz.argtypes = [ctypes.c_void_p]
+    lib.libsvm_rows.restype = ctypes.c_int64
+    lib.libsvm_rows.argtypes = [ctypes.c_void_p]
+    lib.libsvm_fill.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 4
+    lib.libsvm_free.argtypes = [ctypes.c_void_p]
+
+    handle = lib.libsvm_parse(os.fsencode(filename))
+    if not handle:
+        err = lib.libsvm_last_error().decode()
+        if "sorted and unique" in err or "Invalid" in err:
+            raise ValueError(err)
+        return None
+    try:
+        nnz = lib.libsvm_nnz(handle)
+        rows = lib.libsvm_rows(handle)
+        data = np.empty(nnz, np.float64)
+        indices = np.empty(nnz, np.int64)
+        indptr = np.empty(rows + 1, np.int64)
+        labels = np.empty(rows, np.float64)
+        lib.libsvm_fill(handle, *(a.ctypes.data_as(ctypes.c_void_p)
+                                  for a in (data, indices, indptr, labels)))
+    finally:
+        lib.libsvm_free(handle)
+    return data, indices, indptr, labels
+
+
+def _grown(n_features, nf):
+    """The JAX loader's column count: ``n_features``, grown (with its
+    warning) to the data's."""
+    if n_features is None:
+        return nf
+    if n_features < nf:
+        print("Warning: n_features increased to match data.")
+        return nf
+    return n_features
+
+
 def load_libsvm_file(filename, dtype=np.float64, n_features=None,
                      zero_based="auto"):
     """Parse an svmlight/LIBSVM file (plain, ``.gz`` or ``.bz2``) into
     ``(CSR matrix, labels)`` (reference: utils.py:22-95).  Comments
     (``#``) are stripped; indices must be sorted and unique per row, and
     positive unless ``zero_based`` (``"auto"``: zero-based when an index 0
-    occurs)."""
+    occurs).  A plain file goes through the C++ parser, a compressed one
+    (or any, without ``g++``) through the Python parse, with the JAX
+    loader's rules and errors either way."""
+    _, ext = os.path.splitext(filename)
+    native = None if ext in (".gz", ".bz2") else _load_libsvm_native(
+        filename)
+    if native is not None:
+        data, indices, indptr, labels = native
+        if zero_based is False and indices.size and indices.min() == 0:
+            raise ValueError("Invalid index 0 in LibSVM data file.")
+        if zero_based is False or (zero_based == "auto" and indices.size
+                                   and indices.min() > 0):
+            indices = indices - 1
+        n_features = _grown(n_features,
+                            int(indices.max()) + 1 if indices.size else 0)
+        X = sparse.csr_matrix((data.astype(dtype, copy=False), indices,
+                               indptr), shape=(len(labels), n_features))
+        X.sort_indices()
+        return X, labels
+
     labels, data, indices, indptr = [], [], [], [0]
 
     with _open_maybe_compressed(filename) as fh:
@@ -75,12 +149,7 @@ def load_libsvm_file(filename, dtype=np.float64, n_features=None,
 
     if zero_based is False or (zero_based == "auto" and indices.min() > 0):
         indices = indices - 1
-    nf = int(indices.max()) + 1
-    if n_features is None:
-        n_features = nf
-    elif n_features < nf:
-        n_features = nf
-        print("Warning: n_features increased to match data.")
+    n_features = _grown(n_features, int(indices.max()) + 1)
 
     X = sparse.csr_matrix((data, indices, indptr),
                           shape=(len(labels), n_features))

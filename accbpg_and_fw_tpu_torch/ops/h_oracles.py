@@ -410,6 +410,11 @@ class SumOf2nd4thPowersWithFrankWolfe(SumOf2nd4thPowers):
         super().__init__(alpha, sigma)
         self.lmo = lmo
 
+    @property
+    def host_reads(self):
+        """Its LMO's: the nuclear ball's SVD reads the host."""
+        return getattr(self.lmo, "host_reads", False)
+
     def div_prox_map(self, y, g, L):
         return self.lmo(g)
 

@@ -5,7 +5,12 @@ each ``lmo_*`` returns a closure ``g -> s`` over float64 tensors, with the
 JAX package's floors and tie-breaks.  ``torch.argmin`` returns the first
 index of a tied minimum, as numpy and ``jnp.argmin`` do, which the
 simplex vertices rely on for trace parity.  A closure reads nothing back
-to the host: the degenerate-gradient rules are ``torch.where`` selects.
+to the host: the degenerate-gradient rules are ``torch.where`` selects,
+and an array center or bound is copied to each device once, at the
+closure's first call there (a copy from the host cannot be captured in a
+graph chunk), as JAX's jitted closure takes it as a constant.  The nuclear
+ball's SVD checks its convergence on the host: its closure declares
+``host_reads``, and the drivers run its chunks eagerly.
 """
 
 from __future__ import annotations
@@ -15,16 +20,26 @@ import numbers
 import torch
 
 
-def _broadcast(value, like):
-    """``value`` (None for 0, a number, an array or a tensor) as a tensor of
-    ``like``'s shape, dtype and device, as the JAX closures'
-    ``jnp.broadcast_to(jnp.asarray(value, g.dtype), g.shape)``."""
+def _constant(value):
+    """``get(like)``: ``value`` (None for 0, a number, an array or a
+    tensor) as a tensor of ``like``'s shape, dtype and device, as the JAX
+    closures' ``jnp.broadcast_to(jnp.asarray(value, g.dtype), g.shape)``.
+    A number is a fill on the device; an array is copied to a device once
+    and kept for the closure's later calls."""
     if value is None:
-        return torch.zeros_like(like)
+        return torch.zeros_like
     if isinstance(value, numbers.Real):
-        return torch.full_like(like, float(value))
-    return torch.as_tensor(value, dtype=like.dtype,
-                           device=like.device).expand(like.shape)
+        return lambda like: torch.full_like(like, float(value))
+    kept = {}
+
+    def get(like):
+        key = (like.device, like.dtype)
+        if key not in kept:
+            kept[key] = torch.as_tensor(value, dtype=like.dtype,
+                                        device=like.device)
+        return kept[key].expand(like.shape)
+
+    return get
 
 
 def lmo_nuclear_norm_ball():
@@ -37,6 +52,7 @@ def lmo_nuclear_norm_ball():
         U, _, Vh = torch.linalg.svd(g, full_matrices=False)
         return torch.outer(U[:, 0], Vh[0])
 
+    f.host_reads = True
     return f
 
 
@@ -44,8 +60,10 @@ def lmo_l2_ball(radius, center=None):
     """argmin_{||s-center||<=radius} <g,s> = center - radius*g/||g||, the
     center itself when ||g|| < 1e-10 (reference: functions_lmo.py:16-51)."""
 
+    center_of = _constant(center)
+
     def f(g):
-        center_p = _broadcast(center, g)
+        center_p = center_of(g)
         g_norm = torch.linalg.vector_norm(g)
         s = center_p - radius * g / torch.clamp_min(g_norm, 1e-30)
         return torch.where(g_norm < 1e-10, center_p, s)
@@ -58,8 +76,10 @@ def lmo_l2_ball_positive_orthant(radius, center=None, epsilon=0.0):
     units along the negative coordinates of g only, then floor at epsilon
     (reference: functions_lmo.py:54-102)."""
 
+    center_of = _constant(center)
+
     def f(g):
-        center_p = _broadcast(center, g)
+        center_p = center_of(g)
         g_neg = torch.where(g < 0, g, 0.0)
         neg_norm = torch.linalg.vector_norm(g_neg)
         direction = torch.where(
@@ -74,8 +94,10 @@ def lmo_linf_ball(radius, center=None):
     """Vertex of the l-inf ball: center - radius*sign(g)
     (reference: functions_lmo.py:106-134)."""
 
+    center_of = _constant(center)
+
     def f(g):
-        return _broadcast(center, g) - radius * torch.sign(g)
+        return center_of(g) - radius * torch.sign(g)
 
     return f
 
@@ -109,7 +131,9 @@ def lmo_matrix_box(lower, upper):
     """Box LMO: upper where G < 0, else lower
     (reference: functions_lmo.py:190-212)."""
 
+    upper_of, lower_of = _constant(upper), _constant(lower)
+
     def f(G):
-        return torch.where(G < 0, _broadcast(upper, G), _broadcast(lower, G))
+        return torch.where(G < 0, upper_of(G), lower_of(G))
 
     return f

@@ -11,13 +11,19 @@ of the primitives the cluster kernels are built from (an exchange across a
 cluster by a store and the cluster barrier or by ``st.async`` and a
 transaction barrier, an IEEE FP64 division, the Newton reciprocal).
 
-With ``--bodies`` it measures what the Bregman paths' masked loops are
-chosen from: ABPG_gain 30x10000 (kernel route) and BPG-LS 30x1000
-(default h) under ``driver.eager_chunks`` over their 9000 iterations with
-``_loops.TALLY`` (the bodies each loop took, per loop), then each as
-graph chunks over 2000 iterations at several masked bodies per line
-search (walls, continuations, nodes per graph), and one ABPG_gain graph
-of 256 iterations against one of 32 (nodes, capture seconds).
+With ``--bodies`` it measures what the masked loops are chosen from:
+ABPG_gain 30x10000 (kernel route) and BPG-LS 30x1000 (default h) under
+``driver.eager_chunks`` over their 9000 iterations with ``_loops.TALLY``
+(the bodies each loop took, per loop), then each as graph chunks over
+2000 iterations at several masked bodies per line search (walls,
+continuations, nodes per graph), and one ABPG_gain graph of 256
+iterations against one of 32 (nodes, capture seconds); then the four FW
+line-search drivers on phase 4i's illcond problem, eagerly first with the
+tally, then as graphs of 256 and of 32 iterations at the bodies that
+cover 90%, 99% and 99.9% of their iterations; last, ABPG_gain's first
+capture right after its 9000 eager iterations (where a capture once
+failed), retried with the collector off and with
+``capture_error_mode="thread_local"`` if it fails.
 
 With ``--blocks-only`` it prints only the lazy-H kernel's block times
 (1000x5000, and K=3 of 1000x2000), the dense kernel's block times (B=1 and
@@ -127,12 +133,19 @@ and the script exits non-zero without the result line:
       logistic problem of ``examples/ex_fw_l0l1.py`` at 1000x1000 (rho
       0.99, 20% flipped labels, l2 ball of radius 25, the port's torch
       generator from seed 63, ``run_regime``'s 2000 iterations and
-      ls_ratio 2.2): finite F that ends below F[0], LOG_STEPS that never
-      decrease (``FW_l0l1_log_only``: at least rows - 1), the first 200
-      rows of F within rtol 1e-9 of the port on the CPU on the same
-      arrays, the cold run's F bit for bit, and per driver the warm wall,
-      the rows, host syncs and
-      device operations per iteration; ``FW_alg_div_step`` on the three
+      ls_ratio 2.2), each as graph chunks (one capture at the cold run,
+      none at the warm one; the four line searches' loops as masked
+      bodies): finite F that ends below F[0], LOG_STEPS that never
+      decrease (``FW_l0l1_log_only``: at least rows - 1), the cold run's
+      F bit for bit, an ``eager_chunks`` run of the same 2000 iterations
+      whose first 500 rows the graph's must equal bit for bit (or within
+      1e-13 relative where cuBLAS took another algorithm under capture,
+      then said), the first 200 rows of F within rtol 1e-9 of the port on
+      the CPU on the same arrays, and per driver the warm wall, the rows,
+      nodes per graph, capture seconds, pool MiB, replays,
+      continuations, host syncs per solve, device operations per
+      iteration and the device idle share of a traced 100-iteration run,
+      beside the eager wall and syncs; ``FW_alg_div_step`` on the three
       ``examples/ex_fw_rs.py`` panels (500 iterations) and
       ``FW_alg_descent_step`` on SymNMF n=200, r=20 with both kernels
       (``examples/ex_params_free_symnmf.py``), each against the CPU on the
@@ -207,6 +220,26 @@ and the script exits non-zero without the result line:
       rows); walls, replays per solve, host launches per chunk (CPU-side
       trace), capture time and the graph's memory; a step that reads a
       value back must make the capture raise;
+   p. the LMOs that take arrays, no kernel launch: ``lmo_l2_ball``,
+      ``lmo_l2_ball_positive_orthant`` and ``lmo_linf_ball`` with a numpy
+      centre on phase 4i's problem and ``lmo_matrix_box`` with numpy
+      bounds on SymNMF 200x20, under the five FW drivers (200 iterations)
+      as graphs (one capture each) against ``eager_chunks``, bit for bit;
+      the nuclear ball under ``FW_alg_descent_step`` and under BPG through
+      ``SumOf2nd4thPowersWithFrankWolfe``, whose chunks must run eagerly
+      (no capture: the closure declares ``host_reads``), and whether
+      ``torch.linalg.svd`` can be captured at all (in a process of its
+      own);
+   q. the a9a path, no kernel launch: a synthetic LIBSVM file of a9a's
+      published shape under ``build/`` (32561 rows, 123 binary features,
+      14 ones a row, labels +1 / -1, numpy seed 9), parsed by the port's
+      native parser (built by ``g++`` into ``build/native``) and by the
+      Python parse (equal CSR arrays and labels, both timed), then
+      ``L0L1_FW_log_reg_a9a(250, path)`` on the card and
+      ``examples/ex_fw_l0l1_a9a.py``'s four runs
+      (``FW_alg_L0_L1_shortest_step`` and ``FW_alg_div_step`` with the L2
+      and L-inf balls of radius 250, ls_ratio 2, gamma 2, 600 iterations)
+      as graph chunks: finite F that ends below F[0];
 5. the kernels' JSON line (launches on the path, error against the plain
    version, kernel and plain times, the bound from this run's inputs and
    the time of a PyTorch call for the same function where one exists), the
@@ -254,14 +287,28 @@ SIMPLEX_STALL = 1e-8
 # the Frank-Wolfe paths: the "illcond" regime of examples/ex_fw_l0l1.py at
 # its 1000x1000 config with run_regime's defaults (2000 iterations,
 # ls_ratio 2.2), its first FW_CPU_ROWS rows held against the port on the
-# CPU, its costs over FW_COST_ITERS (100; 200 until the graph phase 4o
-# came, for the script's time); the examples/ex_fw_rs.py panels (500
+# CPU and its first FW_EAGER_ROWS graph rows against eager_chunks, its
+# costs over FW_COST_ITERS (100; 200 until the graph phase 4o came, for the
+# script's time); the examples/ex_fw_rs.py panels (500
 # iterations) and the examples/ex_params_free_symnmf.py run (n=200, r=20,
 # 600 iterations)
 FW_ILL = dict(seed=63, radius=25.0, rho=0.99, col_scale=1.0, flip_y=0.2,
               noise=0.1)
 FW_NS, FW_NF, FW_ITERS, FW_LS_RATIO = 1000, 1000, 2000, 2.2
 FW_CPU_ROWS, FW_COST_ITERS, FW_RTOL = 200, 100, 1e-9
+FW_EAGER_ROWS = 500
+# the FW line searches' masked bodies, by driver (``--bodies``)
+FW_BODIES = {"FW_alg_div_step": "DIV_BODIES",
+             "FW_alg_L0_L1_shortest_step": "SHORTEST_BODIES",
+             "FW_l0l1_log_and_linear_step": "LOG_BODIES",
+             "FW_l0l1_log_only": "LOG_ONLY_BODIES"}
+# phase 4p: the array-centre LMOs, LMO_ITERS iterations per driver
+LMO_ITERS = 200
+# phase 4q: a synthetic file of a9a's published shape (LIBSVM's a9a: 32561
+# rows, 123 binary features, 13-14 ones per row, 24% positive labels) and
+# examples/ex_fw_l0l1_a9a.py's runs (radius 250, 600 iterations, seed 2025)
+A9A_ROWS, A9A_FEATURES, A9A_NNZ, A9A_POSITIVE = 32561, 123, 14, 0.24
+A9A_SEED, A9A_EXAMPLE_SEED, A9A_RADIUS, A9A_ITERS = 9, 2025, 250.0, 600
 FW_RS_ITERS, FW_SYM_N, FW_SYM_R, FW_SYM_ITERS = 500, 200, 20, 600
 # the single-solve shapes whose walls on the three engines set "auto"
 AUTO_SHAPES = ((30, 1000), (100, 1000), (200, 1000))
@@ -1418,15 +1465,25 @@ def bregman_graph(driver, label, run, iters, check):
 
 
 def bodies_study(iters=2000):
-    """``--bodies`` (see the module docstring).  Each path runs as graphs
-    first, then eagerly: the order of phases 4e-4f."""
-    import accbpg_and_fw_tpu_torch as port
-    from accbpg_and_fw_tpu_torch import _loops
-    from accbpg_and_fw_tpu_torch.algorithms import bpg, driver
+    """``--bodies`` (see the module docstring): the Bregman paths (each as
+    graphs first, then eagerly: the order of phases 4e-4f), the FW line
+    searches (eagerly first) and ABPG_gain's first capture after its long
+    eager run."""
     from accbpg_and_fw_tpu_torch.ops import _build
 
     _build.build_all(["simplex_mult"])
     print(f"[bodies] torch {torch.__version__}; {card_line()}", flush=True)
+    bregman_bodies(iters)
+    fw_bodies()
+    capture_after_eager()
+    return 0
+
+
+def bregman_bodies(iters):
+    """The Bregman half of ``--bodies``."""
+    import accbpg_and_fw_tpu_torch as port
+    from accbpg_and_fw_tpu_torch import _loops
+    from accbpg_and_fw_tpu_torch.algorithms import bpg, driver
 
     def gain_run():
         f, _, L, x0 = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
@@ -1481,7 +1538,120 @@ def bodies_study(iters=2000):
               f"{ms / 1e3:.2f} s; bodies taken per loop: " + "; ".join(
                   f"{loop} {sorted(counts.items())}"
                   for loop, counts in tally.items()), flush=True)
-    return 0
+
+
+def quantile_bodies(counts, shares=(0.9, 0.99, 0.999)):
+    """The fewest bodies that cover each share of the iterations (at least
+    1): the masked bodies whose walls are compared."""
+    ks = sorted(counts)
+    total = sum(counts.values())
+    out = []
+    for share in shares:
+        run = 0
+        for k in ks:
+            run += counts[k]
+            if run >= share * total:
+                out.append(max(k, 1))
+                break
+    return sorted(set(out))
+
+
+def fw_bodies():
+    """The FW half of ``--bodies``: each line-search driver on phase 4i's
+    illcond problem under ``eager_chunks`` over FW_ITERS iterations with
+    ``_loops.TALLY`` first (eager runs followed by new captures), then as
+    graphs of 256 and of 32 iterations at the masked bodies that cover
+    90%, 99% and 99.9% of its iterations: warm walls, continuations, nodes
+    per graph, capture seconds."""
+    import accbpg_and_fw_tpu_torch as port
+    from accbpg_and_fw_tpu_torch import _loops
+    from accbpg_and_fw_tpu_torch.algorithms import driver, fw
+
+    f, h, L, L0, L1, x0, _, _ = port.hard_FW_log_reg_jax(
+        FW_ILL["seed"], FW_NS, FW_NF, domain="l2", device="cuda",
+        **{k: v for k, v in FW_ILL.items() if k != "seed"})
+    L, L0, L1 = float(L), max(float(L0), 1e-9), float(L1)
+    lmo = port.lmo_l2_ball(FW_ILL["radius"])
+    runs = fw_drivers(port, h, L, L0, L1)
+    chosen_span = fw.GRAPH_SPAN
+    for name, attr in FW_BODIES.items():
+        def run():
+            return runs[name](f, x0, lmo, FW_ITERS)
+
+        _loops.TALLY[0] = {}
+        with driver.eager_chunks():
+            _, ms = timed_plain(run)
+        tally, _loops.TALLY[0] = _loops.TALLY[0], None
+        print(f"[bodies] {name} eager_chunks {FW_ITERS} iterations in "
+              f"{ms / 1e3:.3f} s; bodies taken per loop: " + "; ".join(
+                  f"{loop} {sorted(counts.items())}"
+                  for loop, counts in tally.items()), flush=True)
+        chosen, parts = getattr(fw, attr), []
+        for bodies in quantile_bodies(next(iter(tally.values()))):
+            for span in (256, 32):
+                setattr(fw, attr, bodies)
+                fw.GRAPH_SPAN = span
+                driver.clear_graph_cache()
+                before = dict(driver.GRAPH_STATS)
+                run()  # the capture
+                cont = (driver.GRAPH_STATS["continuations"]
+                        - before["continuations"])
+                entry = next(iter(driver._GRAPHS.values()))
+                _, ms = timed_plain(run)
+                parts.append(f"{bodies} bodies span {span}: {ms / 1e3:.3f} "
+                             f"s warm, {cont} continuations, "
+                             f"{graph_nodes([entry])} nodes per graph, "
+                             f"capture {entry.capture_s:.2f} s, pool "
+                             f"{entry.pool_bytes / 2**20:.1f} MiB")
+        setattr(fw, attr, chosen)
+        fw.GRAPH_SPAN = chosen_span
+        print(f"[bodies] {name} as graphs over {FW_ITERS} iterations: "
+              + "; ".join(parts) + f" ({attr} = {chosen}, GRAPH_SPAN = "
+              f"{chosen_span})", flush=True)
+
+
+def capture_after_eager():
+    """ABPG_gain's first capture right after its long eager run (the
+    order in which a capture once failed with
+    cudaErrorStreamCaptureInvalidated); where it fails, again with the
+    collector off, then with ``capture_error_mode="thread_local"``."""
+    import functools
+    import gc
+
+    import accbpg_and_fw_tpu_torch as port
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+
+    f, _, L, x0 = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
+                                    device="cuda")
+    h = port.BurgEntropySimplex(use_pallas=True)
+
+    def run(n):
+        return port.ABPG_gain(f, h, L, x0, gamma=2, maxitrs=n, verbose=False)
+
+    graph = torch.cuda.graph
+    tried = []
+    for label in ("as shipped", "gc disabled", "thread_local"):
+        with driver.eager_chunks():
+            _, ms = timed_plain(lambda: run(GAIN_ITERS))
+        driver.clear_graph_cache()
+        if label == "gc disabled":
+            gc.disable()
+        if label == "thread_local":
+            torch.cuda.graph = functools.partial(
+                graph, capture_error_mode="thread_local")
+        try:
+            run(256)
+            tried.append(f"{label}: eager {GAIN_ITERS} iterations "
+                         f"{ms / 1e3:.1f} s, then the capture held")
+            break
+        except RuntimeError as e:
+            tried.append(f"{label}: eager {ms / 1e3:.1f} s, then the capture "
+                         f"raised {str(e).splitlines()[0][:100]!r}")
+        finally:
+            gc.enable()
+            torch.cuda.graph = graph
+    print("[bodies] ABPG_gain's first capture after its eager run: "
+          + "; ".join(tried), flush=True)
 
 
 def gain_path(port, sm, driver):
@@ -1706,45 +1876,87 @@ def fw_against_cpu(label, F_card, F_cpu, rows=None, rtol=FW_RTOL):
     return err
 
 
+def histories(name, res):
+    """The histories a driver returns (``FW_alg_descent_step`` returns
+    ``(x, F, T, G)``, the others ``(x, ..., T)``)."""
+    return res[1:2] if name.endswith("descent_step") else res[1:-1]
+
+
+def same_rows(label, got, ref, rows):
+    """The first ``rows`` rows of each history of two runs of a driver
+    (``label`` starts with its name) bit for bit, or within 1e-13 relative
+    where cuBLAS took another algorithm under capture (then said); returns
+    the text."""
+    pairs = [(np.asarray(a)[:rows], np.asarray(b)[:rows]) for a, b in
+             zip(histories(label.split()[-1], got),
+                 histories(label.split()[-1], ref))]
+    if any(len(a) != len(b) or len(a) < min(rows, len(got[1]))
+           for a, b in pairs):
+        raise AssertionError(f"{label}: {len(got[1])} and {len(ref[1])} rows")
+    if all(np.array_equal(a, b) for a, b in pairs):
+        return "bit for bit"
+    rel = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+              for a, b in pairs)
+    if not rel <= 1e-13:
+        raise AssertionError(f"{label}: graph vs eager rel err {rel:.3e} > "
+                             "1e-13")
+    return (f"within {rel:.1e} relative (not bit for bit: cuBLAS may pick "
+            "another algorithm under capture)")
+
+
+def fw_graph(driver, label, run):
+    """One graph path: ``run()`` cold (the capture, the cache cleared: one
+    capture or fail) and warm (timed, host syncs counted); returns the warm
+    result, its wall and its text: continuations, nodes, capture seconds,
+    pool MiB, replays and syncs per solve."""
+    driver.clear_graph_cache()
+    before = dict(driver.GRAPH_STATS)
+    first = run()
+    captures = driver.GRAPH_STATS["captures"] - before["captures"]
+    entries = list(driver._GRAPHS.values())
+    if captures != 1 or not entries:
+        raise AssertionError(f"{label}: {captures} captures, the graph path "
+                             "was not taken")
+    mid = dict(driver.GRAPH_STATS)
+    res, wall, syncs = synced(run)
+    st = {k: driver.GRAPH_STATS[k] - mid[k] for k in mid}
+    if st["captures"]:
+        raise AssertionError(f"{label}: captured again at the second solve")
+    np.testing.assert_array_equal(np.asarray(res[1]), np.asarray(first[1]))
+    nodes = graph_nodes(entries)
+    span = entries[0].span
+    node_txt = ("nodes not measured" if nodes is None else
+                f"{nodes} nodes ({nodes / span:.0f} per iteration)")
+    text = (f"graph of {span} iterations with {node_txt}, capture "
+            f"{entries[0].capture_s:.2f} s, pool "
+            f"{entries[0].pool_bytes / 2**20:.1f} MiB, {st['replays']} "
+            f"replays, {st['continuations']} continuations, {syncs} host "
+            "syncs per solve")
+    return res, wall, text
+
+
 def fw_illcond(port, card):
     """Phase 4i, the full-width path: the five FW drivers on the 1000x1000
-    ill-conditioned logistic problem; returns its line."""
+    ill-conditioned logistic problem as graph chunks, each against an
+    ``eager_chunks`` run (its first FW_EAGER_ROWS rows) and the port on the
+    CPU (FW_CPU_ROWS rows)."""
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+
     f, h, L, L0, L1, x0, X, y = port.hard_FW_log_reg_jax(
         FW_ILL["seed"], FW_NS, FW_NF, domain="l2", device="cuda",
         **{k: v for k, v in FW_ILL.items() if k != "seed"})
     f_cpu = port.LogisticRegression(X.cpu(), y.cpu(), device="cpu")
     L, L0, L1 = float(L), max(float(L0), 1e-9), float(L1)
+    CPU_RUNS["illcond_problem"] = (f, h, L, L0, L1, x0)
     radius = FW_ILL["radius"]
-    drivers = {
-        "FW_l0l1_log_and_linear_step": lambda f, x0, lmo, it:
-            port.FW_l0l1_log_and_linear_step(f, h, L0, L1, x0, it, lmo=lmo,
-                                             ls_ratio=FW_LS_RATIO,
-                                             verbose=False),
-        "FW_l0l1_log_only": lambda f, x0, lmo, it:
-            port.FW_l0l1_log_only(f, h, L0, L1, x0, it, lmo=lmo,
-                                  ls_ratio=FW_LS_RATIO, verbose=False),
-        "FW_alg_div_step": lambda f, x0, lmo, it:
-            port.FW_alg_div_step(f, h, L, x0, it, gamma=2.0, lmo=lmo,
-                                 ls_ratio=FW_LS_RATIO, verbose=False),
-        "FW_alg_L0_L1_shortest_step": lambda f, x0, lmo, it:
-            port.FW_alg_L0_L1_shortest_step(f, h, L0, L1, x0, it, gamma=2.0,
-                                            lmo=lmo, verbose=False),
-        "FW_alg_descent_step": lambda f, x0, lmo, it:
-            port.FW_alg_descent_step(f, h, x0, it, lmo, verbose=False),
-    }
     lmo, lmo_cpu = port.lmo_l2_ball(radius), port.lmo_l2_ball(radius)
     out = []
-    for name, run in drivers.items():
-        first = run(f, x0, lmo, FW_ITERS)  # cold: the first call
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = run(f, x0, lmo, FW_ITERS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+    for name, run in fw_drivers(port, h, L, L0, L1).items():
+        res, wall, graph_txt = fw_graph(
+            driver, name, lambda: run(f, x0, lmo, FW_ITERS))
         F = np.asarray(res[1])
         if not (np.all(np.isfinite(F)) and F[-1] < F[0]):
             raise AssertionError(f"{name}: F[0] {F[0]} F[-1] {F[-1]}")
-        np.testing.assert_array_equal(F, np.asarray(first[1]))
         if "log" in name:
             steps = np.asarray(res[3])
             if np.any(np.diff(steps) < 0):
@@ -1752,6 +1964,13 @@ def fw_illcond(port, card):
             if name == "FW_l0l1_log_only" and steps[-1] < len(F) - 1:
                 raise AssertionError(f"{name}: LOG_STEPS[-1] {steps[-1]} < "
                                      f"rows - 1 = {len(F) - 1}")
+        with driver.eager_chunks():
+            eager, e_wall, e_syncs = synced(lambda: run(f, x0, lmo,
+                                                        FW_ITERS))
+        agree = same_rows(name, res, eager, FW_EAGER_ROWS)
+        whole = all(np.array_equal(np.asarray(a), np.asarray(b))
+                    for a, b in zip(histories(name, res),
+                                    histories(name, eager)))
         cpu = run(f_cpu, x0.cpu(), lmo_cpu, FW_CPU_ROWS)
         if name == "FW_alg_descent_step":
             CPU_RUNS["illcond"] = (f, h, x0, cpu[1])
@@ -1760,14 +1979,40 @@ def fw_illcond(port, card):
         syncs, ops, idle, rows = fw_syncs_and_ops(
             lambda: run(f, x0, lmo, FW_COST_ITERS))
         ops_txt = (f"{ops / rows:.1f} device ops per iteration (device "
-                   f"idle {100 * idle:.1f}% of a traced run)" if ops else
-                   "device ops not measured (no device events in the trace)")
-        out.append(f"{name}: warm wall {wall:.3f} s, {len(F)} rows, "
-                   f"F {F[0]:.6e} -> {F[-1]:.6e}, {syncs / rows:.2f} syncs "
-                   f"and {ops_txt}, card vs CPU {err:.1e} over {held} rows")
+                   f"idle {100 * idle:.1f}% of a traced run of {rows})"
+                   if ops else "device ops not measured (no device events "
+                   "in the trace)")
+        out.append(f"{name}: graph warm wall {wall:.3f} s, {len(F)} rows, "
+                   f"F {F[0]:.6e} -> {F[-1]:.6e}, {graph_txt}, {ops_txt}; "
+                   f"eager_chunks {e_wall:.3f} s ({e_syncs / len(F):.2f} "
+                   f"syncs per iteration), first {FW_EAGER_ROWS} rows "
+                   f"{agree}{' (all rows)' if whole else ''}; card vs CPU "
+                   f"{err:.1e} over {held} rows")
     print(f"[fw] illcond {FW_NS}x{FW_NF} l2 ball {radius} on cuda "
           f"({FW_ITERS} iterations, ls_ratio {FW_LS_RATIO}; {card}): "
           + "; ".join(out), flush=True)
+
+
+def fw_drivers(port, h, L, L0, L1, ls_ratio=FW_LS_RATIO):
+    """The five FW drivers as ``run(f, x0, lmo, iterations)``, with
+    ``run_regime``'s settings."""
+    return {
+        "FW_l0l1_log_and_linear_step": lambda f, x0, lmo, it:
+            port.FW_l0l1_log_and_linear_step(f, h, L0, L1, x0, it, lmo=lmo,
+                                             ls_ratio=ls_ratio,
+                                             verbose=False),
+        "FW_l0l1_log_only": lambda f, x0, lmo, it:
+            port.FW_l0l1_log_only(f, h, L0, L1, x0, it, lmo=lmo,
+                                  ls_ratio=ls_ratio, verbose=False),
+        "FW_alg_div_step": lambda f, x0, lmo, it:
+            port.FW_alg_div_step(f, h, L, x0, it, gamma=2.0, lmo=lmo,
+                                 ls_ratio=ls_ratio, verbose=False),
+        "FW_alg_L0_L1_shortest_step": lambda f, x0, lmo, it:
+            port.FW_alg_L0_L1_shortest_step(f, h, L0, L1, x0, it, gamma=2.0,
+                                            lmo=lmo, verbose=False),
+        "FW_alg_descent_step": lambda f, x0, lmo, it:
+            port.FW_alg_descent_step(f, h, x0, it, lmo, verbose=False),
+    }
 
 
 def fw_rs_panels(port):
@@ -2903,6 +3148,212 @@ def graph_paths(port, card, counters):
           f"s", flush=True)
 
 
+SVD_PROBE = """
+import torch
+g = torch.randn(200, 20, dtype=torch.float64, device="cuda")
+torch.linalg.svd(g, full_matrices=False)
+torch.cuda.synchronize()
+graph = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.graph(graph):
+        torch.linalg.svd(g, full_matrices=False)
+    print("captured")
+except Exception as e:
+    print("refused:", str(e).splitlines()[0][:120])
+"""
+
+
+def centre_runs(driver, label, runs, x0, lmo, f):
+    """``runs`` (``fw_drivers``) with ``lmo`` from ``x0``: each as a graph
+    (one capture: an array centre copied from the host per call would make
+    it raise) against ``eager_chunks`` over all LMO_ITERS rows; returns the
+    text."""
+    out = []
+    for name, run in runs.items():
+        driver.clear_graph_cache()
+        before = dict(driver.GRAPH_STATS)
+        g = run(f, x0, lmo, LMO_ITERS)
+        captures = driver.GRAPH_STATS["captures"] - before["captures"]
+        if captures != 1:
+            raise AssertionError(f"{label} {name}: {captures} captures")
+        with driver.eager_chunks():
+            e = run(f, x0, lmo, LMO_ITERS)
+        F = np.asarray(g[1])
+        if not np.all(np.isfinite(F)):
+            raise AssertionError(f"{label} {name}: F not finite")
+        agree = same_rows(f"{label} {name}", g, e, LMO_ITERS)
+        if not torch.equal(g[0], e[0]) and agree == "bit for bit":
+            raise AssertionError(f"{label} {name}: the iterates differ")
+        out.append(f"{name.replace('FW_', '')} {len(F)} rows {agree}")
+    return f"{label}: " + ", ".join(out)
+
+
+def lmo_centres(port, card, counters):
+    """Phase 4p: the four LMOs that take an array (a numpy centre, numpy
+    bounds) under the five FW drivers as graphs against ``eager_chunks``,
+    and the nuclear ball, whose chunks run eagerly (``host_reads``), with
+    whether its SVD can be captured at all (in a process of its own)."""
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    f, h, L, L0, L1, _ = CPU_RUNS["illcond_problem"]  # phase 4i's
+    rng = np.random.default_rng(7)
+    c = 0.1 * rng.standard_normal(FW_NF)
+    runs = fw_drivers(port, h, L, L0, L1)
+    zero = torch.zeros(FW_NF, dtype=torch.float64, device="cuda")
+    lines = [
+        centre_runs(driver, "lmo_l2_ball(25, centre)", runs, zero,
+                    port.lmo_l2_ball(FW_ILL["radius"], center=c), f),
+        # from its centre, which is small: where the gradient has no
+        # negative entry the vertex is the centre and the run stops
+        centre_runs(driver, "lmo_l2_ball_positive_orthant(25, centre)",
+                    runs, torch.tensor(0.01 * np.abs(c), device="cuda"),
+                    port.lmo_l2_ball_positive_orthant(
+                        FW_ILL["radius"], center=0.01 * np.abs(c)), f),
+        centre_runs(driver, "lmo_linf_ball(1, centre)", runs, zero,
+                    port.lmo_linf_ball(1.0, center=c), f)]
+
+    M = symnmf_matrix(FW_SYM_N)
+    np.random.seed(0)
+    fs, hs, Ls, X0 = port.FrobeniusSymLossResMeasEx(M, FW_SYM_R,
+                                                    device="cuda")
+    lower = 0.01 * rng.random((FW_SYM_N, FW_SYM_R))
+    upper = lower + 1.0 + rng.random((FW_SYM_N, FW_SYM_R))
+    X0 = torch.clamp(X0, torch.tensor(lower, device="cuda"),
+                     torch.tensor(upper, device="cuda"))
+    lines.append(centre_runs(
+        driver, f"lmo_matrix_box(lower, upper) SymNMF {FW_SYM_N}x{FW_SYM_R}",
+        fw_drivers(port, hs[0], float(Ls), 1.0, 1.0), X0,
+        port.lmo_matrix_box(lower, upper), fs))
+
+    # the reference's nuclear vertex is the top singular pair's, an ascent
+    # vertex for the line-search drivers (which raise on it, as JAX's do):
+    # the descent step, and BPG through the FW-as-prox h-oracle
+    nuc = port.lmo_nuclear_norm_ball()
+    Xn = X0 / (2.0 * torch.linalg.matrix_norm(X0, ord="nuc"))
+    before = dict(driver.GRAPH_STATS)
+    nuc_runs = {
+        "FW_alg_descent_step": port.FW_alg_descent_step(
+            fs, hs[0], Xn, LMO_ITERS, nuc, verbose=False),
+        "BPG(SumOf2nd4thPowersWithFrankWolfe)": port.BPG(
+            fs, port.SumOf2nd4thPowersWithFrankWolfe(lmo=nuc), 1.0, Xn,
+            LMO_ITERS, linesearch=False, verbose=False)}
+    if driver.GRAPH_STATS["captures"] != before["captures"]:
+        raise AssertionError("the nuclear ball's chunks were captured")
+    for name, res in nuc_runs.items():
+        if not np.all(np.isfinite(np.asarray(res[1]))):
+            raise AssertionError(f"nuclear ball {name}: F not finite")
+    probe = subprocess.run([sys.executable, "-c", SVD_PROBE],
+                           capture_output=True, text=True, timeout=300)
+    svd = (probe.stdout.strip().splitlines() or
+           [f"probe failed (exit {probe.returncode})"])[-1]
+    lines.append(
+        f"lmo_nuclear_norm_ball on SymNMF: "
+        + ", ".join(f"{n.replace('FW_', '')} {len(r[1])} rows eager, F "
+                    f"{r[1][0]:.4e} -> {r[1][-1]:.4e}"
+                    for n, r in nuc_runs.items())
+        + f", no capture; torch.linalg.svd under a capture alone: {svd}")
+    launched = no_launches("phase 4p", counters)
+    print(f"[lmo] phase 4p ({card}, {LMO_ITERS} iterations each, graphs "
+          "against eager_chunks): " + "; ".join(lines) + f"; kernel "
+          f"launches {launched}; phase 4p in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def write_a9a_like(path):
+    """A synthetic LIBSVM file of a9a's published shape (A9A_ROWS rows,
+    A9A_FEATURES binary features, A9A_NNZ ones per row, labels +1 / -1 in
+    a9a's proportion), from A9A_SEED."""
+    rng = np.random.default_rng(A9A_SEED)
+    cols = np.sort(np.argpartition(rng.random((A9A_ROWS, A9A_FEATURES)),
+                                   A9A_NNZ, axis=1)[:, :A9A_NNZ], axis=1) + 1
+    labels = np.where(rng.random(A9A_ROWS) < A9A_POSITIVE, "+1", "-1")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(
+        f"{lab} " + " ".join(f"{j}:1" for j in row)
+        for lab, row in zip(labels, cols)) + "\n")
+
+
+def a9a_phase(port, card, counters):
+    """Phase 4q: the a9a path on a synthetic file of a9a's shape: the
+    native parse against the Python parse (equal CSR arrays, both timed),
+    ``L0L1_FW_log_reg_a9a(250, path)`` on the card and
+    ``examples/ex_fw_l0l1_a9a.py``'s four runs as graph chunks."""
+    from accbpg_and_fw_tpu_torch import native
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+    from accbpg_and_fw_tpu_torch.apps import utils
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    path = pathlib.Path(__file__).resolve().parent / "build" / "a9a_like"
+    write_a9a_like(path)
+    built = native.library_path("libsvm_parser").exists()
+    t = time.perf_counter()
+    if native.load_native_library("libsvm_parser") is None:
+        raise AssertionError("the native LIBSVM parser did not build")
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    X, y = utils.load_libsvm_file(str(path))
+    native_s = time.perf_counter() - t
+    parse = utils._load_libsvm_native
+    utils._load_libsvm_native = lambda filename: None  # the Python parse
+    try:
+        t = time.perf_counter()
+        Xp, yp = utils.load_libsvm_file(str(path))
+        python_s = time.perf_counter() - t
+    finally:
+        utils._load_libsvm_native = parse
+    for name in ("data", "indices", "indptr"):
+        if not np.array_equal(getattr(X, name), getattr(Xp, name)):
+            raise AssertionError(f"a9a-like: native and Python {name} "
+                                 "differ")
+    if not (np.array_equal(y, yp) and X.shape == Xp.shape
+            == (A9A_ROWS, A9A_FEATURES)):
+        raise AssertionError(f"a9a-like: shapes {X.shape} {Xp.shape}")
+
+    np.random.seed(A9A_EXAMPLE_SEED)  # the example's x0 draw
+    f, h, L, L0, L1, x0 = port.L0L1_FW_log_reg_a9a(A9A_RADIUS, str(path))
+    if x0.device.type != "cuda":
+        raise AssertionError(f"the a9a problem is on {x0.device}")
+    out = []
+    for lmo_name, lmo in (("L2 ball", port.lmo_l2_ball(A9A_RADIUS)),
+                          ("Linf ball", port.lmo_linf_ball(A9A_RADIUS))):
+        for name, run in (
+                ("FW_alg_L0_L1_shortest_step", lambda: (
+                    port.FW_alg_L0_L1_shortest_step(
+                        f, h, L0, L1, x0, A9A_ITERS, gamma=2.0, lmo=lmo,
+                        ls_ratio=2.0, verbose=False))),
+                ("FW_alg_div_step", lambda: port.FW_alg_div_step(
+                    f, h, L, x0, A9A_ITERS, gamma=2.0, lmo=lmo, ls_ratio=2.0,
+                    verbose=False))):
+            driver.clear_graph_cache()
+            before = dict(driver.GRAPH_STATS)
+            res, wall, syncs = synced(run)
+            st = {k: driver.GRAPH_STATS[k] - before[k] for k in before}
+            F = np.asarray(res[1])
+            if st["captures"] != 1:
+                raise AssertionError(f"a9a {lmo_name} {name}: "
+                                     f"{st['captures']} captures")
+            if not (np.all(np.isfinite(F)) and F[-1] < F[0]):
+                raise AssertionError(f"a9a {lmo_name} {name}: F[0] {F[0]} "
+                                     f"F[-1] {F[-1]}")
+            out.append(f"{lmo_name} {name}: {len(F)} rows, F {F[0]:.6f} -> "
+                       f"{F[-1]:.6f}, {wall:.3f} s with the capture of "
+                       f"{st['capture_s']:.2f} s, {st['continuations']} "
+                       f"continuations, {syncs} syncs")
+    launched = no_launches("phase 4q", counters)
+    print(f"[a9a] phase 4q ({card}): synthetic a9a-shaped file "
+          f"{A9A_ROWS}x{A9A_FEATURES}, {X.nnz} nonzeros, seed {A9A_SEED}; "
+          f"native parse {native_s:.3f} s (g++ build "
+          f"{'cached' if built else f'{build_s:.2f} s'}) against the Python "
+          f"parse {python_s:.3f} s, equal CSR arrays and labels; "
+          f"L0L1_FW_log_reg_a9a({A9A_RADIUS:g}) on cuda: L {L:.1f}, L1 "
+          f"{L1:.2f}; {A9A_ITERS} iterations, ls_ratio 2, gamma 2: "
+          + "; ".join(out) + f"; kernel launches {launched}; phase 4q in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--blocks-only", action="store_true",
@@ -3073,6 +3524,8 @@ def main():
                 (sm, "LAUNCHES"), (DeviceCount(sm), "LAUNCHES")]
     fw_paths(port, card, counters)
     graph_paths(port, card, counters)
+    lmo_centres(port, card, counters)
+    a9a_phase(port, card, counters)
     extras_paths(port, card, counters, sm)
     fastgram_paths(port, counters)
     sharded_paths(port, counters)

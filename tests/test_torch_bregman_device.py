@@ -159,8 +159,8 @@ def assert_rows(got, ref, rtol):
 def _force_graph(monkeypatch, bodies):
     """Run CPU carries through the graph chunk's code (``_masked_steps``,
     no capture) with ``bodies`` masked bodies per loop."""
-    monkeypatch.setattr(driver, "chunk_mode", lambda carry, problem=None:
-                        "graph")
+    monkeypatch.setattr(driver, "chunk_mode",
+                        lambda carry, problem=None, cfg=None: "graph")
     for mod, name in ((bpg, "BPG_BODIES"), (bpg, "EXPO_BODIES"),
                       (bpg, "GAIN_BODIES"), (theta, "NEWTON_BODIES"),
                       (roots, "NEWTON_BODIES")):

@@ -10,7 +10,7 @@ simplex (``examples/ex_fw_rs.py``), SymNMF 40x5 with an l-inf box
 
 Bars: F and Ls rtol 1e-11 with the same number of rows, x atol 1e-12.
 The two (L0,L1) log-step drivers are held to those bars over their first
-60 iterations.  Their host recurrence multiplies L0 and L1 by the
+60 iterations.  Their recurrence multiplies L0 and L1 by the
 line-search ratio and takes log and expm1 of the products, and each
 accepted step is set by a gradient that nearly cancels (||g|| enters a_k
 and L1 ||d|| the log), so the last-bit difference of the two packages'
