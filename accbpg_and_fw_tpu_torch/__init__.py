@@ -30,7 +30,8 @@ Everything of the JAX package is ported:
 * the inexact-oracle and constrained drivers ``AIBM``, ``AdaptFGM``,
   ``UniversalGM`` and ``PrimalDualSwitchingGradientMethod``
   (``algorithms/extras.py``), and the stochastic-oracle protocol
-  (``_rng.py``);
+  (``_rng.py``: JAX's threefry key chain, on the card in
+  ``csrc/threefry.cu``);
 * the oracles (``ops/``), the problem factories and utilities
   (``apps/``), and the JAX package's public digit contractions
   (``ops/mixed_precision.py``, which no solver here uses);

@@ -1,54 +1,294 @@
-"""The noise stream of stochastic (inexact) oracles.
+"""The noise stream of stochastic (inexact) oracles: JAX's threefry2x32.
 
 The JAX drivers draw every noise sample from a linear chain of PRNG keys,
 ``(key, sub) = split(key)``, and hand ``sub`` to one draw.  The port keeps
-that chain and its shape: a key is a host ``uint32[2]``, laid out as JAX's
-``PRNGKey(seed)`` (high word, low word), so a driver's carry has the JAX
-keys, shapes and dtypes and a checkpoint moves between the packages.
+that chain and computes JAX's own bits: ``jax.random``'s default
+generator, the counter-based hash threefry2x32 in its partitionable
+layout (``jax_threefry_partitionable``, on by default since jax 0.5).  A
+key is JAX's two 32-bit words (``PRNGKey(seed)``: high word, low word),
+held as an int64[2] tensor on the solve's device, so a driver's carry is
+all device tensors and a graph chunk can capture its draws; a checkpoint
+saves it as JAX's ``uint32[2]`` and the packages resume each other's runs.
 
-The bits are torch's, not JAX's: ``split`` derives the next key and a draw
-key from torch's CPU generator seeded by the key, ``uniform`` draws a host
-float the same way (no device work, no sync), and ``normal`` draws on the
-oracle's device from a generator seeded by the draw key (the card and the
-CPU generators give different normals for one seed).  Replacing these
-three functions by ``jax.random``'s makes a noisy run draw JAX's samples.
+* ``split(key)`` is ``jax.random.split``: the hash of the counters (0, 0)
+  and (0, 1) under ``key``, the next key and the draw key;
+* ``uniform(sub)`` is ``jax.random.uniform(sub, dtype=float64)``: the
+  top 52 bits of the 64-bit word of counter (0, 0) as the mantissa;
+* ``normal(sub, shape)`` is ``jax.random.normal(sub, shape, float64)``:
+  element i hashes the counter (i >> 32, i & 0xffffffff), its uniform on
+  ``(nextafter(-1, 0), 1)`` goes through ``sqrt(2) erfinv``.  torch's
+  ``erfinv`` (and CUDA's) is not XLA's polynomial, so a normal may part
+  from JAX's in its last bits (tests/test_torch_rng_device.py measures
+  how far); the uniform it starts from is JAX's bit for bit;
+* ``split_uniform(key)`` is ``split`` and the ``uniform`` of the draw key
+  in one call, the inexact drivers' per-iteration draw.
+
+The hash is stateless, so a key gives the same bits in a graph, in a
+masked body that dies, eagerly and on the CPU.  On a CUDA key each
+function launches the kernel ``csrc/threefry.cu`` on the current stream
+(entry ``threefry_split_run`` for a split, ``threefry_draw_run`` for a
+draw: one thread per counter) and counts the launch on the host
+(``SPLIT_LAUNCHES``, ``DRAW_LAUNCHES``) and, from inside the kernel, in a
+device int64 per entry (``device_launches``: a graph's replays count
+there).  On a CPU key it
+runs the plain version: the same arithmetic in int64 tensor operations,
+each word masked to 32 bits after every add and rotate.  Nothing reads
+back to the host.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
+# threefry2x32's rotations (two sets, used in turn) and key-schedule parity
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+# jax.random.normal's interval: (nextafter(-1, 0), 1), mapped from [0, 1)
+_NORMAL_LO = float(np.nextafter(np.float64(-1.0), np.float64(0.0)))
+_NORMAL_SCALE = float(np.float64(1.0) - np.float64(_NORMAL_LO))
+_SQRT2 = float(np.sqrt(np.float64(2.0)))
+# a draw's output: the uniforms, the normals, or the two words of each
+# counter (for the tests); the kernel's ``Mode``
+_MODES = {"uniform": 0, "normal": 1, "bits": 2}
+
+# Launches of the threefry kernel's two entries by their wrappers on CUDA
+# keys (never by the plain version): counted on the host when a wrapper runs
+# (under a capture, once per captured launch) ...
+SPLIT_LAUNCHES = 0
+DRAW_LAUNCHES = 0
+# ... and by the kernel itself, one int64 per entry and device that its
+# thread 0 adds one to, so that a graph's replays count too
+# (``device_launches``).
+ENTRIES = ("split", "draw")
+_DEVICE_COUNTS: dict = {}
 
 
-def key(seed):
-    """The chain's first key: JAX's ``PRNGKey(seed)`` words."""
+def key(seed, device=None):
+    """The chain's first key, JAX's ``PRNGKey(seed)`` words as an int64[2]
+    tensor on ``device`` (the CPU for None)."""
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return np.array([s >> 32, s & _MASK], dtype=np.uint32)
+    return torch.tensor([s >> 32, s & _MASK], dtype=torch.int64,
+                        device=device)
 
 
-def _seed(k):
-    return (int(k[0]) << 32) | int(k[1])
+def as_key(k, device):
+    """A key given as a tensor, a numpy array or a JAX key (``uint32[2]``
+    words) as the port's int64[2] tensor on ``device``."""
+    if isinstance(k, torch.Tensor) and k.dtype == torch.int64:
+        return k.to(device)
+    words = np.asarray(k).astype(np.int64) & _MASK
+    if words.shape != (2,):
+        raise ValueError(f"a key is two 32-bit words, got shape "
+                         f"{words.shape}")
+    return torch.tensor(words, dtype=torch.int64, device=device)
+
+
+def host_words(k):
+    """A key's words as JAX's ``uint32[2]`` (what a checkpoint saves)."""
+    return np.asarray(k.detach().cpu().numpy() & _MASK, dtype=np.uint32)
+
+
+def _check(k):
+    if not isinstance(k, torch.Tensor) or k.dtype != torch.int64 \
+            or tuple(k.shape) != (2,):
+        raise ValueError("a key is an int64[2] tensor (see _rng.key)")
+    if k.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the noise stream runs on cpu or cuda, not "
+                         f"{k.device}")
 
 
 def split(k):
     """``(next key, draw key)``: one link of the chain."""
-    gen = torch.Generator().manual_seed(_seed(k))
-    words = torch.randint(0, 1 << 32, (4,), generator=gen,
-                          dtype=torch.int64).numpy().astype(np.uint32)
-    return words[:2], words[2:]
+    return split_uniform(k)[:2]
+
+
+def split_uniform(k):
+    """``(next key, draw key, uniform(draw key))`` in one call (one launch
+    on the card)."""
+    _check(k)
+    if k.device.type == "cpu":
+        nxt, sub = split_reference(k)
+        return nxt, sub, uniform_reference(sub)
+    return _split_cuda(k)
 
 
 def uniform(sub):
-    """A host float in [0, 1) drawn from the draw key ``sub``."""
-    gen = torch.Generator().manual_seed(_seed(sub))
-    return torch.rand((), generator=gen, dtype=torch.float64).item()
+    """A float64 0-d tensor in [0, 1) from the draw key ``sub``:
+    ``jax.random.uniform(sub, dtype=float64)``."""
+    return _draw(sub, (), "uniform")
 
 
-def normal(sub, shape, device):
-    """Standard normal float64 samples of ``shape`` on ``device``, drawn
-    from the draw key ``sub``."""
-    gen = torch.Generator(device=device).manual_seed(_seed(sub))
-    return torch.randn(shape, generator=gen, dtype=torch.float64,
-                       device=device)
+def normal(sub, shape):
+    """Standard normal float64 samples of ``shape`` on ``sub``'s device
+    from the draw key ``sub``: ``jax.random.normal(sub, shape, float64)``
+    up to the last bits of ``erfinv``."""
+    return _draw(sub, shape, "normal")
+
+
+def bits(sub, shape):
+    """The hash's two 32-bit words of each counter of ``shape`` (int64
+    tensors ``(hi, lo)``): the 64-bit draws that ``uniform`` and ``normal``
+    start from (``jax.random.bits(sub, shape, uint64)`` is
+    ``hi << 32 | lo``)."""
+    return _draw(sub, shape, "bits")
+
+
+def _draw(sub, shape, mode):
+    _check(sub)
+    shape = tuple(int(d) for d in shape)
+    if sub.device.type == "cpu":
+        return _draw_reference(sub, shape, mode)
+    return _draw_cuda(sub, shape, mode)
+
+
+# ---- the plain version --------------------------------------------------------
+
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32_reference(k0, k1, x0, x1):
+    """The threefry2x32 hash (20 rounds, JAX's ``_threefry2x32_lowering``)
+    of the counter words ``(x0, x1)`` under the key words ``(k0, k1)``, all
+    int64 tensors holding 32-bit words; returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def split_reference(k):
+    """The plain ``split``: the hash of the counters (0, 0) and (0, 1)."""
+    hi, lo = threefry2x32_reference(
+        k[0], k[1], torch.zeros(2, dtype=torch.int64, device=k.device),
+        torch.arange(2, dtype=torch.int64, device=k.device))
+    return torch.stack([hi[0], lo[0]]), torch.stack([hi[1], lo[1]])
+
+
+def _counters(n, device):
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return i >> 32, i & _MASK
+
+
+def _unit(hi, lo):
+    """[0, 1) from a 64-bit word: its top 52 bits over 2^52 (JAX's
+    mantissa of 1.xxx minus 1, which is exact)."""
+    mant = (hi << 20) | (lo >> 12)
+    return mant.to(torch.float64) * 2.0 ** -52
+
+
+def uniform_reference(sub):
+    return _draw_reference(sub, (), "uniform")
+
+
+def _draw_reference(sub, shape, mode):
+    n = math.prod(shape)
+    c_hi, c_lo = _counters(n, sub.device)
+    hi, lo = threefry2x32_reference(sub[0], sub[1], c_hi, c_lo)
+    if mode == "bits":
+        return hi.reshape(shape), lo.reshape(shape)
+    u = _unit(hi, lo)
+    if mode == "normal":
+        u = torch.clamp_min(u * _NORMAL_SCALE + _NORMAL_LO, _NORMAL_LO)
+        u = _SQRT2 * torch.erfinv(u)
+    return u.reshape(shape)
+
+
+# ---- the kernel -----------------------------------------------------------------
+
+
+def _device_count(device, entry):
+    count = _DEVICE_COUNTS.get((entry, device.index))
+    if count is None:
+        count = torch.zeros((), dtype=torch.int64, device=device)
+        _DEVICE_COUNTS[(entry, device.index)] = count
+    return count
+
+
+def device_launches(entry=None):
+    """The launches of one entry (``"split"`` or ``"draw"``; both for None)
+    the cards counted since the last reset (one read each)."""
+    return sum(int(c) for (e, _), c in _DEVICE_COUNTS.items()
+               if entry is None or e == entry)
+
+
+def reset_device_launches():
+    for c in _DEVICE_COUNTS.values():
+        c.zero_()
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lib():
+    from .ops import _build
+
+    lib = _build.load("threefry")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.threefry_split_run.argtypes = [p, p, p, p, i, p]
+    lib.threefry_split_run.restype = i
+    lib.threefry_draw_run.argtypes = [p, ll, i, p, p, p, i, p]
+    lib.threefry_draw_run.restype = i
+    lib.threefry_error_string.argtypes = [i]
+    lib.threefry_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_err(err, what):
+    if err:
+        raise RuntimeError(f"threefry {what} failed: "
+                           + _kernel_lib().threefry_error_string(err)
+                           .decode())
+
+
+def _stream(device):
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _split_cuda(k):
+    global SPLIT_LAUNCHES
+    k = k.contiguous()
+    out = torch.empty(4, dtype=torch.int64, device=k.device)
+    u = torch.empty((), dtype=torch.float64, device=k.device)
+    err = _kernel_lib().threefry_split_run(
+        k.data_ptr(), out.data_ptr(), u.data_ptr(),
+        _device_count(k.device, "split").data_ptr(), k.device.index,
+        _stream(k.device))
+    _check_err(err, "split launch")
+    SPLIT_LAUNCHES += 1
+    return out[:2], out[2:], u
+
+
+def _draw_cuda(sub, shape, mode):
+    global DRAW_LAUNCHES
+    sub = sub.contiguous()
+    n = math.prod(shape)
+    dev = sub.device
+    if mode == "bits":
+        words = torch.empty(2, n, dtype=torch.int64, device=dev)
+        out = None
+    else:
+        out = torch.empty(n, dtype=torch.float64, device=dev)
+        words = None
+    if n:
+        err = _kernel_lib().threefry_draw_run(
+            sub.data_ptr(), n, _MODES[mode],
+            None if out is None else out.data_ptr(),
+            None if words is None else words.data_ptr(),
+            _device_count(dev, "draw").data_ptr(), dev.index, _stream(dev))
+        _check_err(err, "draw launch")
+        DRAW_LAUNCHES += 1
+    if mode == "bits":
+        return words[0].reshape(shape), words[1].reshape(shape)
+    return out.reshape(shape)

@@ -19,15 +19,16 @@ graph (``driver.py``): the loops run as a fixed number of masked bodies
 (``BPG_BODIES``, ``EXPO_BODIES``, ``GAIN_BODIES``), the host reads the
 chunk's rows once, and an iteration whose loop needs more bodies runs
 again eagerly.  Eagerly (the CPU, ``driver.eager_chunks``, a sharded run
-with its scalars replicated, a noise key on the host) each loop reads its
-exit test once per turn.
+with its scalars replicated) each loop reads its exit test once per
+turn.
 
 Checkpoints use the JAX drivers' carry keys, history names and
 fingerprints, so a run saved by either package resumes in the other.
 
 Stochastic f-oracles get a fresh draw key per gradient evaluation from the
-driver's ``seed``, where the JAX drivers split theirs (``_rng``: the same
-chain of keys; the carry holds the key as JAX's does).
+driver's ``seed``, where the JAX drivers split theirs (``_rng``: JAX's
+chain of keys and its bits; the carry holds the key as a device tensor, so
+a stochastic run's chunks are graphs too).
 
 ``fast_gram=True`` runs the JAX drivers' stateful linear-Gram steps
 (``_*_dopt_step``), which keep their scalars on the host in Python floats
@@ -88,12 +89,13 @@ def _draw(cfg, c, fn, x):
 
 def _stoch_carry(f, carry, seed, fast_gram=False):
     """Add the noise key to the initial carry when the f-oracle is
-    stochastic (``PRNGKey(seed)``, seed None as 0); returns whether it
-    is.  The fast-Gram steps never draw noise (the linear-Gram protocol
-    oracles are exact), as in JAX."""
+    stochastic (``PRNGKey(seed)``'s words on x's device, seed None as 0);
+    returns whether it is.  The fast-Gram steps never draw noise (the
+    linear-Gram protocol oracles are exact), as in JAX."""
     stoch = bool(getattr(f, "stochastic", False)) and not fast_gram
     if stoch:
-        carry["key"] = _rng.key(0 if seed is None else seed)
+        carry["key"] = _rng.key(0 if seed is None else seed,
+                                carry["x"].device)
     return stoch
 
 

@@ -14,8 +14,9 @@ device before anything runs (``chunk_mode``):
 
 * ``"graph"``: ``done`` and every other leaf a plain tensor on one CUDA
   device, and no oracle of the problem that reads the host inside its
-  calls (``host_reads``): the exact D-opt engine, ``FW_alg_descent_step``
-  and the five Bregman drivers' plain steps.  The chunk is captured once
+  calls (``host_reads``): the exact D-opt engine, the FW and Bregman
+  drivers' plain steps (their stochastic runs too: the noise key is a
+  device tensor, ``_rng``) and the extras.  The chunk is captured once
   as a ``torch.cuda.CUDAGraph`` of ``span`` iterations (the whole chunk
   unless the caller asks for fewer) and replayed back to back until the
   chunk is done, the counterpart of JAX's compiled chunk: the carry, the
@@ -40,14 +41,13 @@ device before anything runs (``chunk_mode``):
   with no read inside a chunk but those of the steps' own loops
   (``device_while`` in its Python form reads its condition each turn;
   ``k`` a host int), for a carry on the CPU (where the tests run it), a
-  carry with a host leaf (``_rng``'s key chain lives on the host), a
-  DTensor carry (``d_opt._pivot``'s c10d all-gather; a sharded Bregman
+  carry with a host leaf (a number, which the first step makes a
+  tensor), a DTensor carry (``d_opt._pivot``'s c10d all-gather; a sharded Bregman
   run, whose scalars are replicated) and a problem whose oracle reads the
   host.  Once ``done`` is set the carry freezes through a ``torch.where``
   select, as the JAX scan body does.
-* ``"host"``: ``done`` a Python bool (the line-search FW drivers, the
-  extras and the ``fast_gram`` Bregman steps, whose line searches read
-  each trial's decision back): the step keeps its scalars on the host,
+* ``"host"``: ``done`` a Python bool (the ``fast_gram`` Bregman steps,
+  whose line searches read each trial's decision back): the step keeps its scalars on the host,
   returns host numbers in ``hist``, and the chunk ends at the stop row,
   which is the iteration the JAX driver's frozen carry stops at.  The
   carry may mix tensors with Python floats, ints and bools.
@@ -77,7 +77,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
-from .. import _loops, _scalar
+from .. import _loops, _rng, _scalar
 from .._device import full, is_dtensor, replicated
 
 _CKPT_VERSION = 3
@@ -96,6 +96,10 @@ def _save_checkpoint(path, carry, blocks, k_next, t_spent, fp):
         "__fp": np.asarray(fp),
     }
     for k, v in carry.items():
+        if k == "key" and isinstance(v, torch.Tensor):
+            # the noise key's int64 words saved as JAX's uint32[2]
+            payload["c::key"] = _rng.host_words(v)
+            continue
         payload[f"c::{k}"] = (v.detach().cpu().numpy()
                               if isinstance(v, torch.Tensor) else np.asarray(v))
     if blocks:
@@ -137,10 +141,9 @@ def _load_checkpoint(path, carry_proto, fp):
                     f"{tuple(saved.shape)} but this solve expects "
                     f"{tuple(np.shape(proto))} — different problem instance")
             if isinstance(proto, torch.Tensor):
-                carry[k] = torch.as_tensor(saved).to(device=proto.device,
-                                                     dtype=proto.dtype)
-            elif isinstance(proto, np.ndarray):  # a host array: the key
-                carry[k] = saved.astype(proto.dtype)
+                # a key saved as uint32 words widens to the proto's int64
+                carry[k] = torch.as_tensor(
+                    saved.astype(_np_dtype(proto.dtype))).to(proto.device)
             else:  # a host scalar: bool, int or float, as the proto
                 carry[k] = type(proto)(saved.item())
         hist_names = [n[3:] for n in z.files if n.startswith("h::")]
@@ -211,7 +214,7 @@ def chunk_mode(carry, problem=None, cfg=None):
     ``done``; ``"graph"`` where every leaf is a plain tensor on one CUDA
     device (outside ``eager_chunks``) and no oracle of ``problem`` and no
     callable of ``cfg`` reads the host; else ``"eager"`` (a CPU carry, a
-    host leaf such as the noise key, a DTensor, or ``host_reads``)."""
+    host leaf, a DTensor, or ``host_reads``)."""
     if isinstance(carry["done"], bool):
         return "host"
     if _EAGER[0]:
@@ -548,12 +551,9 @@ def _graph_chunk(step, cfg, chunk, problem, carry, cached=True, span=None):
 
 def _frozen_steps(step, carry, k0, limit):
     """Iterations ``k0 <= k < limit`` with tensor scalars and no host read:
-    the carry freezes through ``torch.where`` once done.  A host leaf (the
-    noise key) cannot freeze without a read: each step's value is kept in
-    ``host``, for the caller to restore the one after the last valid row.
-    Returns ``(carry, rows, host)``."""
-    rows, host = [], [{key: v for key, v in carry.items()
-                       if not isinstance(v, torch.Tensor)}]
+    the carry freezes through ``torch.where`` once done.  Returns
+    ``(carry, rows)``."""
+    rows = []
     for k in range(k0, limit):
         done = carry["done"]
         new, h = step(carry, k)
@@ -561,12 +561,10 @@ def _frozen_steps(step, carry, k0, limit):
         h["_valid"] = torch.logical_not(done)
         new = dict(new)
         new["done"] = done | new["done"] | h["_stop"]
-        host.append({key: new[key] for key in host[0]})
-        carry = {key: (torch.where(done, carry[key], new[key])
-                       if key not in host[0] else new[key])
+        carry = {key: torch.where(done, carry[key], new[key])
                  for key in carry}
         rows.append(h)
-    return carry, rows, host
+    return carry, rows
 
 
 class _ReplicatedScalars(TorchFunctionMode):
@@ -592,14 +590,13 @@ def _device_chunk(step, carry, k0, limit):
     """``_frozen_steps`` with the histories read once."""
     if any(is_dtensor(v) for v in carry.values()):
         with _ReplicatedScalars():
-            carry, rows, host = _frozen_steps(step, carry, k0, limit)
+            carry, rows = _frozen_steps(step, carry, k0, limit)
     else:
-        carry, rows, host = _frozen_steps(step, carry, k0, limit)
+        carry, rows = _frozen_steps(step, carry, k0, limit)
     hist = {name: (full(torch.stack([r[name] for r in rows])).cpu().numpy()
                    if isinstance(rows[0][name], torch.Tensor)
                    else np.asarray([r[name] for r in rows]))
             for name in rows[0]}
-    carry.update(host[int(hist["_valid"].sum())])
     return carry, hist
 
 
@@ -625,7 +622,7 @@ def scan_full(step, carry, num_iters: int):
     stacked into tensors along a leading iteration axis, ``_valid`` and
     ``_stop`` included.  The carry's leaves must be tensors (numbers are
     converted)."""
-    carry, rows, _ = _frozen_steps(
+    carry, rows = _frozen_steps(
         step, {k: torch.as_tensor(v) for k, v in carry.items()}, 0,
         num_iters)
     hist = {name: torch.stack([torch.as_tensor(r[name]) for r in rows])

@@ -236,16 +236,18 @@ def random_point_in_l2_ball_jax_version(center, radius, spread_btm=0.1,
                                         key=None, device=None):
     """Keyed version of random_point_in_l2_ball (reference:
     utils.py:214-249): the direction and the radius are drawn from the two
-    keys JAX splits ``key`` into, with ``_rng``'s draws (a key as
-    ``_rng.key(seed)`` makes it); a float64 tensor on ``device`` (for None
-    a tensor ``center``'s device, else CUDA)."""
-    assert key is not None, "You must pass a PRNG key (_rng.key(seed))"
+    keys JAX splits ``key`` into, with ``_rng``'s draws, JAX's; ``key`` is
+    a device key as ``_rng.key(seed)`` makes it, or JAX's ``uint32[2]``
+    words, and moves to the result's device.  A float64 tensor on
+    ``device`` (for None a tensor ``center``'s device, else CUDA)."""
+    assert key is not None, ("You must pass a PRNG key (_rng.key(seed), "
+                             "the device key)")
     from .. import _rng
     from .._device import as_f64, resolve_device
 
     center = as_f64(center, resolve_device(device, like=center))
-    key_dir, key_radius = _rng.split(key)
-    direction = _rng.normal(key_dir, center.shape, center.device)
+    key_dir, key_radius = _rng.split(_rng.as_key(key, center.device))
+    direction = _rng.normal(key_dir, center.shape)
     direction = direction / torch.linalg.vector_norm(direction)
     if pos_dir:
         direction = torch.abs(direction)

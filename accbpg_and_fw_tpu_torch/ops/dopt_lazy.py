@@ -608,10 +608,12 @@ def dopt_fw_lazy(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
 def _lazy_refresh_batch(H0s, C, beta, alpha, nrun):
     """``_lazy_refresh`` for K instances in one batched GEMM, each over its
     own ``nrun[k]`` rows (a device array: no host read), so an instance
-    that ran no iteration (alpha = 1) keeps its H0 bit for bit."""
+    that ran no iteration (alpha = 1) keeps its H0 bit for bit.  The
+    product and the sum are ``_lazy_refresh``'s two operations (not one
+    ``baddbmm``), so a batch of one folds to the single engine's bits."""
     Cm, bm = _live_rows(C, beta, nrun)
-    return torch.baddbmm(H0s * alpha[:, None, None],
-                         Cm.transpose(1, 2) * bm[:, None, :], Cm)
+    return (H0s * alpha[:, None, None]
+            + torch.bmm(Cm.transpose(1, 2) * bm[:, None, :], Cm))
 
 
 def _fresh_w(H0s, Vs):

@@ -229,9 +229,9 @@ class FrobeniusSymLoss(_DataOracle):
     (n x n x r) and X^T X (r x r), never the n x n outer product.
 
     ``noise_level`` marks the oracle stochastic: a gradient evaluated with
-    a draw key adds ``(normal - 0.5) * noise_level`` (``_rng.normal`` on
-    the oracle's device), as the JAX oracle adds ``jax.random.normal``'s;
-    without a key it is exact."""
+    a draw key adds ``(normal - 0.5) * noise_level`` (``_rng.normal``, the
+    JAX oracle's ``jax.random.normal`` draws, on x's device); without a key
+    it is exact."""
 
     def __init__(self, M, M_norm=None, noise_level=None, device=None):
         (self.M,) = self._data(device, M)
@@ -262,7 +262,8 @@ class FrobeniusSymLoss(_DataOracle):
     def _noise(self, x, key):
         if self.noise_level is None or key is None:
             return 0.0
-        return (_rng.normal(key, x.shape, x.device) - 0.5) * self.noise_level
+        return ((_rng.normal(_rng.as_key(key, x.device), x.shape) - 0.5)
+                * self.noise_level)
 
     def grad(self, x, key=None):
         return 2.0 * (x @ (x.T @ x) - self.M @ x) + self._noise(x, key)

@@ -4,14 +4,13 @@ Port of ``accbpg_and_fw_tpu/ops/h_oracles.py`` (reference:
 functions.py:238-905): float64 tensors in and out, the kernels' own
 constants (``lamda``, ``alpha``, ``sigma``, a radius) as Python floats, and
 ``L`` a number or a 0-d tensor on the solve's device (the plain Bregman
-steps keep their scalars there).  Every prox runs with no host read, so a
-graph chunk captures it, but ``SumOf2nd4thPowersDualProxMap``'s, which
-declares ``host_reads``, and ``SumOf2nd4thPowersWithFrankWolfe``'s, which
-reads as its LMO does.  Ported: the Burg-entropy family (``BurgEntropy``,
+steps keep their scalars there).  Every prox runs with no host read on
+the card, so a graph chunk captures it, but
+``SumOf2nd4thPowersWithFrankWolfe``'s, which reads as its LMO does.  Ported: the Burg-entropy family (``BurgEntropy``,
 ``BurgEntropyL1``, ``BurgEntropyL2``, ``BurgEntropySimplex``,
 ``BurgEntropyL2Ball``), the Shannon-entropy family, the 2nd+4th-power
-kernels (``SumOf2nd4thPowersDualProxMap``'s prox runs its inner loop in
-blocks of steps with one host read per block), ``SquaredL2Norm``,
+kernels (``SumOf2nd4thPowersDualProxMap``'s prox runs its inner loop
+in one kernel launch on the card, ``ops/dual_prox.py``), ``SquaredL2Norm``,
 ``PowerNeg1``, ``L2L1Linf`` and ``PolyDiv``.  ``SumOf2nd4thPowersPositiveOrthantDS`` (the
 JAX package's double-single prox, a TPU workaround for slow f64) names the
 FP64 class.  Inner products and norms run over every entry, so matrix
@@ -31,6 +30,7 @@ import torch
 
 from .._scalar import read
 from .base import LegendreOracle, fnorm, vdot
+from .dual_prox import dual_prox
 from .roots import (bisect_monotone, project_simplex_burg,
                     simplex_inv_multiplier, solve_cubic)
 from .simplex import simplex_inv_multiplier_pallas
@@ -307,30 +307,16 @@ class SumOf2nd4thPowersOnSimplex(SumOf2nd4thPowers):
         return project_simplex_burg(x, self.eps)
 
 
-# Steps of an eager inner loop between two host reads of its exit flag
-# (SumOf2nd4thPowersDualProxMap's extragradient loop, the primal-dual
-# driver's dual ascent).  Timed on an "NVIDIA H100 80GB HBM3, 700.00 W"
-# (PERF.md): the ascent's shortest block timed was its fastest in three
-# runs (2.60 s at 8 steps a read against 2.78 s at 32 and 128; 2.01
-# against 2.07 and 2.24 s; 1.93 against 2.09 and 2.06 s), while a 400x10
-# prox through all 7000 steps moved within 10% either way.
-DUAL_BLOCK = 8
-
-
 class SumOf2nd4thPowersDualProxMap(SumOf2nd4thPowers):
     """Same kernel; prox over {x >= 0, ||x|| <= radius} by a primal-dual
     extragradient inner solver (reference :639-698): up to ``num_iters``
     steps with a gap test after every one, and no exit on the first
     step's gap (the reference breaks at ``i > 0 and gap < tolerance``).
 
-    Eagerly, a test per step would be a host sync per step.  The loop runs
-    in blocks of ``DUAL_BLOCK`` steps instead: once the exit test has
-    fired the state freezes through ``torch.where`` (as the JAX
-    ``while_loop`` leaves it), and the host reads one flag per block, so
-    the result is the iterate at which the JAX loop stops.  Those reads
-    make the drivers run its chunks eagerly (``host_reads``)."""
-
-    host_reads = True
+    The loop is ``ops/dual_prox.py``: on the card one launch of the kernel
+    ``csrc/dual_prox.cu`` runs all of it with no host read (so a graph
+    chunk captures the prox); on the CPU the plain version runs it in
+    blocks of steps with one read of the exit flag per block."""
 
     def __init__(self, alpha=1.0, sigma=1.0, num_iters=7000, eta_base=1e-2,
                  tolerance=1e-4, radius=15.0):
@@ -340,66 +326,17 @@ class SumOf2nd4thPowersDualProxMap(SumOf2nd4thPowers):
         self.tolerance = float(tolerance)
         self.radius = float(radius)
 
-    def _project_X(self, X):
-        Xp = torch.clamp_min(X, 0.0)
-        norm = torch.sqrt(vdot(Xp, Xp))
-        return torch.where(norm <= self.radius, X, (self.radius / norm) * Xp)
-
     def div_prox_map(self, y, g, L):
         return self.dual_solve(y, g, L)[0]
 
     def dual_solve(self, y, g, L):
         """``(X, steps, reads)``: the prox, the extragradient steps the
-        loop took (a 0-d tensor) and the host reads of its exit flag."""
-        G = g + self.grad(y)
-        alpha, sigma, tol = self.alpha, self.sigma, self.tolerance
-
-        def f_func(X, lam):
-            n2 = vdot(X, X)
-            return (vdot(G, X - y)
-                    - L * (alpha / 4.0 * n2 * n2 + sigma / 2.0 * n2)
-                    - vdot(lam, X))
-
-        def grads(X, lam):
-            n2 = vdot(X, X)
-            return G - L * (alpha * n2 * X + sigma * X) - lam, -X
-
-        def go(it, gap):
-            return (it < self.num_iters) & ((it <= 1) | (gap >= tol))
-
-        def body(X, lam, it):
-            eta = self.eta_base / (it + 1.0)
-            gX, gl = grads(X, lam)
-            X_mid = self._project_X(X + eta * gX)
-            lam_mid = torch.clamp_min(lam - eta * gl, 0.0)
-            gXm, glm = grads(X_mid, lam_mid)
-            X_new = self._project_X(X + eta * gXm)
-            lam_new = torch.clamp_min(lam - eta * glm, 0.0)
-            X_cand = self._project_X(X_new + eta * gX)
-            lam_cand = torch.clamp_min(lam_new - eta * gl, 0.0)
-            gap = f_func(X_cand, lam_new) - f_func(X_new, lam_cand)
-            return X_new, lam_new, it + 1.0, gap
-
-        X, lam = torch.zeros_like(y), torch.zeros_like(y)
-        it = torch.zeros((), dtype=y.dtype, device=y.device)
-        gap = torch.full((), torch.inf, dtype=y.dtype, device=y.device)
-        ran = reads = 0
-        while ran < self.num_iters:
-            steps = min(DUAL_BLOCK, self.num_iters - ran)
-            for _ in range(steps):
-                live = go(it, gap)
-                X_n, lam_n, it_n, gap_n = body(X, lam, it)
-                X = torch.where(live, X_n, X)
-                lam = torch.where(live, lam_n, lam)
-                it = torch.where(live, it_n, it)
-                gap = torch.where(live, gap_n, gap)
-            ran += steps
-            if ran >= self.num_iters:
-                break
-            reads += 1
-            if not bool(go(it, gap)):
-                break
-        return X, it, reads
+        loop took (a 0-d tensor) and the host reads of its exit flag (0 on
+        the card)."""
+        return dual_prox(g + self.grad(y), y, L, alpha=self.alpha,
+                         sigma=self.sigma, num_iters=self.num_iters,
+                         eta_base=self.eta_base, tol=self.tolerance,
+                         radius=self.radius)
 
 
 class SumOf2nd4thPowersWithFrankWolfe(SumOf2nd4thPowers):

@@ -20,10 +20,13 @@ continuations, nodes per graph), and one ABPG_gain graph of 256
 iterations against one of 32 (nodes, capture seconds); then the four FW
 line-search drivers on phase 4i's illcond problem, eagerly first with the
 tally, then as graphs of 256 and of 32 iterations at the bodies that
-cover 90%, 99% and 99.9% of their iterations; last, ABPG_gain's first
-capture right after its 9000 eager iterations (where a capture once
-failed), retried with the collector off and with
-``capture_error_mode="thread_local"`` if it fails.
+cover 90%, 99% and 99.9% of their iterations; then the extras of phase
+4k (AIBM, UniversalGM and AdaptFGM on the Poisson problem, the
+primal-dual study with its line search) the same way (``--extras-only``
+runs this part alone); last, ABPG_gain's first capture right after its
+9000 eager iterations (where a capture once failed), retried with the
+collector off and with ``capture_error_mode="thread_local"`` if it
+fails.
 
 With ``--blocks-only`` it prints only the lazy-H kernel's block times
 (1000x5000, and K=3 of 1000x2000), the dense kernel's block times (B=1 and
@@ -68,7 +71,16 @@ and the script exits non-zero without the result line:
    moves, and random inputs at n = 1000, 10000, 100000: the launch plan,
    ms per call by events, the kernel's device time in a trace, the
    wrapper's host cost over 1000 unsynchronised calls and thread 0 of CTA
-   0's clocks per stage of a pass);
+   0's clocks per stage of a pass); the noise stream's kernel
+   (``csrc/threefry.cu``: its split entry over 3000 links of the chain,
+   keys and uniforms bit for bit, its draw entry at 400x10, 200x20 and
+   100001, bits and uniforms bit for bit and normals within 1e-13, each
+   entry's time by events beside the plain chain's on the card); the dual
+   prox's kernel (``csrc/dual_prox.cu``: the primal-dual study's 400x10
+   prox of up to 7000 steps, the same steps and X within 1e-12 of the
+   plain loop's largest entry, its time by events and the plain loop's,
+   then a cluster of CTAs at 400x100 and the arrays in global memory at
+   1000x1000);
 4. the paths, each with its kernel's launch count set to 0 just before it
    and read just after:
    a. the dense sweep: ``dopt_fw_batch(precision="pallas")`` on K=32 of
@@ -149,9 +161,9 @@ and the script exits non-zero without the result line:
       ``examples/ex_fw_rs.py`` panels (500 iterations) and
       ``FW_alg_descent_step`` on SymNMF n=200, r=20 with both kernels
       (``examples/ex_params_free_symnmf.py``), each against the CPU on the
-      same arrays (rtol 1e-9); and ``examples/ex_fw_rs.py`` and
-      ``examples/ex_params_free_symnmf.py`` run with their import changed
-      to the port's (``examples/ex_fw_l0l1.py`` is left out: it imports
+      same arrays (rtol 1e-9); and ``examples/ex_fw_rs.py`` (at 100
+      iterations) and ``examples/ex_params_free_symnmf.py`` run with their
+      import changed to the port's (``examples/ex_fw_l0l1.py`` is left out: it imports
       JAX for its PRNG key, and this script runs without JAX);
    j. "auto": the engine it picks for each D-opt shape this script solves,
       and the walls that set its rule below the lazy size (one warm
@@ -160,24 +172,33 @@ and the script exits non-zero without the result line:
       fastest), then a 30x1000 solve and the K=32 30x1000 sweep under
       "auto", which must run the dense kernel and certify;
    k. the inexact-oracle and constrained drivers at the examples' sizes,
-      where only kernel 5 may launch: AIBM (noiseless and with noise
-      1e-6), AdaptFGM and UniversalGM on the 2000x1000 Poisson problem of
+      each as graph chunks (one capture at the cold run, none at the warm
+      one) against ``driver.eager_chunks``, every row and the iterate bit
+      for bit (or within 1e-13 relative where cuBLAS took another
+      algorithm under capture, then said), with the counts of kernel 5,
+      of the threefry kernel's two entries and of the dual prox kernel set
+      to 0 just before the phase and read just after (no D-opt kernel may
+      launch): AIBM (noiseless and with noise 1e-6), AdaptFGM and
+      UniversalGM on the 2000x1000 Poisson problem of
       ``examples/ex_aibm_poisson.py`` (seed 1, gamma 2, 500 iterations,
       ``BurgEntropySimplex(eps=1e-7, use_pallas=True)``: kernel 5's
-      launches, the first 100 rows of F against the port on the CPU at
-      rtol 1e-8), the three on the synthetic 700x2000 SVM ball with
-      PolyDiv (100 iterations; 200 before phases l-n were added), the
-      primal-dual study of
-      ``examples/ex_primal_dual.py`` (n=400, r=10, 100 iterations, without
-      and with the line search, against the CPU; its wall by the inner
-      ascent's block length), UniversalGM through the FW-as-prox adapter
-      on the noisy SymNMF of ``examples/ex_universal_fw.py`` (noise 0.1
-      and 10: the same seed twice bit for bit, the noise reaching the
-      run), one ``SumOf2nd4thPowersDualProxMap.div_prox_map`` at 400x10
-      (steps, blocks read, time); per driver the warm
-      wall, host syncs and device operations per iteration and the device
-      idle share of a traced run; and the four examples' ``start()`` with
-      their import changed to the port's;
+      launches inside each warm graph run at least its rows, the first 30
+      rows of F against the port on the CPU at rtol 1e-8), the three on
+      the synthetic 700x2000 SVM ball with PolyDiv (100 iterations), the
+      primal-dual study of ``examples/ex_primal_dual.py`` (n=400, r=10,
+      100 iterations, without and with the line search, against the CPU;
+      then 8 iterations with ``SumOf2nd4thPowersDualProxMap`` as h, its
+      kernel launched inside the graph), UniversalGM through the
+      FW-as-prox adapter on the noisy SymNMF of
+      ``examples/ex_universal_fw.py`` (noise 0.1 and 10, the noise
+      reaching the run), and a stochastic SymNMF 200x20 (noise 0.05)
+      under ABPG_gain and FW_alg_descent_step (200 iterations; the
+      threefry kernel's launches inside the graphs); per run the warm
+      wall against the eager one, host syncs per solve, continuations,
+      nodes per graph, capture seconds, pool MiB and the device idle share
+      of a traced run (the SVM ball's not traced); and the four examples'
+      ``start()`` with their import changed to the port's (ex_aibm_svm's
+      eagerly);
    l. the fast_gram paths, which launch none of the kernels (their counts
       go to 0 after phase 4e's route is measured, and must stay 0):
       ``ABPG_gain(gamma=2, 9000 iterations, fast_gram=True)`` on
@@ -310,6 +331,9 @@ LMO_ITERS = 200
 A9A_ROWS, A9A_FEATURES, A9A_NNZ, A9A_POSITIVE = 32561, 123, 14, 0.24
 A9A_SEED, A9A_EXAMPLE_SEED, A9A_RADIUS, A9A_ITERS = 9, 2025, 250.0, 600
 FW_RS_ITERS, FW_SYM_N, FW_SYM_R, FW_SYM_ITERS = 500, 200, 20, 600
+# examples/ex_fw_rs.py's start() at FW_RS_START_ITERS iterations (500, its
+# default, until it was cut for the script's time: 105 s of phase 4i)
+FW_RS_START_ITERS = 100
 # the single-solve shapes whose walls on the three engines set "auto"
 AUTO_SHAPES = ((30, 1000), (100, 1000), (200, 1000))
 # the [extras] phase, at the examples' own sizes: examples/ex_aibm_poisson.py
@@ -317,17 +341,18 @@ AUTO_SHAPES = ((30, 1000), (100, 1000), (200, 1000))
 # EXP_ITERS iterations (500; 1000 until the graph phase 4o came, for the
 # script's time), its first EX_HELD_ROWS rows held against the port on the
 # CPU at EX_RTOL, the error over EX_CPU_ROWS reported beside the row where
-# a 1e-14 relative change of every prox multiplier moves the CPU's own run
-# past EX_RTOL), examples/ex_aibm_svm.py (the synthetic 700x2000 SVM
-# ball), examples/ex_primal_dual.py's figure (n=400, r=10) and
-# examples/ex_universal_fw.py (n=400, r=1, noise 0.1 and 10), EX_ITERS
-# iterations each (100; 200 until the fast_gram, sharding and examples
-# phases came, for the script's time); the costs over EX_COST_ITERS (40, a
-# quarter of it for the SVM ball; 100 and 25 until the graph phase 4o came,
-# for the script's time: a profiler's trace of these costs is long)
+# the two part past EX_RTOL), examples/ex_aibm_svm.py (the synthetic
+# 700x2000 SVM ball), examples/ex_primal_dual.py's figure (n=400, r=10;
+# with the dual prox as h over PD_DUAL_ITERS) and examples/ex_universal_fw.py
+# (n=400, r=1, noise 0.1 and 10), EX_ITERS iterations each (100; 200 until
+# the fast_gram, sharding and examples phases came, for the script's
+# time); a stochastic SymNMF 200x20 under ABPG_gain and
+# FW_alg_descent_step over STOCH_ITERS; each as graphs against
+# eager_chunks, the idle share over a traced EX_COST_ITERS (40, a quarter
+# of it for the SVM ball)
 EXP_M, EXP_N, EXP_ITERS, EXP_GAMMA = 2000, 1000, 500, 2.0
 EX_ITERS, EX_CPU_ROWS, EX_HELD_ROWS, EX_RTOL = 100, 100, 30, 1e-8
-EX_COST_ITERS = 40
+EX_COST_ITERS, PD_DUAL_ITERS, STOCH_ITERS = 40, 8, 200
 PD_N, PD_R, UFW_N, UFW_R, UFW_NOISES = 400, 10, 400, 1, (0.1, 10.0)
 # phase 4l: the fast_gram paths (ABPG_gain at GAIN_M x GAIN_N for
 # GAIN_ITERS; its per-iteration costs over two windows of FG_COST_ITERS, 50
@@ -341,8 +366,6 @@ SH_GAIN_ITERS, SH_FW_ITERS = 100, 500
 # phase 4n: examples/ex_Dopt_sweep.py's start_full and ex_Poisson_KL.py's
 # runs, cut for the time
 SWEEP_K, SWEEP_ITERS, EXAMPLE_ITERS = 1, 150, 1000
-# the block lengths of the primal-dual ascent timed for h_oracles.DUAL_BLOCK
-DUAL_BLOCKS = (8, 32, 128)
 # kernel vs plain version on the card, over one 256-iteration block: x, w
 # and C to rtol 1e-11 (each array's max-abs scales the atol, for entries
 # that cancel to near zero); SP, SN, tau, tau (w_v - 1) to atol 1e-12.
@@ -1310,6 +1333,142 @@ def compare_simplex(sm, gg, label):
     return err, ms, plain_ms, bound_ms, bound_by
 
 
+
+# ---- the noise stream's and the dual prox's kernels ----------------------------
+
+# the chain entries held against the plain chain (bit for bit), the draws'
+# shapes (the primal-dual study's 400x10 and the SymNMF factors) and the
+# normals' bar: the card's erfinv against torch's on the CPU
+THREEFRY_LINKS, THREEFRY_SHAPES, NORMAL_RTOL = 3000, ((400, 10), (200, 20),
+                                                      (100001,)), 1e-13
+
+
+def threefry_bound(n):
+    """Bound of one draw of n normals: the key read once, n float64
+    written once; the normal map's FP64 operations (its multiply and add,
+    erfinv's ~40, the scale: ~45 an element); the hash's ~100 integer
+    operations an element have no rate in the table and are not counted."""
+    return bound(16 + 8 * n, 45 * n)
+
+
+def compare_threefry(dev):
+    """Kernel ``csrc/threefry.cu`` against ``_rng``'s plain chain: the split
+    entry over THREEFRY_LINKS links (next key, draw key and uniform bit for
+    bit), the draw entry at THREEFRY_SHAPES (bits and uniforms bit for bit,
+    normals within NORMAL_RTOL); the ms per call of each entry by events
+    (the split, and a draw at 400x10), the plain chain's on the card, and
+    the bounds.  Returns ``(split record, draw record)``, each ``(err, ms,
+    plain_ms, bound_ms, bound_by)``."""
+    from accbpg_and_fw_tpu_torch import _rng
+
+    kc, kp = _rng.key(2**40 + 7, dev), _rng.key(2**40 + 7)
+    for _ in range(THREEFRY_LINKS):
+        nc, sc, uc = _rng.split_uniform(kc)
+        np_, sp, up = _rng.split_uniform(kp)
+        if not (torch.equal(nc.cpu(), np_) and torch.equal(sc.cpu(), sp)
+                and torch.equal(uc.cpu(), up)):
+            raise AssertionError("threefry split differs from the plain "
+                                 "chain")
+        kc, kp = nc, np_
+    errs = []
+    for shape in THREEFRY_SHAPES:
+        hc, lc = _rng.bits(sc, shape)
+        hp, lp = _rng.bits(sp, shape)
+        uc = _rng._draw(sc, shape, "uniform")
+        if not (torch.equal(hc.cpu(), hp) and torch.equal(lc.cpu(), lp)
+                and torch.equal(uc.cpu(), _rng._draw(sp, shape, "uniform"))):
+            raise AssertionError(f"threefry draw {shape} differs in its bits")
+        zc, zp = _rng.normal(sc, shape).cpu(), _rng.normal(sp, shape)
+        rel = float(((zc - zp).abs() / zp.abs()).max())
+        if not rel <= NORMAL_RTOL:
+            raise AssertionError(f"threefry normals {shape}: {rel:.3e} > "
+                                 f"{NORMAL_RTOL}")
+        errs.append(float((zc - zp).abs().max()))
+    kd = _rng.key(1, dev)
+    split_ms = time_launches(lambda: _rng.split_uniform(kd), 2000)
+    draw_ms = time_launches(lambda: _rng.normal(kd, (400, 10)), 2000)
+
+    def plain(fn):
+        # the plain chain's torch operations on the card's tensors
+        fn()
+        return time_launches(fn, 50)
+
+    split_plain = plain(lambda: _rng.split_reference(kd))
+    draw_plain = plain(lambda: _rng._draw_reference(kd, (400, 10), "normal"))
+    split_rec = (0.0, split_ms, split_plain) + bound(16 + 32 + 8, 0)
+    draw_rec = (max(errs), draw_ms, draw_plain) + threefry_bound(4000)
+    print(f"[threefry] split+uniform over {THREEFRY_LINKS} links bit for "
+          f"bit with the plain chain; draws {list(THREEFRY_SHAPES)}: bits "
+          f"and uniforms bit for bit, normals within {max(errs):.1e} "
+          f"(bar {NORMAL_RTOL} relative); split {split_ms * 1e3:.2f} us a "
+          f"call by events (plain chain on the card {split_plain * 1e3:.1f} "
+          f"us), a 400x10 normal draw {draw_ms * 1e3:.2f} us (plain "
+          f"{draw_plain * 1e3:.1f} us); bounds {split_rec[3] * 1e3:.5f} / "
+          f"{draw_rec[3] * 1e3:.5f} us", flush=True)
+    return split_rec, draw_rec
+
+
+def dual_prox_bound(n, steps):
+    """Bound of one dual prox: G and y read once, X and the step count
+    written once; ~60 FP64 operations an element a step (the three
+    gradients, three projections, four dots and the updates)."""
+    return bound(8 * (3 * n + 1), 60 * n * steps)
+
+
+def compare_dual_prox(port, dev):
+    """Kernel ``csrc/dual_prox.cu`` against the plain loop
+    (``ops/dual_prox.py::dual_prox_reference``, on the card's tensors): the
+    primal-dual study's 400x10 prox (its start and gradient, the kernel's
+    alpha and sigma, num_iters 7000): the same step count, X within 1e-12
+    of the plain loop's largest entry, the kernel's ms by events and the
+    plain loop's wall; then two shapes the study does not reach, through
+    a cluster of CTAs (400x100) and with the arrays in global memory
+    (1000x1000, 60 steps), against the plain loop the same way.  Returns
+    ``(err, ms, plain_ms, bound_ms, bound_by)`` of the 400x10 prox."""
+    from accbpg_and_fw_tpu_torch.ops import dual_prox as dp
+
+    f, _, h, _, X0 = pd_instance(port, dev)
+    hd = port.SumOf2nd4thPowersDualProxMap(alpha=h.alpha, sigma=h.sigma)
+    G = f.grad(X0) + hd.grad(X0)
+    kw = dict(alpha=hd.alpha, sigma=hd.sigma, num_iters=hd.num_iters,
+              eta_base=hd.eta_base, tol=hd.tolerance, radius=hd.radius)
+
+    def check(label, G, y, kw):
+        X, steps, reads = dp.dual_prox(G, y, 1.0, **kw)
+        (Xp, steps_p, _), plain_ms = timed_plain(
+            lambda: dp.dual_prox_reference(G, y, 1.0, **kw))
+        err = float((X - Xp).abs().max() / Xp.abs().max())
+        if not (err <= 1e-12 and float(steps) == float(steps_p)
+                and reads == 0):
+            raise AssertionError(f"dual prox {label}: {err:.3e}, steps "
+                                 f"{float(steps)} / {float(steps_p)}")
+        return X, float(steps), err, plain_ms
+
+    X, steps, err, plain_ms = check("400x10", G, X0, kw)
+    ms = time_launches(lambda: dp.dual_prox(G, X0, 1.0, **kw), 20)
+    plan = dp.device_plan(X0.numel(), torch.cuda.current_device())
+    rec = (err, ms, plain_ms) + dual_prox_bound(X0.numel(), steps)
+    more = []
+    for shape, iters in (((400, 100), 400), ((1000, 1000), 60)):
+        rng = np.random.default_rng(3)
+        y = torch.tensor(rng.random(shape), device=dev)
+        g = torch.tensor(rng.standard_normal(shape), device=dev)
+        kw2 = dict(kw, num_iters=iters, tol=1e-6)
+        _, s2, e2, p2 = check(f"{shape}", g + hd.grad(y), y, kw2)
+        pl = dp.device_plan(y.numel(), torch.cuda.current_device())
+        more.append(f"{shape[0]}x{shape[1]} ({pl.cluster} CTAs, "
+                    f"{'shared' if pl.resident else 'global'} memory) "
+                    f"{s2:.0f} steps within {e2:.1e}")
+    print(f"[dual prox] {X0.shape[0]}x{X0.shape[1]}: {steps:.0f} steps in "
+          f"{ms:.3f} ms by events ({1e3 * ms / steps:.2f} us a step; plan "
+          f"{plan.cluster} CTA x {plan.threads} threads, "
+          f"{'shared' if plan.resident else 'global'} memory, registers "
+          f"{dp.kernel_info(torch.cuda.current_device())[0]}), the plain "
+          f"loop {plain_ms:.1f} ms; X within {err:.1e} of its largest "
+          f"entry; bound {rec[3]:.4f} ms by {rec[4]}; " + "; ".join(more),
+          flush=True)
+    return rec
+
 def first_prox_input(port, m, n):
     """gg of the first prox of BPG (L = 1) from the uniform start on the
     seed-10 m x n design: (g + 1/x0) / 1."""
@@ -1471,12 +1630,73 @@ def bodies_study(iters=2000):
     eager run."""
     from accbpg_and_fw_tpu_torch.ops import _build
 
-    _build.build_all(["simplex_mult"])
+    _build.build_all(["simplex_mult", "threefry", "dual_prox"])
     print(f"[bodies] torch {torch.__version__}; {card_line()}", flush=True)
-    bregman_bodies(iters)
-    fw_bodies()
-    capture_after_eager()
+    if "--extras-only" not in sys.argv:
+        bregman_bodies(iters)
+        fw_bodies()
+    extras_bodies()
+    if "--extras-only" not in sys.argv:
+        capture_after_eager()
     return 0
+
+
+def extras_bodies():
+    """The extras' part of ``--bodies``: each driver of phase 4k at its
+    size under ``eager_chunks`` with ``_loops.TALLY`` (the trials each line
+    search took, the steps of the primal-dual ascent), then as graphs of
+    extras.GRAPH_SPAN (PD_GRAPH_SPAN) iterations at the masked bodies that
+    cover 90%, 99% and 99.9% of its iterations: warm walls,
+    continuations, nodes per graph, capture seconds."""
+    import accbpg_and_fw_tpu_torch as port
+    from accbpg_and_fw_tpu_torch import _loops
+    from accbpg_and_fw_tpu_torch.algorithms import driver, extras
+
+    np.random.seed(1)
+    f, _, L, x0 = port.Poisson_regr_simplex_acc(EXP_M, EXP_N, noise=0.001,
+                                                device="cuda")
+    h = port.BurgEntropySimplex(eps=1e-7, use_pallas=True)
+    pd = pd_instance(port, "cuda")
+    runs = {
+        "AIBM": ("AIBM_BODIES", lambda: port.AIBM(
+            f, h, L, x0, gamma=EXP_GAMMA, maxitrs=EXP_ITERS, epsilon=1e-12,
+            verbose=False)),
+        "UniversalGM": ("UNIVERSAL_BODIES", lambda: port.UniversalGM(
+            f, h, L, x0, maxitrs=EXP_ITERS, epsilon=1e-12, verbose=False)),
+        "AdaptFGM": ("ADAPT_BODIES", lambda: port.AdaptFGM(
+            f, h, L, x0, maxitrs=EXP_ITERS, epsilon=1e-12, verbose=False)),
+        "primal-dual": ("PD_BODIES", lambda: port.
+                        PrimalDualSwitchingGradientMethod(
+                            pd[0], pd[2], pd[3], pd[1], pd[4], EX_ITERS,
+                            epsilon=1e-9, linesearch=True, verbose=False)),
+    }
+    for name, (attr, run) in runs.items():
+        _loops.TALLY[0] = {}
+        with driver.eager_chunks():
+            _, ms = timed_plain(run)
+        tally, _loops.TALLY[0] = _loops.TALLY[0], None
+        print(f"[bodies] {name} eager_chunks in {ms / 1e3:.3f} s; bodies "
+              f"taken per loop: " + "; ".join(
+                  f"{loop} {sorted(counts.items())}"
+                  for loop, counts in tally.items()), flush=True)
+        loop = next(k for k in tally if "trials" in k and "k=0" not in k)
+        chosen, parts = getattr(extras, attr), []
+        for bodies in quantile_bodies(tally[loop]):
+            setattr(extras, attr, bodies)
+            driver.clear_graph_cache()
+            before = dict(driver.GRAPH_STATS)
+            run()  # the capture
+            cont = (driver.GRAPH_STATS["continuations"]
+                    - before["continuations"])
+            entry = next(iter(driver._GRAPHS.values()))
+            _, ms = timed_plain(run)
+            parts.append(f"{bodies} bodies: {ms / 1e3:.3f} s warm, {cont} "
+                         f"continuations, {graph_nodes([entry])} nodes per "
+                         f"graph of {entry.span}, capture "
+                         f"{entry.capture_s:.2f} s")
+        setattr(extras, attr, chosen)
+        print(f"[bodies] {name} as graphs: " + "; ".join(parts)
+              + f" ({attr} = {chosen})", flush=True)
 
 
 def bregman_bodies(iters):
@@ -2126,8 +2346,8 @@ def fw_examples():
     with their import of the JAX package changed to the port's, and
     nothing else, on the card."""
     out = []
-    for name, call in (("ex_fw_rs", lambda m: m.start(maxitrs=FW_RS_ITERS,
-                                                      verbose=False)),
+    for name, call in (("ex_fw_rs", lambda m: m.start(
+            maxitrs=FW_RS_START_ITERS, verbose=False)),
                        ("ex_params_free_symnmf",
                         lambda m: m.start(verbose=False))):
         module = example_module(name)
@@ -2162,53 +2382,60 @@ def fw_paths(port, card, counters):
           f"launches on the FW paths: {launched}", flush=True)
 
 
-def extras_row(name, wall, F, cost, err=None, rows=None):
-    """One driver's part of an [extras] line."""
-    syncs, ops, idle, n = cost
-    ops_txt = (f"{ops / n:.1f} device ops per iteration (device idle "
-               f"{100 * idle:.1f}% of a traced run)" if ops else
-               "device ops not measured (no device events in the trace)")
-    held = "" if err is None else f", card vs CPU {err:.1e} over {rows} rows"
-    return (f"{name}: warm wall {wall:.3f} s, {len(F)} rows, F "
-            f"{F[0]:.6e} -> {F[-1]:.6e}, {syncs / n:.2f} syncs and "
-            f"{ops_txt}{held}")
+def extras_histories(label, res):
+    """The iterate and histories of a run, without its times: ``(F, gaps,
+    Ls)`` of the primal-dual driver, x and F of ``FW_alg_descent_step``
+    (``(x, F, T, G)``), x and all but the last (T) of the others."""
+    if label.startswith("primal-dual"):
+        return [np.asarray(a) for a in res]
+    hist = res[1:2] if label.endswith("descent_step") else res[1:-1]
+    return [res[0].cpu().numpy()] + [np.asarray(a) for a in hist]
 
 
-def timed(run):
-    """``run()`` twice: the first call, and the warm one timed; both must
-    give the same F bit for bit.  Returns (result, warm wall)."""
-    first = run()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    res = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    np.testing.assert_array_equal(np.asarray(res[1]), np.asarray(first[1]))
-    return res, wall
+def extras_same(label, got, ref):
+    """Every row of two runs bit for bit, or within 1e-13 relative where
+    cuBLAS took another algorithm under capture (then said)."""
+    pairs = list(zip(extras_histories(label, got),
+                     extras_histories(label, ref)))
+    if any(a.shape != b.shape for a, b in pairs):
+        raise AssertionError(f"{label}: graph and eager differ in rows")
+    if all(np.array_equal(a, b) for a, b in pairs):
+        return "all rows bit for bit"
+    rel = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+              for a, b in pairs)
+    if not rel <= 1e-13:
+        raise AssertionError(f"{label}: graph vs eager rel err {rel:.3e}")
+    return (f"all rows within {rel:.1e} relative (not bit for bit: cuBLAS "
+            "may pick another algorithm under capture)")
 
 
-def past_rtol(F, ref):
-    """The first row where F leaves ``ref`` by more than EX_RTOL (the rows
-    both have where it never does)."""
-    n = min(len(F), len(ref))
-    err = np.abs(np.asarray(F[:n]) - ref[:n]) / np.abs(ref[:n])
-    return int(np.argmax(err > EX_RTOL)) if np.any(err > EX_RTOL) else n
+def extras_graph(driver, label, run, trace_run=None):
+    """One extras driver as graph chunks (``fw_graph``: one capture at the
+    cold run, the warm run timed with its syncs) against ``eager_chunks``
+    (wall, syncs, every row bit for bit), with the device's idle share of
+    a traced ``trace_run()`` as graphs (None: not traced).  Returns the
+    warm result and the text."""
+    res, wall, text = fw_graph(driver, label, run)
+    with driver.eager_chunks():
+        eager, e_wall, e_syncs = synced(run)
+    agree = extras_same(label, res, eager)
+    idle = ("not traced" if trace_run is None else
+            f"{pct(idle_share(trace_run))} of a traced run")
+    return res, (f"{label}: graph {wall:.3f} s against eager_chunks "
+                 f"{e_wall:.3f} s ({e_wall / wall:.1f}x; eager {e_syncs} "
+                 f"host syncs), {text}, device idle {idle}; {agree}")
 
 
-def extras_poisson(port, sm, card):
+def extras_poisson(port, sm, driver, card):
     """Phase 4k: AIBM (noiseless and with noise 1e-6), AdaptFGM and
     UniversalGM on examples/ex_aibm_poisson.py's problem with the
-    multiplier kernel's h; returns kernel 5's launches in AIBM's run.
-
-    These accelerated runs double a last-bit difference about every
-    iteration from their tenth on, so the card (kernel 5, cuBLAS) and the
-    CPU (the plain multiplier, MKL) part ways before row 100 whatever the
-    code: the first EX_HELD_ROWS rows are held at EX_RTOL, and the line
-    reports, beside the card's error over EX_CPU_ROWS rows, the row where
-    the CPU's own run moves past EX_RTOL when every prox multiplier is
-    scaled by 1 + 1e-14."""
-    from accbpg_and_fw_tpu_torch.ops import h_oracles as ho
-
+    multiplier kernel's h, as graphs against eager_chunks; kernel 5's
+    launches in each warm graph run by the card's count (at least the
+    rows); the first EX_HELD_ROWS rows against the port on the CPU at
+    EX_RTOL (these accelerated runs double a last-bit difference about
+    every iteration from their tenth on, so the card and the CPU part
+    ways later whatever the code: the row where they do is reported).
+    Returns kernel 5's launches in AIBM's warm graph run."""
     np.random.seed(1)
     f, _, L, x0 = port.Poisson_regr_simplex_acc(EXP_M, EXP_N, noise=0.001,
                                                 device="cuda")
@@ -2228,41 +2455,34 @@ def extras_poisson(port, sm, card):
     }
     out, launches = [], {}
     for name, run in drivers.items():
-        before = sm.LAUNCHES
-        res = run(f, x0, EXP_ITERS)
-        torch.cuda.synchronize()
-        launches[name] = sm.LAUNCHES - before
-        res, wall = timed(lambda: run(f, x0, EXP_ITERS))
+        res, text = extras_graph(driver, name, lambda: run(f, x0, EXP_ITERS),
+                                 lambda: run(f, x0, EX_COST_ITERS))
+        before = sm.device_launches()
+        run(f, x0, EXP_ITERS)
+        launches[name] = sm.device_launches() - before
         F = np.asarray(res[1])
         if not (np.all(np.isfinite(F)) and F[-1] < F[0]
                 and launches[name] >= len(F)):
             raise AssertionError(f"{name}: F[0] {F[0]} F[-1] {F[-1]}, "
                                  f"{launches[name]} kernel 5 launches")
-        rows = min(EX_CPU_ROWS, len(F))
-        F_cpu = np.asarray(run(f_cpu, x0.cpu(), rows)[1])
+        F_cpu = np.asarray(run(f_cpu, x0.cpu(), EX_CPU_ROWS)[1])
         err = fw_against_cpu(name, F, F_cpu, rows=EX_HELD_ROWS, rtol=EX_RTOL)
-        real = ho.simplex_inv_multiplier_pallas
-        try:
-            ho.simplex_inv_multiplier_pallas = \
-                lambda gg: real(gg) * (1.0 + 1e-14)
-            moved = past_rtol(run(f_cpu, x0.cpu(), rows)[1], F_cpu)
-        finally:
-            ho.simplex_inv_multiplier_pallas = real
-        cost = fw_syncs_and_ops(lambda: run(f, x0, EX_COST_ITERS))
-        out.append(extras_row(name, wall, F, cost, err, EX_HELD_ROWS)
-                   + f" (first row past {EX_RTOL} of {rows}: "
-                   f"{past_rtol(F, F_cpu)}; the CPU with multipliers "
-                   f"1e-14 apart: {moved}), {launches[name]} kernel 5 "
-                   "launches")
+        out.append(f"{text}; {len(F)} rows, F {F[0]:.6e} -> {F[-1]:.6e}, "
+                   f"card vs CPU {err:.1e} over {EX_HELD_ROWS} rows (first "
+                   f"row past {EX_RTOL} of {len(F_cpu)}: "
+                   f"{past_rtol(F, F_cpu)}), {launches[name]} kernel 5 "
+                   "launches in the warm graph run")
     print(f"[extras] Poisson {EXP_M}x{EXP_N} (examples/ex_aibm_poisson.py, "
           f"gamma {EXP_GAMMA}, {EXP_ITERS} iterations, BurgEntropySimplex("
           f"use_pallas=True); {card}): " + "; ".join(out), flush=True)
     return launches["AIBM"]
 
 
-def extras_svm(port):
+def extras_svm(port, driver):
     """Phase 4k: the three inexact drivers with PolyDiv on the synthetic
-    SVM ball of examples/ex_aibm_svm.py."""
+    SVM ball of examples/ex_aibm_svm.py, as graphs against eager.  Not
+    traced: a span of these graphs holds 195k-648k nodes, each a profiler
+    event, and the Poisson runs trace the same drivers."""
     np.random.seed(11)
     f, (poly_h, _), L, x0, _ = port.svm_digits_ds_divs_ball(lamda=0.001,
                                                             device="cuda")
@@ -2279,7 +2499,8 @@ def extras_svm(port):
     }
     out = []
     for name, run in drivers.items():
-        res, wall = timed(lambda: run(f, x0, EX_ITERS))
+        res, text = extras_graph(driver, f"SVM {name}",
+                                 lambda: run(f, x0, EX_ITERS))
         F = np.asarray(res[1])
         if not np.all(np.isfinite(F)):
             raise AssertionError(f"SVM {name}: F is not finite")
@@ -2288,10 +2509,8 @@ def extras_svm(port):
         # the k=0 row and the first step are held, the rest reported
         F_cpu = np.asarray(run(f_cpu, x0.cpu(), EX_HELD_ROWS)[1])
         err = fw_against_cpu(f"SVM {name}", F, F_cpu, rows=2, rtol=EX_RTOL)
-        cost = fw_syncs_and_ops(lambda: run(f, x0, EX_COST_ITERS // 4))
-        out.append(extras_row(name, wall, F, cost, err, 2)
-                   + f" (first row past {EX_RTOL} of {len(F_cpu)}: "
-                   f"{past_rtol(F, F_cpu)})")
+        out.append(f"{text}; card vs CPU {err:.1e} over 2 rows (first row "
+                   f"past {EX_RTOL} of {len(F_cpu)}: {past_rtol(F, F_cpu)})")
     print(f"[extras] SVM ball {f.A.shape[0]}x{f.A.shape[1]} PolyDiv "
           f"(examples/ex_aibm_svm.py, synthetic data, lamda 0.001, "
           f"{EX_ITERS} iterations): " + "; ".join(out), flush=True)
@@ -2306,22 +2525,26 @@ def pd_instance(port, device):
                                                      device=device)
 
 
-def extras_primal_dual(port):
+def extras_primal_dual(port, driver):
     """Phase 4k: the primal-dual study, without and with the line search,
-    against the CPU on the same arrays; the inner ascent's wall at each of
-    DUAL_BLOCKS."""
-    from accbpg_and_fw_tpu_torch.algorithms import extras
+    as graphs against eager and against the CPU on the same arrays; then
+    once with the dual prox as h (its kernel inside the graph).  Returns
+    the dual prox kernel's launches in that run's warm graph run."""
+    from accbpg_and_fw_tpu_torch.ops import dual_prox as dp
 
     prob, prob_cpu = pd_instance(port, "cuda"), pd_instance(port, "cpu")
 
-    def run(p, ls, it=EX_ITERS):
-        f, g, h, L, X0 = p
+    def run(p, ls, it=EX_ITERS, h=None):
+        f, g, h0, L, X0 = p
         return port.PrimalDualSwitchingGradientMethod(
-            f, h, L, g, X0, it, epsilon=1e-9, linesearch=ls, verbose=False)
+            f, h or h0, L, g, X0, it, epsilon=1e-9, linesearch=ls,
+            verbose=False)
 
     out = []
     for ls in (False, True):
-        res, wall = timed(lambda: run(prob, ls))
+        res, text = extras_graph(driver, f"primal-dual linesearch={ls}",
+                                 lambda: run(prob, ls),
+                                 lambda: run(prob, ls, EX_COST_ITERS // 2))
         cpu = run(prob_cpu, ls)
         F, gaps = np.asarray(res[0]), np.asarray(res[1])
         if not np.all(np.isfinite(gaps)):
@@ -2331,33 +2554,35 @@ def extras_primal_dual(port):
         # productive counts and stop rows reported
         err = fw_against_cpu(f"primal-dual ls={ls}", gaps, cpu[1], rows=5,
                              rtol=EX_RTOL)
-        cost = fw_syncs_and_ops(lambda: run(prob, ls, EX_COST_ITERS // 2)[1:])
-        out.append(extras_row(f"linesearch={ls}", wall, gaps, cost, err, 5)
-                   + f", {len(F)} productive of {len(gaps)} rows (CPU "
-                   f"{len(cpu[0])} of {len(cpu[1])}; first gap row past "
-                   f"{EX_RTOL}: {past_rtol(gaps, cpu[1])})")
-    default, blocks = extras.DUAL_BLOCK, []
-    try:
-        for block in DUAL_BLOCKS:
-            extras.DUAL_BLOCK = block
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run(prob, False, EX_COST_ITERS // 2)
-            torch.cuda.synchronize()
-            blocks.append(f"{block}: {time.perf_counter() - t:.3f} s")
-    finally:
-        extras.DUAL_BLOCK = default
+        out.append(f"{text}; {len(F)} productive of {len(gaps)} rows (CPU "
+                   f"{len(cpu[0])} of {len(cpu[1])}), card vs CPU {err:.1e} "
+                   f"over 5 gaps (first gap row past {EX_RTOL}: "
+                   f"{past_rtol(gaps, cpu[1])})")
+    h = prob[2]
+    hd = port.SumOf2nd4thPowersDualProxMap(alpha=h.alpha, sigma=h.sigma)
+    res, text = extras_graph(
+        driver, "primal-dual with the dual prox",
+        lambda: run(prob, True, PD_DUAL_ITERS, hd),
+        lambda: run(prob, True, PD_DUAL_ITERS // 2, hd))
+    before = dp.device_launches()
+    run(prob, True, PD_DUAL_ITERS, hd)
+    dual_launches = dp.device_launches() - before
+    if not (np.all(np.isfinite(res[1])) and dual_launches >= len(res[1])):
+        raise AssertionError(f"primal-dual with the dual prox: "
+                             f"{dual_launches} kernel launches, gaps "
+                             f"{res[1]}")
+    out.append(f"{text}; {dual_launches} dual prox launches in the warm "
+               f"graph run of {len(res[1])} rows")
     print(f"[extras] primal-dual n={PD_N} r={PD_R} (examples/ex_primal_dual"
-          f".py figure, {EX_ITERS} iterations, epsilon 1e-9; F is the gap "
-          f"history): " + "; ".join(out) + f"; {EX_COST_ITERS // 2} "
-          f"iterations by the ascent's block length: " + ", ".join(blocks),
-          flush=True)
+          f".py figure, {EX_ITERS} iterations, epsilon 1e-9; the dual prox "
+          f"run {PD_DUAL_ITERS}): " + "; ".join(out), flush=True)
+    return dual_launches
 
 
-def extras_universal_fw(port):
+def extras_universal_fw(port, driver):
     """Phase 4k: UniversalGM through the FW-as-prox adapter on the noisy
-    SymNMF of examples/ex_universal_fw.py: the same seed twice gives the
-    same F bit for bit, and the noise reaches the run."""
+    SymNMF of examples/ex_universal_fw.py, as graphs against eager (the
+    noise key chain inside the graph); the noise reaches the run."""
     rng = np.random.default_rng(0)
     xv = rng.random(UFW_N)
     M_ = np.outer(xv, xv)
@@ -2374,7 +2599,8 @@ def extras_universal_fw(port):
                                     noise_level=noise_level, epsilon=1e-9,
                                     verbose=False, seed=0)
 
-        res, wall = timed(run)  # the same seed twice: bit-equal F
+        res, text = extras_graph(driver, f"UniversalGM-FW noise {noise}",
+                                 run, lambda: run(it=EX_COST_ITERS))
         F = np.asarray(res[1])
         clean = np.asarray(run(0)[1])
         if not np.all(np.isfinite(F)) or (len(F) == len(clean)
@@ -2382,42 +2608,64 @@ def extras_universal_fw(port):
             raise AssertionError(f"UniversalGM-FW noise {noise}: finite "
                                  f"{np.all(np.isfinite(F))}, same as the "
                                  "noiseless run")
-        cost = fw_syncs_and_ops(lambda: run(it=EX_COST_ITERS))
-        out.append(extras_row(f"noise {noise}", wall, F, cost)
-                   + f" (noiseless F[-1] {clean[-1]:.6e})")
+        out.append(f"{text}; F {F[0]:.6e} -> {F[-1]:.6e} (noiseless F[-1] "
+                   f"{clean[-1]:.6e})")
     print(f"[extras] UniversalGM-FW SymNMF n={UFW_N} r={UFW_R} (examples/"
-          f"ex_universal_fw.py, {EX_ITERS} iterations, seed 0 twice, "
-          f"bit-equal): " + "; ".join(out), flush=True)
+          f"ex_universal_fw.py, {EX_ITERS} iterations, seed 0): "
+          + "; ".join(out), flush=True)
 
 
-def extras_dual_prox(port):
-    """Phase 4k: one SumOf2nd4thPowersDualProxMap.div_prox_map at 400x10
-    (the primal-dual study's start and gradient, its kernel's alpha and
-    sigma; the primal-dual runs before it warmed every operation it
-    issues): the steps, the blocks read, the time; the CPU's iterate
-    matches to 1e-12 of its largest entry."""
-    f, _, h, _, X0 = pd_instance(port, "cuda")
-    hd = port.SumOf2nd4thPowersDualProxMap(alpha=h.alpha, sigma=h.sigma)
-    g = f.grad(X0)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    X, steps, reads = hd.dual_solve(X0, g, 1.0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    X_cpu = hd.div_prox_map(X0.cpu(), g.cpu(), 1.0)
-    err = float(torch.max(torch.abs(X.cpu() - X_cpu))
-                / torch.max(torch.abs(X_cpu)))
-    if not err <= 1e-12:
-        raise AssertionError(f"DualProxMap card vs CPU {err:.3e}")
-    print(f"[extras] SumOf2nd4thPowersDualProxMap.div_prox_map {PD_N}x{PD_R} "
-          f"(num_iters {hd.num_iters}, tolerance {hd.tolerance}): "
-          f"{int(steps)} steps, {reads} reads, {wall:.3f} s; card vs CPU "
-          f"{err:.1e}", flush=True)
+def stochastic_graphs(port, driver):
+    """Phase 4k: a stochastic f-oracle (its gradients draw normals from the
+    device key chain) under ABPG_gain and FW_alg_descent_step on SymNMF
+    200x20 at noise 0.05 (STOCH_ITERS iterations), as graphs against
+    eager, every row bit for bit; the threefry kernel's launches in the
+    warm graph runs by the card's count."""
+    from accbpg_and_fw_tpu_torch import _rng
+
+    M_ = symnmf_matrix(200)
+    np.random.seed(3)
+    f, (h, _), L, X0 = port.FrobeniusSymLossResMeasEx(M_, 20, noise=0.05,
+                                                      device="cuda")
+    # one LMO for every run: a graph is cached on the closure it captured
+    lmo = port.lmo_linf_ball(1.0, 1.0)
+    runs = {
+        "ABPG_gain": lambda it=STOCH_ITERS: port.ABPG_gain(
+            f, h, L, X0, 2.0, it, verbose=False, seed=5),
+        "FW_alg_descent_step": lambda it=STOCH_ITERS:
+            port.FW_alg_descent_step(f, h, X0, it, lmo, verbose=False,
+                                     seed=5),
+    }
+    out = []
+    for name, run in runs.items():
+        res, text = extras_graph(driver, f"stochastic {name}", run,
+                                 lambda: run(EX_COST_ITERS))
+        before = _rng.device_launches()
+        run()
+        drawn = _rng.device_launches() - before
+        F = np.asarray(res[1])
+        if not (np.all(np.isfinite(F)) and drawn >= len(F)):
+            raise AssertionError(f"stochastic {name}: {drawn} threefry "
+                                 "launches")
+        out.append(f"{text}; {drawn} threefry launches in the warm graph "
+                   "run")
+    print(f"[extras] stochastic SymNMF 200x20 noise 0.05 ({STOCH_ITERS} "
+          f"iterations, seed 5): " + "; ".join(out), flush=True)
 
 
-def extras_examples():
+def past_rtol(F, ref):
+    """The first row where F leaves ``ref`` by more than EX_RTOL (the rows
+    both have where it never does)."""
+    n = min(len(F), len(ref))
+    err = np.abs(np.asarray(F[:n]) - ref[:n]) / np.abs(ref[:n])
+    return int(np.argmax(err > EX_RTOL)) if np.any(err > EX_RTOL) else n
+
+
+def extras_examples(driver):
     """Phase 4k: the four examples' start() with their import changed to
-    the port's, at small arguments, on the card."""
+    the port's, at small arguments, on the card; ex_aibm_svm's eagerly:
+    as graphs it took 26 s, recapturing the SVM ball's PolyDiv graphs (22
+    s of captures in the phase's own SVM runs), and eagerly 3.4 s."""
     calls = {
         "ex_aibm_poisson": lambda m: [F for c in m.start(
             m=200, n=100, maxitrs=100, gammas=(2.0,),
@@ -2433,41 +2681,67 @@ def extras_examples():
     for name, call in calls.items():
         module = example_module(name)
         t = time.perf_counter()
-        curves = call(module)
+        if name == "ex_aibm_svm":
+            with driver.eager_chunks():
+                curves = call(module)
+        else:
+            curves = call(module)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         if not all(np.all(np.isfinite(np.asarray(F))) for F in curves):
             raise AssertionError(f"{name}: a curve is not finite")
         out.append(f"{name}.start() {wall:.2f} s, {len(curves)} finite "
                    "curves")
-    print("[extras] examples with the import changed, on cuda: "
-          + "; ".join(out), flush=True)
+    print("[extras] examples with the import changed, on cuda (ex_aibm_svm "
+          "eagerly): " + "; ".join(out), flush=True)
 
 
 def extras_paths(port, card, counters, sm):
-    """Phase 4k: the inexact-oracle and constrained drivers; of the
-    kernels, only kernel 5 (the Poisson runs' h) may launch.  Returns
-    kernel 5's launches in AIBM's run."""
+    """Phase 4k: the inexact-oracle and constrained drivers as graph chunks
+    against eager_chunks, the stochastic Bregman and FW runs, and the
+    examples; of the D-opt kernels none may launch.  Every count is set to
+    0 just before the phase and read just after.  Returns the launches of
+    kernel 5, of the threefry kernel's two entries and of the dual prox
+    kernel, by the card's counts."""
+    from accbpg_and_fw_tpu_torch import _rng
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+    from accbpg_and_fw_tpu_torch.ops import dual_prox as dp
+
     for mod, name in counters:
         setattr(mod, name, 0)
+    _rng.reset_device_launches()
+    dp.reset_device_launches()
     t = time.perf_counter()
-    aibm = extras_poisson(port, sm, card)
-    extras_svm(port)
-    extras_primal_dual(port)
-    extras_universal_fw(port)
-    extras_dual_prox(port)
-    extras_examples()
+    parts = []
+
+    def part(label, fn, *args):
+        t_part = time.perf_counter()
+        out = fn(*args)
+        parts.append(f"{label} {time.perf_counter() - t_part:.1f} s")
+        return out
+
+    aibm = part("Poisson", extras_poisson, port, sm, driver, card)
+    part("SVM", extras_svm, port, driver)
+    part("primal-dual", extras_primal_dual, port, driver)
+    part("UniversalGM-FW", extras_universal_fw, port, driver)
+    part("stochastic", stochastic_graphs, port, driver)
+    part("examples", extras_examples, driver)
     launched = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}":
                 getattr(mod, name) for mod, name in counters}
+    drawn = {entry: _rng.device_launches(entry) for entry in _rng.ENTRIES}
+    dual = dp.device_launches()
     if any(v for k, v in launched.items() if not k.startswith("simplex")):
         raise AssertionError(f"the extras launched a D-opt kernel: "
                              f"{launched}")
-    if launched["simplex.LAUNCHES"] < aibm or aibm < 1:
-        raise AssertionError(f"kernel 5 launches: {launched}, AIBM {aibm}")
-    print(f"[extras] phase 4k in {time.perf_counter() - t:.1f} s; kernel "
-          f"launches: {launched}, of which {aibm} in AIBM's Poisson run",
-          flush=True)
-    return aibm
+    if aibm < 1 or not all(drawn.values()) or dual < 1:
+        raise AssertionError(f"kernel launches: {launched}, AIBM {aibm}, "
+                             f"threefry {drawn}, dual prox {dual}")
+    print(f"[extras] phase 4k in {time.perf_counter() - t:.1f} s ("
+          f"{', '.join(parts)}); kernel "
+          f"launches by the cards' counts: {launched}, threefry {drawn}, "
+          f"dual prox {dual}; {aibm} of kernel 5's in AIBM's last Poisson "
+          "run", flush=True)
+    return launched["simplex_device.LAUNCHES"], drawn, dual
 
 
 # ---- phases 4l-4n: fast_gram, sharding, diagnostics and examples ------------
@@ -3371,6 +3645,8 @@ def main():
     ap.add_argument("--bodies", action="store_true",
                     help="the Bregman loops' bodies and what masked "
                          "bodies cost")
+    ap.add_argument("--extras-only", action="store_true",
+                    help="with --bodies: only the extras' loops")
     args = ap.parse_args()
     # ---- 1. the card --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3397,7 +3673,8 @@ def main():
     from accbpg_and_fw_tpu_torch.ops import simplex as sm
 
     # ---- 2. the build -------------------------------------------------------
-    names = ("dopt_lazy", "dopt_dense", "simplex_mult")
+    names = ("dopt_lazy", "dopt_dense", "simplex_mult", "threefry",
+             "dual_prox")
     cached = [n for n in names if _build.library_path(n).exists()]
     t = time.perf_counter()
     _build.build_all(names)
@@ -3450,6 +3727,8 @@ def main():
         gg = torch.tensor(np.random.default_rng(n).standard_normal(n) * 3.0
                           + 1.0, device=dev)
         simplex_errs.append(compare_simplex(sm, gg, "random")[0])
+    threefry_split, threefry_draw = compare_threefry(dev)
+    dual_prox = compare_dual_prox(port, dev)
 
     # the small slice end to end on the card against the CPU exact engine
     x_s, F_s, _, _, _ = D_opt_FW_away(V_small, np.full(160, 1 / 160), 1e-8,
@@ -3526,7 +3805,7 @@ def main():
     graph_paths(port, card, counters)
     lmo_centres(port, card, counters)
     a9a_phase(port, card, counters)
-    extras_paths(port, card, counters, sm)
+    _, drawn, dual_launches = extras_paths(port, card, counters, sm)
     fastgram_paths(port, counters)
     sharded_paths(port, counters)
     diagnostics_and_examples(port, counters)
@@ -3535,6 +3814,7 @@ def main():
     def entry(name, source, replaces, launches, measured):
         err, ms, plain_ms, bound_ms, bound_by = measured
         # library_ms: no single PyTorch call computes any of these functions
+        # (torch's own generator draws other bits than JAX's threefry)
         return {"name": name, "route": "cuda",
                 "source": f"accbpg_and_fw_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
@@ -3558,6 +3838,16 @@ def main():
         entry("simplex_multiplier", "simplex_mult.cu",
               "accbpg_and_fw_tpu/ops/pallas_kernels.py:32",
               simplex_launches, (max(simplex_errs),) + simplex[1:]),
+        # no TPU kernel: what JAX compiles into the chunk there
+        entry("threefry_split", "threefry.cu",
+              "accbpg_and_fw_tpu/algorithms/extras.py:79",
+              drawn["split"], threefry_split),
+        entry("threefry_draw", "threefry.cu",
+              "accbpg_and_fw_tpu/ops/f_oracles.py:805",
+              drawn["draw"], threefry_draw),
+        entry("dual_prox", "dual_prox.cu",
+              "accbpg_and_fw_tpu/ops/h_oracles.py:505", dual_launches,
+              dual_prox),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,10 +14,14 @@ plus:
 * ``checkdiv=True`` (steps accepted by the divergence test alone): the
   divergences shrink to where their cancellation leaves few digits, so G
   and Gdiv are held to rtol 1e-4 (measured 8.5e-6), while Gamma and Gain
-  show the same decisions in every row.  ABPG_expo's F is held to 1e-9:
-  with an adapting gamma and no descent test the iteration amplifies
-  rounding, and F parts from JAX's by more than 1e-11 after row 37 and by
-  1.9e-10 at row 200 (the final iterate by 9e-12: held to atol 1e-10);
+  show the same decisions in every row.  ABPG_expo with an adapting
+  gamma and no descent test amplifies rounding: F parts from JAX's by
+  more than 1e-11 after row 37, and how far by row 200 depends on the
+  host's BLAS, which orders the sums: 1.9e-10 on one host; under MKL
+  with AVX-512 2.75e-9 in one thread and 4.2e-9 in many, both at row
+  112, where G parts by 1.3e-4 and 2.0e-4.  So its F is held to 1e-8 and
+  its G to 1e-3, a few times the largest measured (the final iterate by
+  9e-12 and 5.4e-11: held to atol 1e-10);
 * checkpoints of ABPG_gain resumed across the packages.
 """
 
@@ -36,6 +40,8 @@ torch.set_num_threads(1)
 
 PALLAS_F_RTOL = 2e-7
 CHECKDIV_F_RTOL, CHECKDIV_G_RTOL, CHECKDIV_X_ATOL = 1e-9, 1e-4, 1e-10
+# ABPG_expo with checkdiv amplifies rounding (see the module docstring)
+EXPO_CHECKDIV_F_RTOL, EXPO_CHECKDIV_G_RTOL = 1e-8, 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -56,12 +62,12 @@ def test_abpg_expo_matches_jax(problems, kw):
     rj = acc.ABPG_expo(fj, hj, L, x0j, 3.0, ROWS, verbose=False, **kw)
     rp = port.ABPG_expo(fp, hp, L, x0p, 3.0, ROWS, verbose=False, **kw)
     assert len(rp) == len(rj) == 5
-    assert_rows(rp[1], rj[1], rtol=CHECKDIV_F_RTOL if kw.get("checkdiv")
-                else F_RTOL)
+    assert_rows(rp[1], rj[1], rtol=EXPO_CHECKDIV_F_RTOL
+                if kw.get("checkdiv") else F_RTOL)
     assert_rows(rp[2], rj[2])  # Gamma: the same decrements in every row
     assert np.asarray(rj[2]).min() < 3.0  # gamma did adapt
     if kw.get("checkdiv"):
-        assert_rows(rp[3], rj[3], rtol=CHECKDIV_G_RTOL)
+        assert_rows(rp[3], rj[3], rtol=EXPO_CHECKDIV_G_RTOL)
         assert_x(rp[0], rj[0], atol=CHECKDIV_X_ATOL)
     else:
         assert_gains(rp[3], rj[3])

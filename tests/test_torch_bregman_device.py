@@ -320,12 +320,17 @@ def test_checkpoint_resumes_across_packages(problems, tmp_path, case,
 
 def test_chunk_mode_of_a_problem_that_reads_the_host(monkeypatch):
     """A carry of plain tensors on one card is a graph, unless an oracle
-    of the problem declares ``host_reads`` (the dual prox's blocked loop):
-    then its chunks run eagerly, and a solve on the CPU with it runs."""
+    of the problem declares ``host_reads`` (the FW adapter's nuclear-ball
+    SVD): then its chunks run eagerly.  The dual prox's loop is one
+    kernel launch on the card and reads nothing back, so its chunks are
+    graphs; a solve on the CPU with it runs."""
     dual = port.SumOf2nd4thPowersDualProxMap(num_iters=40)
-    assert dual.host_reads and not getattr(port.BurgEntropySimplex(),
-                                           "host_reads", False)
-    assert driver.host_reads(dict(h=dual)) and not driver.host_reads(None)
+    svd_h = port.SumOf2nd4thPowersWithFrankWolfe(
+        lmo=port.lmo_nuclear_norm_ball())
+    assert not getattr(dual, "host_reads", False)
+    assert not getattr(port.BurgEntropySimplex(), "host_reads", False)
+    assert driver.host_reads(dict(h=svd_h)) and not driver.host_reads(None)
+    assert not driver.host_reads(dict(h=dual))
     t = torch.zeros(3)
     carry = dict(done=torch.tensor(False), x=t, L=t.sum())
     monkeypatch.setattr(torch.Tensor, "device",
@@ -333,7 +338,8 @@ def test_chunk_mode_of_a_problem_that_reads_the_host(monkeypatch):
     assert driver.chunk_mode(carry) == "graph"
     assert driver.chunk_mode(carry, dict(h=port.BurgEntropySimplex())) == \
         "graph"
-    assert driver.chunk_mode(carry, dict(f=None, h=dual)) == "eager"
+    assert driver.chunk_mode(carry, dict(f=None, h=dual)) == "graph"
+    assert driver.chunk_mode(carry, dict(f=None, h=svd_h)) == "eager"
     monkeypatch.undo()
     A = np.random.default_rng(5).standard_normal((12, 4))
     f = port.FrobeniusSymLoss(A @ A.T, device="cpu")

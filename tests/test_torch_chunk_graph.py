@@ -126,7 +126,7 @@ def test_masked_partial_chunk_matches_unmasked(dopt_problem):
 
     k0, limit = torch.tensor(5), torch.tensor(40)
     got, packed, names, _ = driver._masked_steps(step, carry, k0, limit, 64)
-    ref, rows, _ = driver._frozen_steps(step, carry, 5, 40)
+    ref, rows = driver._frozen_steps(step, carry, 5, 40)
     for key in carry:
         assert torch.equal(got[key], ref[key])
     h = dict(zip(names, packed))

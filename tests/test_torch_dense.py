@@ -18,6 +18,8 @@ and skip without one.  JAX is imported inside fixtures, so the card tests
 run with ``python -m pytest --noconftest -m cuda tests/test_torch_dense.py``.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -383,6 +385,7 @@ def test_dense_plan_rejects_invalid_sizes(B, m, n, sms, limit, max_cluster):
 # --------------------------------------------------------------------------
 
 TIE_SHAPE, TIE_BUDGET = (12, 400), 96
+TIE_ULPS = 4
 
 
 def _tie_design():
@@ -413,9 +416,15 @@ def test_ties_take_the_lowest_index_as_the_jax_kernel():
                                        verbose=False, chunk=256,
                                        device="cpu")
     _assert_matches_jax((x.numpy(), F, SP, SN), ref[:4])
-    # a Frank-Wolfe step's argmax is a tie between j and j + 200: always j
+    # a Frank-Wolfe step's argmax is a tie between j and j + 200: always j.
+    # The tie is as the plain block sees it: factorize's GEMM may give a
+    # repeated column other last bits at another position (2 ulps on 2 of
+    # the 200 pairs under MKL with AVX-512), so the pairs are held within
+    # TIE_ULPS
     Vs, Hs, xs, ws = _fresh(V[None])
-    assert torch.equal(ws[0, :200], ws[0, 200:])
+    a, b = ws[0, :200], ws[0, 200:]
+    ulp = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+    assert bool((torch.abs(a - b) <= TIE_ULPS * ulp).all())
     blk = dd.dense_block_reference(Vs, Hs, xs, ws, eps=EPS, kmax=TIE_BUDGET)
     tau, v = blk.hist[0, 0], blk.hist[0, 4]
     assert int((tau > 0).sum()) > 10

@@ -23,7 +23,6 @@ from accbpg_and_fw_tpu import diagnostics as jdiag
 from accbpg_and_fw_tpu_torch import diagnostics as pdiag
 
 from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
-from test_torch_stochastic import jax_stream  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 
@@ -253,7 +252,7 @@ def test_solver_device_pins_numpy_inputs():
             port.DOptimalObj(V)
 
 
-def test_keyed_l2_ball_point_matches_jax(jax_stream):  # noqa: F811
+def test_keyed_l2_ball_point_matches_jax():
     from accbpg_and_fw_tpu_torch import _rng
 
     center = np.array([0.5, -1.0, 2.0, 0.0])

@@ -21,7 +21,6 @@ import accbpg_and_fw_tpu_torch as port
 from accbpg_and_fw_tpu_torch.interop import from_jax_oracle
 
 from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
-from test_torch_stochastic import jax_stream  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 
@@ -211,13 +210,20 @@ def test_primal_dual_scalar_constraint():
 
 
 def test_primal_dual_one_block_per_short_ascent(pd_problem, monkeypatch):
-    """The inner ascent's block length changes the host reads only: one
-    step per block gives the same run."""
-    from accbpg_and_fw_tpu_torch.algorithms import extras
+    """The inner ascent's masked bodies change the host reads only: chunks
+    run through the graph chunk's code on the CPU with one masked body
+    per ascent (every iteration overflows and runs again eagerly) give the
+    eager run bit for bit."""
+    from accbpg_and_fw_tpu_torch.algorithms import driver, extras
 
     ref = _pd(port, pd_problem[1], 10)
-    monkeypatch.setattr(extras, "DUAL_BLOCK", 1)
+    monkeypatch.setattr(driver, "chunk_mode",
+                        lambda carry, problem=None, cfg=None: "graph")
+    monkeypatch.setattr(driver, "_GRAPHS", type(driver._GRAPHS)())
+    monkeypatch.setattr(extras, "DUAL_BODIES", 1)
+    before = driver.GRAPH_STATS["continuations"]
     got = _pd(port, pd_problem[1], 10)
+    assert driver.GRAPH_STATS["continuations"] - before == 10
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
 
@@ -228,11 +234,10 @@ def test_primal_dual_one_block_per_short_ascent(pd_problem, monkeypatch):
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
-def test_aibm_checkpoint_resumes_across_packages(poisson, tmp_path, writer,
-                                                 jax_stream):
+def test_aibm_checkpoint_resumes_across_packages(poisson, tmp_path, writer):
     """40 noisy iterations saved by one package (the noise key in the
     carry), resumed to 80 by the other, against JAX's uninterrupted run;
-    the port draws JAX's samples (``jax_stream``)."""
+    the port draws JAX's samples (``_rng``)."""
     ck = str(tmp_path / "aibm.npz")
     first, second = (acc, port) if writer == "jax" else (port, acc)
     args = {acc: poisson[0], port: poisson[1]}

@@ -25,7 +25,7 @@ import torch
 import accbpg_and_fw_tpu as acc
 import accbpg_and_fw_tpu_torch as port
 from accbpg_and_fw_tpu_torch.interop import from_jax_oracle
-from accbpg_and_fw_tpu_torch.ops import h_oracles as port_h
+from accbpg_and_fw_tpu_torch.ops import dual_prox as port_dp
 
 from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
 
@@ -66,7 +66,7 @@ def test_dual_prox_map_matches_jax(num_iters, L, exits_early):
     X, steps, reads = hp.dual_solve(_t(y), _t(g), L)
     np.testing.assert_allclose(X.numpy(), Xj, rtol=1e-12, atol=1e-12)
     assert (int(steps) < num_iters) == exits_early
-    assert reads == _reads(int(steps), num_iters, port_h.DUAL_BLOCK)
+    assert reads == _reads(int(steps), num_iters, port_dp.DUAL_BLOCK)
     np.testing.assert_array_equal(hp.div_prox_map(_t(y), _t(g), L).numpy(),
                                   X.numpy())
 
@@ -77,7 +77,7 @@ def test_dual_prox_map_block_length_changes_reads_only(monkeypatch, block):
                                 tolerance=1e-3)
     ref, steps, _ = hp.dual_solve(_t(y), _t(g), L)
     assert 2 < int(steps) < 400
-    monkeypatch.setattr(port_h, "DUAL_BLOCK", block)
+    monkeypatch.setattr(port_dp, "DUAL_BLOCK", block)
     got, steps_b, reads = hp.dual_solve(_t(y), _t(g), L)
     assert torch.equal(got, ref) and int(steps_b) == int(steps)
     assert reads == _reads(int(steps), 400, block)

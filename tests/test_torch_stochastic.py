@@ -4,17 +4,16 @@ reaches the run, the same seed reproduces it, another seed changes it, and
 an exact oracle ignores the seed (the port's mirror of
 tests/test_stochastic_oracles.py).
 
-The port's draws are torch's, not JAX's.  With ``_rng.split``,
-``_rng.uniform`` and ``_rng.normal`` replaced by ``jax.random``'s
-(``jax_stream``), a noisy run draws JAX's samples, and BPG, ABPG_gain,
-AIBM and UniversalGM then follow the JAX drivers at rtol 1e-11.  The noise
-is 0.05 there: at 0.5 a run reaches its noise floor within 25 rows, where
-line-search decisions rest on the last bits of sums the two packages
-order differently.
+The port draws JAX's samples: ``_rng`` is JAX's threefry chain (its bits
+and uniforms equal, its normals within the last bits of ``erfinv``:
+tests/test_torch_rng_device.py), so the noisy runs of BPG, ABPG_gain,
+AIBM, UniversalGM and FW_alg_descent_step follow the JAX drivers at rtol
+1e-11 as they are.  The noise is 0.05 there: at 0.5 a run reaches its
+noise floor within 25 rows, where line-search decisions rest on the last
+bits of sums the two packages order differently.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,27 +26,6 @@ from accbpg_and_fw_tpu_torch.interop import from_jax_oracle
 from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
-
-
-@pytest.fixture
-def jax_stream(monkeypatch):
-    """The port draws JAX's samples: ``_rng`` through ``jax.random``."""
-    def split(k):
-        ks = np.asarray(jax.random.split(jnp.asarray(k, jnp.uint32)))
-        return ks[0], ks[1]
-
-    def uniform(sub):
-        return float(jax.random.uniform(jnp.asarray(sub, jnp.uint32),
-                                        dtype=jnp.float64))
-
-    def normal(sub, shape, device):
-        z = jax.random.normal(jnp.asarray(sub, jnp.uint32), tuple(shape),
-                              jnp.float64)
-        return torch.tensor(np.asarray(z), device=device)
-
-    monkeypatch.setattr(_rng, "split", split)
-    monkeypatch.setattr(_rng, "uniform", uniform)
-    monkeypatch.setattr(_rng, "normal", normal)
 
 
 def _differs(a, b):
@@ -80,19 +58,22 @@ def _bpg(M, noise, seed, linesearch=True):
 
 
 def test_keys_are_jax_prngkey_words():
-    np.testing.assert_array_equal(_rng.key(5), np.asarray(
+    np.testing.assert_array_equal(_rng.key(5).numpy(), np.asarray(
         jax.random.PRNGKey(5)))
-    np.testing.assert_array_equal(_rng.key(2**40 + 3), np.asarray(
+    np.testing.assert_array_equal(_rng.key(2**40 + 3).numpy(), np.asarray(
         jax.random.PRNGKey(2**40 + 3)))
     k, sub = _rng.split(_rng.key(0))
-    assert k.dtype == sub.dtype == np.uint32 and k.shape == sub.shape == (2,)
-    assert not np.array_equal(k, sub)
+    assert k.dtype == sub.dtype == torch.int64
+    assert k.shape == sub.shape == (2,) and not torch.equal(k, sub)
+    np.testing.assert_array_equal(
+        _rng.host_words(sub),
+        np.asarray(jax.random.split(jax.random.PRNGKey(0))[1]))
     u = _rng.uniform(sub)
-    assert isinstance(u, float) and 0.0 <= u < 1.0
-    assert u == _rng.uniform(sub.copy())
-    z = _rng.normal(sub, (3, 2), torch.device("cpu"))
+    assert u.dtype == torch.float64 and u.shape == () and 0.0 <= u < 1.0
+    assert torch.equal(u, _rng.uniform(sub.clone()))
+    z = _rng.normal(sub, (3, 2))
     assert z.dtype == torch.float64 and z.shape == (3, 2)
-    assert torch.equal(z, _rng.normal(sub, (3, 2), torch.device("cpu")))
+    assert torch.equal(z, _rng.normal(sub, (3, 2)))
 
 
 def test_bpg_noise_perturbs_and_is_seed_reproducible(M):
@@ -170,7 +151,7 @@ def test_deterministic_oracle_unaffected_by_seed():
 
 
 # ---------------------------------------------------------------------------
-# replay: the port on JAX's draws
+# replay: the port draws JAX's samples
 # ---------------------------------------------------------------------------
 
 
@@ -199,7 +180,7 @@ REPLAY = {
 
 
 @pytest.mark.parametrize("name", list(REPLAY))
-def test_noisy_runs_replay_jax(noisy_pair, jax_stream, name):
+def test_noisy_runs_replay_jax(noisy_pair, name):
     rj = REPLAY[name](acc, *noisy_pair[0])
     rp = REPLAY[name](port, *noisy_pair[1])
     Fj, Fp = np.asarray(rj[1]), np.asarray(rp[1])
