@@ -1,24 +1,14 @@
-"""Host scalars for the drivers' scalar recurrences.
+"""Host reads of device scalars, and ``diagnostics.debug_mode``'s check.
 
-The Bregman drivers keep their scalars (step sizes, theta, gains, the
-multiplier of the simplex prox) on the host as Python floats, which are
-IEEE doubles, and only the vectors on the device.  A line search has to
-bring each trial's accept/reject decision back to the host anyway, so the
-scalars it needs come back in the same read (``read``), and the recurrences
-between reads cost no kernel launches.
-
-Python raises where IEEE arithmetic gives inf or NaN (division by zero,
-``math.log(0)``, overflow in ``math.exp``); ``div``, ``power``, ``log``,
-``exp`` and ``expm1`` return what the JAX package's float64 arrays give
-instead.  Python's ``min`` drops a NaN that ``jnp.minimum`` propagates;
-``minimum`` propagates it.
+``read`` brings 0-d tensors back as Python floats in one device read (one
+host sync on a CUDA device), where a caller needs the numbers on the host;
+under ``debug_mode`` a NaN (or Inf) among them raises.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ._device import full
@@ -55,47 +45,3 @@ def check_finite(values, where):
             raise FloatingPointError(
                 f"debug_mode: {v!r} in {where} (the first host read after "
                 "the operation that produced it)")
-
-
-def _ieee(fn, *args):
-    with np.errstate(all="ignore"):
-        return float(fn(*(np.float64(a) for a in args)))
-
-
-def div(a, b):
-    try:
-        return a / b
-    except ZeroDivisionError:
-        return _ieee(np.divide, a, b)
-
-
-def power(a, b):
-    try:
-        return math.pow(a, b)
-    except (ValueError, OverflowError):
-        return _ieee(np.power, a, b)
-
-
-def log(a):
-    try:
-        return math.log(a)
-    except ValueError:
-        return _ieee(np.log, a)
-
-
-def exp(a):
-    try:
-        return math.exp(a)
-    except OverflowError:
-        return math.inf
-
-
-def expm1(a):
-    try:
-        return math.expm1(a)
-    except OverflowError:
-        return math.inf
-
-
-def minimum(a, b):
-    return a if math.isnan(a) else b if math.isnan(b) else min(a, b)

@@ -31,33 +31,32 @@ chain of keys and its bits; the carry holds the key as a device tensor, so
 a stochastic run's chunks are graphs too).
 
 ``fast_gram=True`` runs the JAX drivers' stateful linear-Gram steps
-(``_*_dopt_step``), which keep their scalars on the host in Python floats
-(IEEE doubles) and read each trial's scalars and decision back in one read
-(a Python-bool ``done``: ``driver.py``'s host chunks), for an oracle with
-the fast-Gram protocol
+(``_*_dopt_step``) for an oracle with the fast-Gram protocol
 (``DOptimalObj``): carried m x m Grams, a warm-started Schulz inverse and
-trace-series logdet shifts (``fastgram.py``), one fresh Gram per trial and
-a recontraction at every chunk boundary.  Their branch gates ride the
-trial's one read (``fastgram.Gates``): a trial whose gates all take the
-common branch costs no more syncs than a plain one, and each gate that
-falls back costs one rerun of the trial.  ``fast_gram="ds"`` names the
-same FP64 engine (the JAX double-single engine was a TPU workaround).
+trace-series logdet shifts (``fastgram.py``), one fresh Gram per trial, the
+prox's multiplier carried as a warm start (``cpx``), and a recontraction
+at every chunk boundary.  They are device-scalar steps in the plain steps'
+form: their line searches are ``device_while`` loops with their own masked
+bodies in a graph chunk (``FG_BPG_BODIES``, ``FG_EXPO_BODIES``,
+``FG_GAIN_BODIES``), and their branch gates are device selects.
+``fast_gram="ds"`` names the same FP64 engine (the JAX double-single engine
+was a TPU workaround).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from .. import _rng
-from .._device import as_f64, replicate_like, resolve_device
+from .._device import as_f64, full, replicate_like, resolve_device
 from .._loops import device_while
-from .._scalar import div, exp, log, power, read
 from ..ops.base import vdot
 from . import fastgram as _fg
 from .driver import run_driver
-from .theta import solve_theta, solve_theta_host
+from .theta import solve_theta
 
 _LS_MAX = 200  # safety bound; backtracking terminates long before this
 
@@ -72,6 +71,16 @@ _LS_MAX = 200  # safety bound; backtracking terminates long before this
 BPG_BODIES = 5
 EXPO_BODIES = 4
 GAIN_BODIES = 6
+# The same for the fast_gram steps' line searches (``_*_dopt_step``): the
+# trials after the first.  Chosen from the card's tally and walls
+# (``chip_smoke.py --bodies``, PERF.md) over 9000 iterations under
+# ``eager_chunks``: ABPG_gain 30x10000 took 0-4 in 99.5% (a tail to 14;
+# as graphs 2 / 4 / 7 bodies 33.1 / 18.0 / 20.5 s for 2000 iterations);
+# BPG-LS 30x1000 0-3 in 99.6% (3 / 4 bodies 9.6 / 7.3 s); ABPG_expo
+# 30x1000 one in 4 iterations, never more.
+FG_BPG_BODIES = 4
+FG_EXPO_BODIES = 1
+FG_GAIN_BODIES = 4
 # Iterations a captured graph holds; a chunk replays it back to back.
 GRAPH_SPAN = 32
 
@@ -138,30 +147,11 @@ def _device_carry(x0, **vals):
     return carry
 
 
-def _read(**vals):
-    """The named 0-d tensors / numbers as Python floats, in one read."""
-    return dict(zip(vals, read(*vals.values())))
-
-
-def _read_gated(gates, **vals):
-    """``_read`` of ``vals`` with the gate sums of ``gates`` riding along
-    (``fastgram.Gates``); ``gates.ok`` then says whether the trial holds."""
-    got = read(*vals.values(), *gates.pending())
-    gates.check(got[len(vals):])
-    return dict(zip(vals, got))
-
-
-def _gated(trial, memo):
-    """``trial(gates)`` run until its gates hold (see ``fastgram.Gates``),
-    guessing the decisions ``memo`` holds (the previous trial's of the
-    same kind, which it then receives); returns what the last run
-    returned."""
-    gates = _fg.Gates(memo)
-    while True:
-        out = trial(gates)
-        if gates.ok:
-            memo[:] = gates.used
-            return out
+def _with_cpx(state, cpx):
+    """A trial's state with the prox's multiplier where it has one."""
+    if cpx is not None:
+        state["cpx"] = cpx
+    return state
 
 
 def _warm_prox(h, c, y, g, Lt):
@@ -173,38 +163,63 @@ def _warm_prox(h, c, y, g, Lt):
     return h.div_prox_map(y, g, Lt), None
 
 
-def _fast_start(f, h, x0, prob, carry, with_z=True,
-                warm="div_prox_map_warm"):
+def _fast_start(f, h, x0, carry, with_z=True, warm="div_prox_map_warm"):
     """Add the fast-Gram state at ``x0`` to the initial carry (the JAX
-    drivers' keys) and the gates' guesses to ``prob`` (per solve, outside
-    the carry: a resumed run guesses afresh and takes the same branches),
-    and return the chunk-boundary refresh hook."""
+    drivers' keys, 0-d tensors on x0's device: no read) and return the
+    chunk-boundary refresh hook."""
     _fg.require_fast_gram(f)
-    prob["memo"] = {"first": [], "rest": []}
     st = _fg.init_state(f, x0)
-    carry.update(Gx=st["G0"], Minv=st["M0"], fx=-read(st["ld0"])[0])
+    carry.update(Gx=replicate_like(st["G0"], x0),
+                 Minv=replicate_like(st["M0"], x0),
+                 fx=replicate_like(-st["ld0"], x0))
     if with_z:
-        carry["Gz"] = st["G0"]
+        carry["Gz"] = carry["Gx"]
     if hasattr(h, warm):
-        carry["cpx"] = -float("inf")
+        carry["cpx"] = _num(x0, -float("inf"))
     return _dopt_state_refresh(f, with_z)
 
 
 def _dopt_state_refresh(f, with_z=True):
     """``between_chunks`` hook: recontract the carried Grams, inverse and
-    logdet from the exact iterates (``fastgram.refresh_state``)."""
+    logdet from the exact iterates (``fastgram.refresh_state``), on the
+    device with no read."""
 
     def refresh(carry, k_next):
         upd = _fg.refresh_state(f, carry["x"],
                                 carry["z"] if with_z else carry["x"],
                                 with_z=with_z)
-        return {**carry, **upd}
+        return {**carry, **{k: replicate_like(v, carry["x"])
+                            for k, v in upd.items()}}
 
     return refresh
 
 
 def _comb(theta, a, b):
     return (1.0 - theta) * a + theta * b
+
+
+_GRAMS = ("Gx", "Gz", "Minv")
+
+
+def _grams_carried(step):
+    """A fast_gram step whose carry holds the m x m Grams and inverse as
+    replicated DTensors where the solve is sharded (``_fast_start``), so
+    that the driver's selects on the carry meet DTensors only, and whose
+    body works on the plain tensors every rank holds (``f.gram`` sums a
+    Gram over the mesh once): they go in as their local values and come
+    out replicated again.  A replicated scalar that meets them enters as
+    its local value too (``fastgram.comb``,
+    ``fastgram.anchored_logdet_shift``, the restart's Gram select).  On
+    one device both conversions leave the tensors as they are."""
+
+    @functools.wraps(step)
+    def run(cfg, prob, c, k):
+        c2, hist = step(cfg, prob, {key: full(v) if key in _GRAMS else v
+                                    for key, v in c.items()}, k)
+        return {key: replicate_like(v, c2["x"]) if key in _GRAMS else v
+                for key, v in c2.items()}, hist
+
+    return run
 
 
 def _plus(a, delta):
@@ -223,21 +238,6 @@ def _accept_delta(f, scale):
     return tol * (1.0 + abs(scale))
 
 
-def _restart(cfg, F_prev, k, Fk, gd, x_new, z_new, theta, kk, k_guard,
-             Gx_new=None, Gz_new=None):
-    """Function ('f') or gradient ('g') restart of the ABPG family:
-    ``(theta, kk, z)`` after it, and ``Gz`` with it where the fast-Gram
-    steps pass their Grams.  ``gd`` is <g, x_new - x>; ``k_guard`` keeps
-    plain ABPG's explicit k > 0 gate (the others rely on F_prev starting at
-    +inf)."""
-    trig = cfg.restart and (Fk > F_prev if cfg.restart_rule == 'f'
-                            else gd > 0)
-    if k_guard:
-        trig = trig and k > 0
-    out = (1.0, 0, x_new, Gx_new) if trig else (theta, kk, z_new, Gz_new)
-    return out if Gz_new is not None else out[:3]
-
-
 def _past_first(k, cond):
     """``(k > 0) & cond`` for ``k`` an int64 tensor (a graph chunk's) or a
     host int (an eager chunk's; a DTensor ``cond`` takes no Python bool)."""
@@ -246,21 +246,26 @@ def _past_first(k, cond):
     return cond if k > 0 else torch.zeros_like(cond)
 
 
-def _restart_where(cfg, c, k, Fk, g, x_new, z_new, theta, kk, k_guard):
-    """JAX's ``_abpg_restart`` for the plain steps: the function ('f') or
-    gradient ('g') restart as ``torch.where`` selects; ``(theta, kk, z)``
-    after it.  ``k_guard`` keeps plain ABPG's explicit k > 0 gate (the
-    others rely on F_prev starting at +inf)."""
+def _restart_where(cfg, c, k, Fk, g, x_new, z_new, theta, kk, k_guard,
+                   Gx_new=None, Gz_new=None):
+    """JAX's ``_abpg_restart``: the function ('f') or gradient ('g')
+    restart as ``torch.where`` selects; ``(theta, kk, z)`` after it, and
+    ``Gz`` with it where the fast-Gram steps pass their Grams.
+    ``k_guard`` keeps plain ABPG's explicit k > 0 gate (the others rely on
+    F_prev starting at +inf)."""
+    grams = Gz_new is not None
     if not cfg.restart:
-        return theta, kk, z_new
+        return (theta, kk, z_new) + ((Gz_new,) if grams else ())
     if cfg.restart_rule == 'f':
         trig = Fk > c["F_prev"]
     else:
         trig = vdot(g, x_new - c["x"]) > 0
     if k_guard:
         trig = _past_first(k, trig)
-    return (torch.where(trig, 1.0, theta), torch.where(trig, 0, kk),
-            torch.where(trig, x_new, z_new))
+    out = (torch.where(trig, 1.0, theta), torch.where(trig, 0, kk),
+           torch.where(trig, x_new, z_new))
+    return out + ((torch.where(full(trig), Gx_new, Gz_new),) if grams
+                  else ())
 
 
 def _wants_gd(cfg):
@@ -331,53 +336,45 @@ def _bpg_step(cfg, prob, c, k):
             dict(F=Fk, Ls=Lk, _stop=stop))
 
 
+@_grams_carried
 def _bpg_dopt_step(cfg, prob, c, k):
     """BPG on a linear-Gram D-opt oracle (fast_gram=True): the gradient
     from a warm-started Schulz inverse of the carried Gram (the accepted
     trial of the previous iteration contracted it), and each line-search
     trial pays one fresh Gram and a trace-series logdet shift instead of
-    an oracle value.  The inverse's gate rides the first trial's read."""
+    an oracle value."""
     f, h = prob["f"], prob["h"]
     x, Lk, fx = c["x"], c["L"], c["fx"]
     ld_x = -fx
+    M = _fg.inv_at(f, c["Gx"], c["Minv"])
+    g = f.grad_from_inv(M)
+    Fk = fx + h.extra_psi(x)
+    stop = _past_first(k, torch.abs(Fk - c["F_prev"]) < prob["eps"])
     delta = _accept_delta(f, fx)
 
-    def trial(gates, M, g, Lt, **extra):
+    def trial(Lt):
         x1, cpx = _warm_prox(h, c, x, g, Lt)
         G1 = f.gram(x1)
-        ld1, s1 = _fg.anchored_logdet_shift(f, ld_x, 1.0, M, G1, G1, gates)
-        s = _read_gated(gates, ld1=ld1, s1=s1, gd=vdot(g, x1 - x),
-                        dv=h.divergence(x1, x), **extra)
+        ld1, s1 = _fg.anchored_logdet_shift(f, ld_x, 1.0, M, G1, G1)
         # acceptance on the logdet shift (f1 - fx = -s1): absolutely
         # accurate, immune to O(1) value cancellation (see fastgram)
-        s["fail"] = not (-s["s1"] <= s["gd"] + Lt * s["dv"] + delta)
-        return x1, G1, cpx, s
+        fail = ~(-s1 <= _plus(vdot(g, x1 - x) + Lt * h.divergence(x1, x),
+                              delta))
+        return _with_cpx(dict(L=Lt, x=x1, G=G1, fx=-ld1, fail=fail), cpx)
 
-    def first(gates, Lt):
-        M = _fg.inv_at(f, c["Gx"], c["Minv"], gates)
-        g = f.grad_from_inv(M)
-        return (M, g) + trial(gates, M, g, Lt, psi=h.extra_psi(x))
-
-    memo = prob["memo"]
-    Lt = Lk / prob["ls_ratio"] if cfg.linesearch else Lk
-    M, g, x_new, G_new, cp_new, s = _gated(lambda gates: first(gates, Lt),
-                                           memo["first"])
-    psi = s["psi"]
     if cfg.linesearch:
-        t = 0
-        while s["fail"] and t < _LS_MAX:
-            Lt = Lt * prob["ls_ratio"]
-            x_new, G_new, cp_new, s = _gated(
-                lambda gates: trial(gates, M, g, Lt), memo["rest"])
-            t += 1
-        Lk = Lt
-
-    Fk = fx + psi
-    stop = k > 0 and abs(Fk - c["F_prev"]) < prob["eps"]
-    c2 = dict(done=c["done"], x=x_new, L=Lk, F_prev=Fk, Gx=G_new, Minv=M,
-              fx=-s["ld1"])
+        ls_ratio = prob["ls_ratio"]
+        s = device_while(lambda s: s["fail"],
+                         lambda s: trial(s["L"] * ls_ratio),
+                         trial(Lk / ls_ratio), _LS_MAX, FG_BPG_BODIES,
+                         "BPG fast_gram trials")
+        Lk = s["L"]
+    else:
+        s = trial(Lk)
+    c2 = dict(done=c["done"], x=s["x"], L=Lk, F_prev=Fk, Gx=s["G"], Minv=M,
+              fx=s["fx"])
     if "cpx" in c:
-        c2["cpx"] = cp_new
+        c2["cpx"] = s["cpx"]
     return c2, dict(F=Fk, Ls=Lk, _stop=stop)
 
 
@@ -397,15 +394,12 @@ def BPG(f, h, L, x0, maxitrs, epsilon=1e-14, linesearch=True, ls_ratio=1.2,
     oracle with the fast-Gram protocol (``DOptimalObj``): one Gram per
     line-search trial, a matmul-only inverse, trace-series logdets."""
     x0 = _start(f, x0)
-    prob = dict(f=f, h=h, eps=float(epsilon), ls_ratio=float(ls_ratio))
+    prob = dict(f=f, h=h, **_scalars(x0, eps=epsilon, ls_ratio=ls_ratio))
+    carry = _device_carry(x0, L=L, F_prev=float("inf"))
     step, between = _bpg_step, None
     if fast_gram:
-        carry = dict(done=False, x=x0, L=float(L), F_prev=float("inf"))
-        between = _fast_start(f, h, x0, prob, carry, with_z=False)
+        between = _fast_start(f, h, x0, carry, with_z=False)
         step = _bpg_dopt_step
-    else:
-        prob.update(_scalars(x0, eps=epsilon, ls_ratio=ls_ratio))
-        carry = _device_carry(x0, L=L, F_prev=float("inf"))
     cfg = _BPGCfg(linesearch=bool(linesearch),
                   stochastic=_stoch_carry(f, carry, seed, fast_gram))
     carry, hist, T = _run(step, cfg, prob, carry, maxitrs,
@@ -437,13 +431,6 @@ def _abpg_theta(cfg, gam, c):
     return gam / (kk.to(torch.float64) + gam)
 
 
-def _abpg_theta_host(cfg, gam, c):
-    """``_abpg_theta`` in Python floats, for the fast-Gram steps."""
-    if cfg.theta_eq:
-        return solve_theta_host(c["theta"], gam) if c["kk"] > 0 else 1.0
-    return gam / (float(c["kk"]) + gam)
-
-
 def _abpg_step(cfg, prob, c, k):
     f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
     x, z = c["x"], c["z"]
@@ -464,47 +451,39 @@ def _abpg_step(cfg, prob, c, k):
                  _stop=dzz < prob["eps"]))
 
 
+@_grams_carried
 def _abpg_dopt_step(cfg, prob, c, k):
     """Plain ABPG on a linear-Gram D-opt oracle (fast_gram=True): no
     oracle value at all: the gradient comes from the Schulz inverse of the
     combined Gram at y, and F advances through two trace-series logdet
-    shifts anchored at the carried logdet G(x).  One read per iteration,
-    its three gates riding along."""
+    shifts anchored at the carried logdet G(x)."""
     f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
     x, z, Gx, Gz = c["x"], c["z"], c["Gx"], c["Gz"]
     fx = c["fx"]
     ld_x = -fx
-    theta = _abpg_theta_host(cfg, gam, c)
+    Fk = fx + h.extra_psi(x)
+    theta = _abpg_theta(cfg, gam, c)
     y = _comb(theta, x, z)
-    Gy = _comb(theta, Gx, Gz)
-
-    def run(gates):
-        M = _fg.inv_at(f, Gy, c["Minv"], gates)
-        g = f.grad_from_inv(M)
-        z_new, cpx = _warm_prox(h, c, z, g, power(theta, gam - 1.0) * L)
-        x_new = _comb(theta, x, z_new)
-        Gz_new = f.gram(z_new)
-        Gx_new = _comb(theta, Gx, Gz_new)
-        ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy, gates)
-        ld_xn = _fg.anchored_logdet(f, ld_y, 1.0, M, Gx_new, Gx_new, gates)
-        s = _read_gated(gates, psi=h.extra_psi(x), ld_xn=ld_xn,
-                        dxy=h.divergence(x_new, y), dzz=h.divergence(z_new, z),
-                        gd=vdot(g, x_new - x) if _wants_gd(cfg) else 0.0)
-        return M, z_new, x_new, Gz_new, Gx_new, cpx, s
-
-    M, z_new, x_new, Gz_new, Gx_new, cpx, s = _gated(run,
-                                                     prob["memo"]["first"])
-    Fk = fx + s["psi"]
-    Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
-    theta_c, kk, z_new, Gz_new = _restart(
-        cfg, c["F_prev"], k, Fk, s["gd"], x_new, z_new, theta, c["kk"] + 1,
-        k_guard=True, Gx_new=Gx_new, Gz_new=Gz_new)
+    Gy = _fg.comb(theta, Gx, Gz)
+    M = _fg.inv_at(f, Gy, c["Minv"])
+    g = f.grad_from_inv(M)
+    z_new, cpx = _warm_prox(h, c, z, g, theta ** (gam - 1.0) * L)
+    x_new = _comb(theta, x, z_new)
+    Gz_new = f.gram(z_new)
+    Gx_new = _fg.comb(theta, Gx, Gz_new)
+    ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy)
+    ld_xn = _fg.anchored_logdet(f, ld_y, 1.0, M, Gx_new, Gx_new)
+    dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
+    Gdr = dxy / dzz / theta ** gam
+    theta_c, kk, z_new, Gz_new = _restart_where(
+        cfg, c, k, Fk, g, x_new, z_new, theta, c["kk"] + 1, k_guard=True,
+        Gx_new=Gx_new, Gz_new=Gz_new)
     c2 = dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
-              F_prev=Fk, Gx=Gx_new, Gz=Gz_new, Minv=M, fx=-s["ld_xn"])
+              F_prev=Fk, Gx=Gx_new, Gz=Gz_new, Minv=M, fx=-ld_xn)
     if "cpx" in c:
         c2["cpx"] = cpx
-    return c2, dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
-                    _stop=s["dzz"] < prob["eps"])
+    return c2, dict(F=Fk, G=Gdr, theta=theta, dxy=dxy, dzz=dzz,
+                    _stop=dzz < prob["eps"])
 
 
 def ABPG(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=False,
@@ -518,18 +497,12 @@ def ABPG(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=False,
     ``fast_gram=True`` (or ``"ds"``): the stateful linear-Gram step (see
     ``BPG``), one fresh Gram per iteration."""
     x0 = _start(f, x0)
-    prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
-                eps=float(epsilon))
+    prob = dict(f=f, h=h, **_scalars(x0, L=L, gamma=gamma, eps=epsilon))
+    carry = _device_carry(x0, z=x0, theta=1.0, kk=0, F_prev=float("inf"))
     step, between = _abpg_step, None
     if fast_gram:
-        carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
-                     F_prev=float("inf"))
-        between = _fast_start(f, h, x0, prob, carry)
+        between = _fast_start(f, h, x0, carry)
         step = _abpg_dopt_step
-    else:
-        prob.update(_scalars(x0, L=L, gamma=gamma, eps=epsilon))
-        carry = _device_carry(x0, z=x0, theta=1.0, kk=0,
-                              F_prev=float("inf"))
     cfg = _ABPGCfg(theta_eq=bool(theta_eq), restart=bool(restart),
                    restart_rule=str(restart_rule),
                    stochastic=_stoch_carry(f, carry, seed, fast_gram))
@@ -596,72 +569,60 @@ def _abpg_expo_step(cfg, prob, c, k):
                  dzz=s["dzz"], _stop=s["dzz"] < prob["eps"]))
 
 
+@_grams_carried
 def _abpg_expo_dopt_step(cfg, prob, c, k):
     """ABPG_expo on a linear-Gram D-opt oracle (fast_gram=True): the
     gradient from the combined-Gram Schulz inverse, and each
-    gamma-adaption trial pays one fresh Gram and series logdets.  The
-    inverse's and logdet G(y)'s gates ride the first trial's read."""
+    gamma-adaption trial pays one fresh Gram and series logdets."""
     f, h, L = prob["f"], prob["h"], prob["L"]
     delta, Gmargin = prob["delta"], prob["Gmargin"]
     x, z, gamma, Gx, Gz = c["x"], c["z"], c["gamma"], c["Gx"], c["Gz"]
     fx = c["fx"]
     ld_x = -fx
-    theta = _abpg_theta_host(cfg, gamma, c)
+    Fk = fx + h.extra_psi(x)
+    theta = _abpg_theta(cfg, gamma, c)
     y = _comb(theta, x, z)
-    Gy = _comb(theta, Gx, Gz)
+    Gy = _fg.comb(theta, Gx, Gz)
+    M = _fg.inv_at(f, Gy, c["Minv"])
+    ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy)
+    g = f.grad_from_inv(M)
 
-    def attempt(gates, M, ld_y, g, gm, **extra):
-        z_new, cpx = _warm_prox(h, c, z, g, power(theta, gm - 1.0) * L)
+    def attempt(gm):
+        z_new, cpx = _warm_prox(h, c, z, g, theta ** (gm - 1.0) * L)
         x_new = _comb(theta, x, z_new)
         Gz_new = f.gram(z_new)
-        Gx_new = _comb(theta, Gx, Gz_new)
+        Gx_new = _fg.comb(theta, Gx, Gz_new)
         ld_xn, s_xn = _fg.anchored_logdet_shift(f, ld_y, 1.0, M, Gx_new,
-                                                Gx_new, gates)
-        q = dict(ld_xn=ld_xn, s_xn=s_xn, dxy=h.divergence(x_new, y),
-                 dzz=h.divergence(z_new, z), **extra)
-        if not cfg.checkdiv:
-            q["vd"] = vdot(g, x_new - y)
-        if _wants_gd(cfg):
-            q["gd"] = vdot(g, x_new - x)
-        s = _read_gated(gates, **q)
-        thg = power(theta, gm)
+                                                Gx_new)
+        dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
+        Gdr = dxy / dzz / theta ** gm
         if cfg.checkdiv:
-            s["fail"] = not s["dxy"] <= Gmargin * thg * s["dzz"]
+            fail = ~(dxy <= Gmargin * theta ** gm * dzz)
         else:
             # acceptance on the logdet shift (see fastgram)
-            s["fail"] = not (-s["s_xn"] <= s["vd"] + thg * L * s["dzz"]
-                             + _accept_delta(f, ld_x))
-        return z_new, x_new, Gz_new, Gx_new, cpx, s
+            fail = ~(-s_xn <= _plus(vdot(g, x_new - y)
+                                    + theta ** gm * L * dzz,
+                                    _accept_delta(f, ld_x)))
+        return _with_cpx(dict(gamma=gm, z=z_new, x=x_new, Gz=Gz_new,
+                              Gx=Gx_new, fxn=-ld_xn, dxy=dxy, dzz=dzz,
+                              Gdr=Gdr, fail=fail), cpx)
 
-    def first(gates):
-        M = _fg.inv_at(f, Gy, c["Minv"], gates)
-        ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy, gates)
-        g = f.grad_from_inv(M)
-        return (M, ld_y, g) + attempt(gates, M, ld_y, g, gamma,
-                                      psi=h.extra_psi(x))
-
-    gm, memo = gamma, prob["memo"]
-    M, ld_y, g, z_new, x_new, Gz_new, Gx_new, cpx, s = _gated(
-        first, memo["first"])
-    psi = s["psi"]
-    while s["fail"] and gm > 1.0:
-        gm = max(gm - delta, 1.0)
-        z_new, x_new, Gz_new, Gx_new, cpx, s = _gated(
-            lambda gates: attempt(gates, M, ld_y, g, gm), memo["rest"])
-
-    dxy, dzz = s["dxy"], s["dzz"]
-    Gdr = div(div(dxy, dzz), power(theta, gm))
-    Fk = fx + psi
-    theta_c, kk, z_new, Gz_new = _restart(
-        cfg, c["F_prev"], k, Fk, s.get("gd"), x_new, z_new, theta,
-        c["kk"] + 1, k_guard=False, Gx_new=Gx_new, Gz_new=Gz_new)
+    s = device_while(lambda s: s["fail"] & (s["gamma"] > 1.0),
+                     lambda s: attempt(torch.clamp_min(s["gamma"] - delta,
+                                                       1.0)),
+                     attempt(gamma), None, FG_EXPO_BODIES,
+                     "ABPG_expo fast_gram trials")
+    gamma, x_new, dzz = s["gamma"], s["x"], s["dzz"]
+    theta_c, kk, z_new, Gz_new = _restart_where(
+        cfg, c, k, Fk, g, x_new, s["z"], theta, c["kk"] + 1, k_guard=False,
+        Gx_new=s["Gx"], Gz_new=s["Gz"])
     c2 = dict(done=c["done"], x=x_new, z=z_new, theta=theta_c, kk=kk,
-              gamma=gm, F_prev=Fk, Gx=Gx_new, Gz=Gz_new, Minv=M,
-              fx=-s["ld_xn"])
+              gamma=gamma, F_prev=Fk, Gx=s["Gx"], Gz=Gz_new, Minv=M,
+              fx=s["fxn"])
     if "cpx" in c:
-        c2["cpx"] = cpx
-    return c2, dict(F=Fk, Gamma=gm, G=Gdr, theta=theta, dxy=dxy, dzz=dzz,
-                    _stop=dzz < prob["eps"])
+        c2["cpx"] = s["cpx"]
+    return c2, dict(F=Fk, Gamma=gamma, G=s["Gdr"], theta=theta,
+                    dxy=s["dxy"], dzz=dzz, _stop=dzz < prob["eps"])
 
 
 def ABPG_expo(f, h, L, x0, gamma0, maxitrs, epsilon=1e-14, delta=0.2,
@@ -678,19 +639,16 @@ def ABPG_expo(f, h, L, x0, gamma0, maxitrs, epsilon=1e-14, delta=0.2,
     ``fast_gram=True`` (or ``"ds"``): the stateful linear-Gram step (see
     ``BPG``), one fresh Gram per gamma trial."""
     x0 = _start(f, x0)
-    prob = dict(f=f, h=h, L=float(L), eps=float(epsilon), delta=float(delta),
-                Gmargin=float(Gmargin))
+    prob = dict(f=f, h=h, **_scalars(x0, L=L, eps=epsilon, delta=delta,
+                                     Gmargin=Gmargin))
+    carry = _device_carry(x0, z=x0, theta=1.0, kk=0, gamma=gamma0,
+                          F_prev=float("inf"))
     step, between = _abpg_expo_step, None
     if fast_gram:
-        carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
-                     gamma=float(gamma0), F_prev=float("inf"))
-        between = _fast_start(f, h, x0, prob, carry)
+        between = _fast_start(f, h, x0, carry)
         step = _abpg_expo_dopt_step
     else:
-        prob.update(_scalars(x0, L=L, eps=epsilon, delta=delta,
-                             Gmargin=Gmargin))
-        carry = _device_carry(x0, z=x0, theta=1.0, kk=0, gamma=gamma0,
-                              F_prev=float("inf"), fx=f.value(x0))
+        carry["fx"] = f.value(x0)
     cfg = _ABPGExpoCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
                        restart=bool(restart), restart_rule=str(restart_rule),
                        stochastic=_stoch_carry(f, carry, seed, fast_gram))
@@ -781,18 +739,7 @@ def _abpg_gain_step(cfg, prob, c, k):
                  dxy=s["dxy"], dzz=s["dzz"], _stop=s["dzz"] < eps))
 
 
-def _gain_theta(cfg, c, gam, G):
-    """theta of a gain trial: theta_1 at kk == 0, else from the Newton
-    equality or the closed form in G / G_1."""
-    theta_1, G_1 = c["theta"], c["G"]
-    if c["kk"] == 0:
-        return theta_1
-    if cfg.theta_eq:
-        return solve_theta_host(theta_1, gam, G / G_1)
-    alpha = G / G_1
-    return theta_1 * ((1.0 + alpha * (gam - 1.0)) / (gam * alpha + theta_1))
-
-
+@_grams_carried
 def _abpg_gain_dopt_step(cfg, prob, c, k):
     """ABPG_gain on a linear-Gram D-opt oracle (fast_gram=True).
 
@@ -803,66 +750,71 @@ def _abpg_gain_dopt_step(cfg, prob, c, k):
     Schulz inverse instead of a factorization, and logdets advanced by the
     identity logdet G' = logdet G - logdet(M G) + logdet(M G') for
     M ~= G'^{-1}, each factor a trace series or the oracle's factorization
-    (``fastgram``).  Each trial's three gates ride its one read."""
+    (``fastgram``).  JAX's bound on the trials is folded into ``fail``
+    (``t < _LS_MAX``), as there."""
     f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
     ls_inc, ls_dec, eps = prob["ls_inc"], prob["ls_dec"], prob["eps"]
     x, z, Gx, Gz = c["x"], c["z"], c["Gx"], c["Gz"]
+    G_1, theta_1 = c["G"], c["theta"]
     fx = c["fx"]
     ld_x = -fx
+    Fk = fx + h.extra_psi(x)
+    started = c["kk"] > 0
 
-    def attempt(gates, G, t, **extra):
-        theta = _gain_theta(cfg, c, gam, G)
+    def attempt(G, t):
+        if cfg.theta_eq:
+            theta = torch.where(started, solve_theta(theta_1, gam, G / G_1),
+                                theta_1)
+        else:
+            alpha = G / G_1
+            theta = torch.where(
+                started,
+                theta_1 * ((1.0 + alpha * (gam - 1.0))
+                           / (gam * alpha + theta_1)),
+                theta_1)
         y = _comb(theta, x, z)
-        Gy = _comb(theta, Gx, Gz)
-        M = _fg.inv_at(f, Gy, c["Minv"], gates)
+        Gy = _fg.comb(theta, Gx, Gz)
+        M = _fg.inv_at(f, Gy, c["Minv"])
         # logdet Gy = ld_x - logdet(M Gx)   [M ~= Gy^{-1}]
-        ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy, gates)
+        ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy)
         g = f.grad_from_inv(M)
-        z_new, cpx = _warm_prox(h, c, z, g,
-                                power(theta, gam - 1.0) * G * L)
+        z_new, cpx = _warm_prox(h, c, z, g, theta ** (gam - 1.0) * G * L)
         x_new = _comb(theta, x, z_new)
         Gz_new = f.gram(z_new)
-        Gx_new = _comb(theta, Gx, Gz_new)
+        Gx_new = _fg.comb(theta, Gx, Gz_new)
         # logdet Gx_new = ld_y + logdet(M Gx_new)
         ld_xn, s_xn = _fg.anchored_logdet_shift(f, ld_y, 1.0, M, Gx_new,
-                                                Gx_new, gates)
-        q = dict(ld_xn=ld_xn, s_xn=s_xn, dxy=h.divergence(x_new, y),
-                 dzz=h.divergence(z_new, z), **extra)
-        if not cfg.checkdiv:
-            q["vd"] = vdot(g, x_new - y)
-        if _wants_gd(cfg):
-            q["gd"] = vdot(g, x_new - x)
-        s = _read_gated(gates, **q)
-        thg = power(theta, gam)
-        Gdr = div(div(s["dxy"], s["dzz"]), thg)
+                                                Gx_new)
+        dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
+        early = dzz < eps
+        Gdr = dxy / dzz / theta ** gam
         if cfg.checkdiv:
-            fail = not Gdr <= G
+            fail = ~(Gdr <= G)
         else:
             # acceptance on the logdet shift (fxn - fy = -s_xn): immune to
             # O(1) value cancellation (see fastgram.anchored_logdet_shift)
-            fail = not (-s["s_xn"] <= s["vd"] + thg * G * L * s["dzz"]
-                        + _accept_delta(f, ld_x))
-        return dict(s, G=G, theta=theta, z=z_new, x=x_new, Gz=Gz_new,
-                    Gx=Gx_new, Minv=M, cpx=cpx, Gdr=Gdr, t=t,
-                    fail=fail and not s["dzz"] < eps and t < _LS_MAX)
+            fail = ~(-s_xn <= _plus(vdot(g, x_new - y)
+                                    + theta ** gam * G * L * dzz,
+                                    _accept_delta(f, ld_x)))
+        s = dict(G=G, theta=theta, z=z_new, x=x_new, Gz=Gz_new, Gx=Gx_new,
+                 Minv=M, fxn=-ld_xn, dxy=dxy, dzz=dzz, Gdr=Gdr, t=t,
+                 fail=fail & ~early & (t < _LS_MAX))
+        if _wants_gd(cfg):  # the gradient restart's <g, x+ - x>
+            s["g"] = g
+        return _with_cpx(s, cpx)
 
-    memo = prob["memo"]["first"]  # every attempt has the same gates
-    s = _gated(lambda gates: attempt(gates, c["G"] / ls_dec, 0,
-                                     psi=h.extra_psi(x)), memo)
-    psi = s["psi"]
-    while s["fail"]:
-        G, t = s["G"] * ls_inc, s["t"] + 1
-        s = _gated(lambda gates: attempt(gates, G, t), memo)
+    s = device_while(lambda s: s["fail"],
+                     lambda s: attempt(s["G"] * ls_inc, s["t"] + 1),
+                     attempt(G_1 / ls_dec, torch.zeros_like(c["kk"])), None,
+                     FG_GAIN_BODIES, "ABPG_gain fast_gram trials")
     G, theta = s["G"], s["theta"]
-
-    sumlogG = c["sumlogG"] + log(G)
-    Gavg = exp(sumlogG / (gam + float(k)))
-    Fk = fx + psi
-    theta_c, kk, z_new, Gz_new = _restart(
-        cfg, c["F_prev"], k, Fk, s.get("gd"), s["x"], s["z"], theta,
-        c["kk"] + 1, k_guard=False, Gx_new=s["Gx"], Gz_new=s["Gz"])
+    sumlogG = c["sumlogG"] + torch.log(G)
+    Gavg = torch.exp(sumlogG / (gam + k))
+    theta_c, kk, z_new, Gz_new = _restart_where(
+        cfg, c, k, Fk, s.get("g"), s["x"], s["z"], theta, c["kk"] + 1,
+        k_guard=False, Gx_new=s["Gx"], Gz_new=s["Gz"])
     c2 = dict(done=c["done"], x=s["x"], z=z_new, theta=theta_c, kk=kk,
-              G=G, sumlogG=sumlogG, F_prev=Fk, fx=-s["ld_xn"], Gx=s["Gx"],
+              G=G, sumlogG=sumlogG, F_prev=Fk, fx=s["fxn"], Gx=s["Gx"],
               Gz=Gz_new, Minv=s["Minv"])
     if "cpx" in c:
         c2["cpx"] = s["cpx"]
@@ -888,22 +840,18 @@ def ABPG_gain(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, G0=1,
     oracle with the fast-Gram protocol (``DOptimalObj``): one fresh Gram
     per gain trial (see ``_abpg_gain_dopt_step``)."""
     x0 = _start(f, x0)
-    gam, G0 = float(gamma), float(G0)
-    prob = dict(f=f, h=h, L=float(L), gamma=gam, eps=float(epsilon),
-                ls_inc=float(ls_inc), ls_dec=float(ls_dec))
+    prob = dict(f=f, h=h, **_scalars(x0, L=L, gamma=gamma, eps=epsilon,
+                                     ls_inc=ls_inc, ls_dec=ls_dec))
+    G0t = _num(x0, float(G0))
+    carry = _device_carry(x0, z=x0, theta=1.0, kk=0, G=G0t,
+                          sumlogG=prob["gamma"] * torch.log(G0t),
+                          F_prev=float("inf"))
     step, between = _abpg_gain_step, None
     if fast_gram:
-        carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0, G=G0,
-                     sumlogG=gam * log(G0), F_prev=float("inf"))
-        between = _fast_start(f, h, x0, prob, carry)
+        between = _fast_start(f, h, x0, carry)
         step = _abpg_gain_dopt_step
     else:
-        prob.update(_scalars(x0, L=L, gamma=gam, eps=epsilon, ls_inc=ls_inc,
-                             ls_dec=ls_dec))
-        G0t = _num(x0, G0)
-        carry = _device_carry(x0, z=x0, theta=1.0, kk=0, G=G0t,
-                              sumlogG=prob["gamma"] * torch.log(G0t),
-                              F_prev=float("inf"), fx=f.value(x0))
+        carry["fx"] = f.value(x0)
     cfg = _ABPGGainCfg(theta_eq=bool(theta_eq), checkdiv=bool(checkdiv),
                        restart=bool(restart), restart_rule=str(restart_rule),
                        stochastic=_stoch_carry(f, carry, seed, fast_gram))
@@ -950,49 +898,42 @@ def _abda_step(cfg, prob, c, k):
                  _stop=dzz < prob["eps"]))
 
 
+@_grams_carried
 def _abda_dopt_step(cfg, prob, c, k):
     """ABDA on a linear-Gram D-opt oracle (fast_gram=True): the gradient
     from the combined-Gram Schulz inverse, F through anchored trace-series
-    logdet shifts (see fastgram).  One read per iteration, its three gates
-    riding along."""
+    logdet shifts (see fastgram)."""
     f, h, L, gam = prob["f"], prob["h"], prob["L"], prob["gamma"]
     x, z, Gx, Gz = c["x"], c["z"], c["Gx"], c["Gz"]
     fx = c["fx"]
     ld_x = -fx
-    theta = _abpg_theta_host(cfg, gam, c)
+    Fk = fx + h.extra_psi(x)
+    theta = _abpg_theta(cfg, gam, c)
     y = _comb(theta, x, z)
-    Gy = _comb(theta, Gx, Gz)
-    w = power(theta, 1.0 - gam)
+    Gy = _fg.comb(theta, Gx, Gz)
+    M = _fg.inv_at(f, Gy, c["Minv"])
+    g = f.grad_from_inv(M)
+    w = theta ** (1.0 - gam)
+    gavg = c["gavg"] + w * g
     csum = c["csum"] + w
-
-    def run(gates):
-        M = _fg.inv_at(f, Gy, c["Minv"], gates)
-        g = f.grad_from_inv(M)
-        gavg = c["gavg"] + w * g
-        if "cpx" in c and hasattr(h, "prox_map_warm"):
-            z_new, cpx = h.prox_map_warm(gavg / csum, L / csum, c["cpx"])
-        else:
-            z_new, cpx = h.prox_map(gavg / csum, L / csum), None
-        x_new = _comb(theta, x, z_new)
-        Gz_new = f.gram(z_new)
-        Gx_new = _comb(theta, Gx, Gz_new)
-        ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy, gates)
-        ld_xn = _fg.anchored_logdet(f, ld_y, 1.0, M, Gx_new, Gx_new, gates)
-        s = _read_gated(gates, psi=h.extra_psi(x), ld_xn=ld_xn,
-                        dxy=h.divergence(x_new, y), dzz=h.divergence(z_new, z))
-        return M, gavg, z_new, x_new, Gz_new, Gx_new, cpx, s
-
-    M, gavg, z_new, x_new, Gz_new, Gx_new, cpx, s = _gated(
-        run, prob["memo"]["first"])
-    Fk = fx + s["psi"]
-    Gdr = div(div(s["dxy"], s["dzz"]), power(theta, gam))
+    if "cpx" in c and hasattr(h, "prox_map_warm"):
+        z_new, cpx = h.prox_map_warm(gavg / csum, L / csum, c["cpx"])
+    else:
+        z_new, cpx = h.prox_map(gavg / csum, L / csum), None
+    x_new = _comb(theta, x, z_new)
+    Gz_new = f.gram(z_new)
+    Gx_new = _fg.comb(theta, Gx, Gz_new)
+    ld_y = _fg.anchored_logdet(f, ld_x, -1.0, M, Gx, Gy)
+    ld_xn = _fg.anchored_logdet(f, ld_y, 1.0, M, Gx_new, Gx_new)
+    dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
+    Gdr = dxy / dzz / theta ** gam
     c2 = dict(done=c["done"], x=x_new, z=z_new, theta=theta, kk=c["kk"] + 1,
               gavg=gavg, csum=csum, F_prev=Fk, Gx=Gx_new, Gz=Gz_new, Minv=M,
-              fx=-s["ld_xn"])
+              fx=-ld_xn)
     if "cpx" in c:
         c2["cpx"] = cpx
-    return c2, dict(F=Fk, G=Gdr, theta=theta, dxy=s["dxy"], dzz=s["dzz"],
-                    _stop=s["dzz"] < prob["eps"])
+    return c2, dict(F=Fk, G=Gdr, theta=theta, dxy=dxy, dzz=dzz,
+                    _stop=dzz < prob["eps"])
 
 
 def ABDA(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=True,
@@ -1004,20 +945,14 @@ def ABDA(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, theta_eq=True,
     Returns ``(x, F, G, T)``.  ``fast_gram=True`` (or ``"ds"``): the
     stateful linear-Gram step (see ``BPG``)."""
     x0 = _start(f, x0)
-    prob = dict(f=f, h=h, L=float(L), gamma=float(gamma),
-                eps=float(epsilon))
+    prob = dict(f=f, h=h, **_scalars(x0, L=L, gamma=gamma, eps=epsilon))
+    carry = _device_carry(x0, z=x0, theta=1.0, kk=0,
+                          gavg=torch.zeros_like(x0), csum=0.0,
+                          F_prev=float("inf"))
     step, between = _abda_step, None
     if fast_gram:
-        carry = dict(done=False, x=x0, z=x0, theta=1.0, kk=0,
-                     gavg=torch.zeros_like(x0), csum=0.0,
-                     F_prev=float("inf"))
-        between = _fast_start(f, h, x0, prob, carry, warm="prox_map_warm")
+        between = _fast_start(f, h, x0, carry, warm="prox_map_warm")
         step = _abda_dopt_step
-    else:
-        prob.update(_scalars(x0, L=L, gamma=gamma, eps=epsilon))
-        carry = _device_carry(x0, z=x0, theta=1.0, kk=0,
-                              gavg=torch.zeros_like(x0), csum=0.0,
-                              F_prev=float("inf"))
     cfg = _ABDACfg(theta_eq=bool(theta_eq),
                    stochastic=_stoch_carry(f, carry, seed, fast_gram))
     carry, hist, T = _run(

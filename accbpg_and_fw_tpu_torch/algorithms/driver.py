@@ -9,17 +9,17 @@ that holds a bool ``done`` and ``hist`` a dict of scalars that holds
 ``_stop`` (the stopping test fired at this iteration, which is the last
 one recorded, matching the reference's ``break``).
 
-A chunk runs in one of three ways, chosen from the carry's types and
+A chunk runs in one of two ways, chosen from the carry's types and
 device before anything runs (``chunk_mode``):
 
 * ``"graph"``: ``done`` and every other leaf a plain tensor on one CUDA
   device, and no oracle of the problem that reads the host inside its
   calls (``host_reads``): the exact D-opt engine, the FW and Bregman
-  drivers' plain steps (their stochastic runs too: the noise key is a
-  device tensor, ``_rng``) and the extras.  The chunk is captured once
-  as a ``torch.cuda.CUDAGraph`` of ``span`` iterations (the whole chunk
-  unless the caller asks for fewer) and replayed back to back until the
-  chunk is done, the counterpart of JAX's compiled chunk: the carry, the
+  drivers' steps (the ``fast_gram`` steps too, and the stochastic runs:
+  the noise key is a device tensor, ``_rng``) and the extras.  The chunk
+  is captured once as a ``torch.cuda.CUDAGraph`` of ``span`` iterations
+  (the whole chunk unless the caller asks for fewer) and replayed back to
+  back until the chunk is done, the counterpart of JAX's compiled chunk: the carry, the
   problem's tensors (those of its oracles included) and the first
   iteration ``k0`` go in through static buffers, ``k`` reaches the step as
   an int64 tensor on the card (JAX passes a traced int32), and the
@@ -30,8 +30,9 @@ device before anything runs (``chunk_mode``):
   search, a Newton solve) is a ``device_while``: in the graph it is a fixed
   number of masked bodies, and an iteration whose loop needs more sets an
   overflow flag that freezes the carry there without stopping the run;
-  the host reads the flag with the rows, runs that one iteration again on
-  the card in the loop's Python form, and replays from the next one
+  the host reads the flag after each span, launches no span after one
+  that overflowed, runs that one iteration again on the card in the
+  loop's Python form, and replays from the next one
   (``GRAPH_STATS["continuations"]``).  Graphs are cached within the
   process on JAX's key (step, cfg, chunk, span, and the shapes, dtypes and
   devices of problem and carry; see ``graph_key``), so a second solve of
@@ -46,11 +47,6 @@ device before anything runs (``chunk_mode``):
   run, whose scalars are replicated) and a problem whose oracle reads the
   host.  Once ``done`` is set the carry freezes through a ``torch.where``
   select, as the JAX scan body does.
-* ``"host"``: ``done`` a Python bool (the ``fast_gram`` Bregman steps,
-  whose line searches read each trial's decision back): the step keeps its scalars on the host,
-  returns host numbers in ``hist``, and the chunk ends at the stop row,
-  which is the iteration the JAX driver's frozen carry stops at.  The
-  carry may mix tensors with Python floats, ints and bools.
 
 The chunk boundary is where ``between_chunks`` runs, where checkpoints are
 written and where the verbose table is printed.
@@ -210,13 +206,11 @@ def host_reads(problem, cfg=None):
 
 
 def chunk_mode(carry, problem=None, cfg=None):
-    """How a chunk of this carry runs: ``"host"`` for a Python-bool
-    ``done``; ``"graph"`` where every leaf is a plain tensor on one CUDA
-    device (outside ``eager_chunks``) and no oracle of ``problem`` and no
-    callable of ``cfg`` reads the host; else ``"eager"`` (a CPU carry, a
-    host leaf, a DTensor, or ``host_reads``)."""
-    if isinstance(carry["done"], bool):
-        return "host"
+    """How a chunk of this carry runs: ``"graph"`` where every leaf is a
+    plain tensor on one CUDA device (outside ``eager_chunks``) and no
+    oracle of ``problem`` and no callable of ``cfg`` reads the host; else
+    ``"eager"`` (a CPU carry, a host leaf, a DTensor, or
+    ``host_reads``)."""
     if _EAGER[0]:
         return "eager"
     leaves = list(carry.values())
@@ -470,10 +464,14 @@ class _GraphChunk:
 
     def replay(self, carry, k0, limit):
         """Run iterations ``k0 <= k < limit`` (at most a chunk) from
-        ``carry``, span after span with no read between them; returns the
-        carry (the static buffers), the host histories, the carry's ``done``
-        and whether an iteration overflowed (its row and those after it
-        are invalid), all read in one copy."""
+        ``carry``, span after span; returns the carry (the static
+        buffers), the host histories, the carry's ``done`` and whether an
+        iteration overflowed (its row and those after it are invalid), all
+        read in one copy.  Between spans the overflow flag is read, and no
+        span is launched after one that overflowed: the rest of the chunk
+        waits for the continuation.  (Launching the next span before the
+        read would keep the card busy through the read, but would replay
+        a whole span frozen at every continuation.)"""
         for k, v in carry.items():
             if v is not self.carry[k]:
                 self.carry[k].copy_(v)
@@ -486,6 +484,9 @@ class _GraphChunk:
             if spans > 1:
                 self.rows[:, j * self.span:(j + 1) * self.span].copy_(
                     self.hist)
+            if j + 1 < spans and bool(self.halted):
+                spans = j + 1
+                break
         GRAPH_STATS["replays"] += spans
         packed = (self.hist if spans == 1 else
                   self.rows[:, :spans * self.span]).cpu().numpy()
@@ -570,10 +571,10 @@ def _frozen_steps(step, carry, k0, limit):
 class _ReplicatedScalars(TorchFunctionMode):
     """Inside a sharded eager chunk: each 0-d DTensor that holds a partial
     (a sum or an extreme over a sharded axis) is reduced before an
-    operation takes it, so the steps' scalars are replicated, as the host
-    reads of the Python-float steps made them.  DTensor's dispatch cache
-    cannot take a partial scalar met by a Python number and later by a
-    tensor (``Partial + 0.0`` before ``Partial + Replicate`` raises)."""
+    operation takes it, so the steps' scalars are replicated.  DTensor's
+    dispatch cache cannot take a partial scalar met by a Python number and
+    later by a tensor (``Partial + 0.0`` before ``Partial + Replicate``
+    raises)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         def rep(a):
@@ -597,20 +598,6 @@ def _device_chunk(step, carry, k0, limit):
                    if isinstance(rows[0][name], torch.Tensor)
                    else np.asarray([r[name] for r in rows]))
             for name in rows[0]}
-    return carry, hist
-
-
-def _host_chunk(step, carry, k0, limit):
-    """Iterations ``k0 <= k < limit`` of a step with host scalars, ending
-    at the stop row (inclusive)."""
-    rows = []
-    for k in range(k0, limit):
-        carry, h = step(carry, k)
-        rows.append(dict(h, _valid=True))
-        if h["_stop"]:
-            carry = dict(carry, done=True)
-            break
-    hist = {name: np.asarray([r[name] for r in rows]) for name in rows[0]}
     return carry, hist
 
 
@@ -706,7 +693,6 @@ def run_driver(
         else:
             graph = _graph_chunk(step, None, chunk, None, carry,
                                  cached=False, span=graph_span)
-    chunk_fn = {"host": _host_chunk, "eager": _device_chunk}.get(mode)
 
     t0 = time.time() - t_spent
     done = bool(full(carry["done"]))
@@ -718,7 +704,7 @@ def run_driver(
         if graph is not None:
             carry, hist, done = _graph_run(graph, step, carry, k_next, limit)
         else:
-            carry, hist = chunk_fn(step, carry, k_next, limit)
+            carry, hist = _device_chunk(step, carry, k_next, limit)
             done = bool(full(carry["done"]))
         launched = len(hist["_valid"])
         t_b = time.time() - t0

@@ -21,37 +21,32 @@ Schulz from the carried inverse when ``||I - M_prev G||_F^2 <=
 WARM_TAU2`` and reseeds it from ``f.inv_seed`` otherwise, and
 ``anchored_logdet_shift`` takes the series when ``||I - M G||_F^2 <=
 SERIES_TAU2`` and ``f.logdet_full`` otherwise.  JAX decides with a
-``lax.cond`` on the device; here the host compares the same float64 sum
-with the same threshold (a NaN takes the fallback, as there), so every
-branch taken is JAX's.  Only the branch taken is computed, never both.
+``lax.cond`` on the device; here both branches are computed on the
+device and ``torch.where`` takes one on the same float64 sum against the
+same threshold (a NaN sum takes the fallback, as there), so no gate reads
+the host and a graph chunk captures it.  The branch not taken may hold a
+NaN (``inv_seed`` of a Gram that is not positive definite) or an inf (the
+series past its gate); the select drops it.
 
-A function called alone (``gates=None``) reads its gate at once: one host
-sync.  The drivers pass a ``Gates`` record instead, which lets the gate
-ride the read that the line-search trial makes anyway: the trial runs on
-a guess of each gate's branch (the branch the same gate of the previous
-trial settled on, the common one at first), the trial's read brings the
-gate sums back with its scalars, and only when one of them says
-otherwise does the trial run again, with that decision fixed
-(``Gates.check``).  A trial whose guesses hold costs no read of its own;
-each rerun costs the trial's reads once more.  ``COUNTS`` tallies the
-gates settled, the fallbacks among them and the reruns, for the
-measurement scripts.
+``TALLY`` counts, per gate, the decisions taken in the Python form (no
+graph chunk being built), one read each, for the measurement scripts.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._scalar import read
+from .. import _loops
+from .._device import full
 
 SERIES_TAU2 = 0.03 ** 2  # ||E||_F^2 gate for the 8-term logdet series
 WARM_TAU2 = 0.05 ** 2    # gate for warm-starting Schulz from a carried M
 
 _PROTOCOL = ("gram", "logdet_full", "inv_seed", "grad_from_inv")
 
-#: gates settled in the drivers' trials, fallbacks taken among them, and
-#: trial reruns (each rerun is one more read of a trial's scalars)
-COUNTS = {"gates": 0, "fallbacks": 0, "reruns": 0}
+#: set to a dict to tally, per gate, the decisions of the Python-form runs
+#: (``{"warm start" | "series": {True: common, False: fallback}}``)
+TALLY = [None]
 
 
 def supports_fast_gram(f):
@@ -66,52 +61,15 @@ def require_fast_gram(f):
             "(DOptimalObj or DOptimalObjMixed)")
 
 
-class Gates:
-    """The branch decisions of one trial, taken without reads of their own.
-
-    ``take`` answers a gate (True: the common branch): the decision fixed
-    by an earlier run of the trial where there is one, else the guess
-    (``guess``: the decisions of the previous trial of the same kind,
-    True past its end), and keeps the gate's sum.  ``pending`` lists the
-    sums for the trial's read, and ``check`` compares them with the
-    decisions used (``used``): where one was wrong, it fixes the first
-    wrong decision (those after it rest on its result) and ``ok`` turns
-    False, so the caller runs the trial again.  Each run fixes one more
-    gate, so a trial runs at most once more than it has gates."""
-
-    def __init__(self, guess=()):
-        self.guess = list(guess)
-        self.known, self.used, self.vals = [], [], []
-        self.ok = True
-
-    def take(self, q, tau):
-        i = len(self.vals)
-        self.vals.append((q, tau))
-        d = (self.known[i] if i < len(self.known) else
-             self.guess[i] if i < len(self.guess) else True)
-        self.used.append(d)
-        return d
-
-    def pending(self):
-        return [q for q, _ in self.vals]
-
-    def check(self, got):
-        for i, ((_, tau), v, d) in enumerate(zip(self.vals, got, self.used)):
-            if (v <= tau) != d:  # a NaN sum takes the fallback, as in JAX
-                self.known = self.used[:i] + [not d]
-                self.used, self.vals, self.ok = [], [], False
-                COUNTS["reruns"] += 1
-                return
-        COUNTS["gates"] += len(self.used)
-        COUNTS["fallbacks"] += self.used.count(False)
-        self.ok = True
-
-
-def _take(gates, q, tau):
-    """Whether the gate with sum ``q`` takes its common branch."""
-    if gates is None:
-        return read(q)[0] <= tau
-    return gates.take(q, tau)
+def _gate(name, q, tau):
+    """Whether the gate with sum ``q`` takes its common branch, a 0-d bool
+    tensor (a NaN sum takes the fallback, as in JAX)."""
+    ok = q <= tau
+    if TALLY[0] is not None and _loops.OVERFLOW[0] is None:
+        counts = TALLY[0].setdefault(name, {})
+        d = bool(full(ok))
+        counts[d] = counts.get(d, 0) + 1
+    return ok
 
 
 def schulz(M, G, steps=4):
@@ -127,13 +85,22 @@ def _eye(G):
     return torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
 
 
-def inv_at(f, G, M_prev, gates=None):
+def comb(theta, A, B):
+    """(1 - theta) A + theta B of two m x m Grams, the drivers' convex
+    combination; a sharded solve's replicated theta enters as the value
+    every rank holds."""
+    theta = full(theta)
+    return (1.0 - theta) * A + theta * B
+
+
+def inv_at(f, G, M_prev):
     """Inverse of the m x m Gram G, warm-started from a carried inverse of
     a nearby Gram when quadratic Schulz convergence is certain, reseeded
-    from the oracle's factorization otherwise."""
+    from the oracle's factorization otherwise: both seeds computed, the
+    gate selecting one, and the Schulz polish run once on it."""
     E0 = _eye(G) - M_prev @ G
-    warm = _take(gates, torch.sum(E0 * E0), WARM_TAU2)
-    return schulz(M_prev if warm else f.inv_seed(G), G)
+    warm = _gate("warm start", torch.sum(E0 * E0), WARM_TAU2)
+    return schulz(torch.where(warm, M_prev, f.inv_seed(G)), G)
 
 
 def series_logdet(E):
@@ -158,8 +125,7 @@ def series_logdet(E):
              + t8 / 8)
 
 
-def anchored_logdet_shift(f, ld_anchor, sign, M, G_series, G_target,
-                          gates=None):
+def anchored_logdet_shift(f, ld_anchor, sign, M, G_series, G_target):
     """(logdet(G_target), shift) from a known anchor logdet.
 
     ``sign=+1``: target = the G entering the series, anchor = the point M
@@ -167,7 +133,9 @@ def anchored_logdet_shift(f, ld_anchor, sign, M, G_series, G_target,
     ``sign=-1``: target = the point M inverts, anchor = the series G:
                   ld_target = ld_anchor - logdet(M G_series).
     Falls back to the oracle's full factorization of G_target when the
-    series residual is too large.
+    series residual is too large (both computed, the gate selecting).  A
+    sharded solve's replicated anchor enters as the value every rank holds,
+    as the Grams are.
 
     The shift (ld_target - ld_anchor) is returned separately because it is
     the series value itself, absolutely accurate to ~1e-16 even when the
@@ -177,24 +145,23 @@ def anchored_logdet_shift(f, ld_anchor, sign, M, G_series, G_target,
     the fallback the shift is a difference, but there ||E|| > 0.03, so it
     is large and the cancellation harmless.
     """
+    ld_anchor = full(ld_anchor)
     E = _eye(G_series) - M @ G_series
-    if _take(gates, torch.sum(E * E), SERIES_TAU2):
-        s = sign * series_logdet(E)
-    else:
-        s = f.logdet_full(G_target) - ld_anchor
+    ok = _gate("series", torch.sum(E * E), SERIES_TAU2)
+    s = torch.where(ok, sign * series_logdet(E),
+                    f.logdet_full(G_target) - ld_anchor)
     return ld_anchor + s, s
 
 
-def anchored_logdet(f, ld_anchor, sign, M, G_series, G_target, gates=None):
+def anchored_logdet(f, ld_anchor, sign, M, G_series, G_target):
     """logdet(G_target) from a known anchor (see anchored_logdet_shift)."""
-    return anchored_logdet_shift(f, ld_anchor, sign, M, G_series, G_target,
-                                 gates)[0]
+    return anchored_logdet_shift(f, ld_anchor, sign, M, G_series,
+                                 G_target)[0]
 
 
 def init_state(f, x0):
     """Gram, inverse and logdet at the starting point: ``{"G0", "M0",
-    "ld0"}``, the logdet a 0-d tensor.  Whole-matrix operations only (no
-    per-scalar device work); the driver reads ``ld0`` once."""
+    "ld0"}``, the logdet a 0-d tensor (no read)."""
     G0 = f.gram(x0)
     return dict(G0=G0, M0=schulz(f.inv_seed(G0), G0), ld0=f.logdet_full(G0))
 
@@ -203,10 +170,10 @@ def refresh_state(f, x, z, with_z=True):
     """Chunk-boundary recontraction of the carried Grams, inverse and
     logdet from the exact iterates, so combination and series rounding
     cannot accumulate past one chunk.  Returns the recomputed carry
-    entries (``Gx``, ``Minv``, ``Gz`` with ``with_z``, and ``fx`` as a
-    host float: one read)."""
+    entries (``Gx``, ``Minv``, ``Gz`` with ``with_z``, and ``fx``), all
+    tensors on the device, with no read."""
     Gx = f.gram(x)
-    out = {"Gx": Gx, "fx": -read(f.logdet_full(Gx))[0],
+    out = {"Gx": Gx, "fx": -f.logdet_full(Gx),
            "Minv": schulz(f.inv_seed(Gx), Gx)}
     if with_z:
         out["Gz"] = f.gram(z)

@@ -13,9 +13,7 @@ A guarded step changes nothing once ``|phi| <= 1e-6 theta``, so the
 unrolled steps and the continuation are one loop of at most
 ``max(unroll, max_iters)`` steps that stops at the first step whose
 residual passes the test; in a graph chunk it is ``NEWTON_BODIES``
-masked steps.  ``solve_theta_host``
-is the same recurrence in Python floats (IEEE doubles) for the
-``fast_gram`` steps, which keep theta on the host.
+masked steps.
 """
 
 from __future__ import annotations
@@ -23,7 +21,6 @@ from __future__ import annotations
 import torch
 
 from .._loops import device_while
-from .._scalar import div, power
 
 # Masked Newton steps of ``solve_theta`` in a graph chunk (past them the
 # iteration runs again in the loop's Python form).  ABPG_gain 30x10000
@@ -52,22 +49,4 @@ def solve_theta(theta, gamma, gainratio=1.0, max_iters=64, unroll=12):
     t, _ = device_while(lambda s: torch.abs(s[1]) > eps, body,
                         (theta, phi(theta)), max(int(max_iters), int(unroll)),
                         NEWTON_BODIES, "theta Newton")
-    return t
-
-
-def solve_theta_host(theta, gamma, gainratio=1.0, max_iters=64, unroll=12):
-    """``solve_theta`` in Python floats: the host-mode steps' form."""
-    theta, gamma, gainratio = float(theta), float(gamma), float(gainratio)
-    ckg = div(power(theta, gamma), gainratio)
-    eps = 1e-6 * theta
-
-    def phi(t):
-        return power(t, gamma) - ckg * (1.0 - t)
-
-    t, ph = theta, phi(theta)
-    it, limit = 0, max(int(max_iters), int(unroll))
-    while abs(ph) > eps and it < limit:
-        t = t - div(ph, gamma * power(t, gamma - 1.0) + ckg)
-        ph = phi(t)
-        it += 1
     return t

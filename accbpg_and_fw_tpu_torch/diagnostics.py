@@ -31,12 +31,11 @@ def debug_mode(nans: bool = True, infs: bool = False):
     JAX's ``jax_debug_nans`` catches the fault at the faulting primitive.
     Eager PyTorch has no such hook short of a sync after every operation,
     so the check sits where the port reads values back anyway: every
-    ``_scalar.read`` (each line-search trial's scalars, the prox's Newton
-    sums) and every chunk boundary of ``run_driver`` (the chunk's
-    histories).  A fault is caught at the first host read after the
-    operation that produced it.  As with ``jax_debug_nans``, a line-search
-    trial that leaves the domain (whose NaN the search would otherwise
-    treat as a failed trial) raises too."""
+    ``_scalar.read`` and every chunk boundary of ``run_driver`` (the
+    chunk's histories).  A fault is caught at the first host read after the
+    operation that produced it.  A NaN that no read sees does not raise:
+    a rejected line-search trial's (the search counts it a failure), or a
+    ``fast_gram`` gate's branch that the select did not take."""
     old = list(_scalar.DEBUG)
     _scalar.DEBUG[:] = [bool(nans), bool(infs)]
     try:

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import torch
 
-from .._scalar import read
 from .base import LegendreOracle, fnorm, vdot
 from .dual_prox import dual_prox
 from .roots import (bisect_monotone, project_simplex_burg,
@@ -107,8 +106,8 @@ class BurgEntropySimplex(BurgEntropy):
     per Newton step).  ``use_pallas=True`` takes the one-kernel multiplier
     of ``ops/simplex.py`` instead: the Hopper kernel on CUDA (one launch, no
     host sync), its plain version on the CPU.  Opt-in, as in JAX.  The
-    warm-started pair returns the multiplier as a Python float, read once,
-    for the ``fast_gram`` steps that carry it on the host.
+    warm-started pair returns the multiplier as a 0-d tensor, as JAX does,
+    for the ``fast_gram`` steps that carry it (no read).
     """
 
     def __init__(self, eps=1e-8, use_pallas=False):
@@ -129,7 +128,7 @@ class BurgEntropySimplex(BurgEntropy):
     def prox_map_warm(self, g, L, c_prev):
         gg = g / L
         c = simplex_inv_multiplier(gg, self.eps, c_warm=c_prev)
-        return torch.div(1.0, gg + c), read(c)[0]
+        return torch.div(1.0, gg + c), c
 
     def div_prox_map_warm(self, y, g, L, c_prev):
         return self.prox_map_warm(g + torch.div(L, y), L, c_prev)

@@ -21,6 +21,13 @@ from .._loops import device_while
 # with the default h took 8 in 17276 of 17991 calls over 9000 iterations
 # under ``eager_chunks`` on the card, never more (PERF.md).
 NEWTON_BODIES = 8
+# The same for a warm-started call (``c_warm``: the fast_gram steps carry
+# the multiplier).  The warm start does not save passes: ABPG_gain
+# 30x10000 with fast_gram took 7 in 10886 of 17993 calls over 9000
+# iterations under ``eager_chunks`` on the card, 2 in 4758, more than 13
+# in 26 and at most 19; as graphs 8 / 12 / 13 / 14 bodies took 77.6 /
+# 22.6 / 18.0 / 20.5 s for 2000 iterations (PERF.md).
+WARM_NEWTON_BODIES = 13
 
 
 def _f64(a, like=None):
@@ -84,7 +91,8 @@ def simplex_inv_multiplier(gg, eps, max_newton=100, c_warm=None):
     * two unconditional polish steps.
 
     Returns ``c`` as a 0-d tensor on ``gg``'s device, with no host read in
-    a graph chunk (``NEWTON_BODIES`` masked passes there).
+    a graph chunk (``NEWTON_BODIES`` masked passes there, or
+    ``WARM_NEWTON_BODIES`` with ``c_warm``).
     """
     gg = _f64(gg)
     eps = float(eps)
@@ -113,9 +121,11 @@ def simplex_inv_multiplier(gg, eps, max_newton=100, c_warm=None):
         fc_new, fpc_new = resid_and_deriv(c_new)
         return c_new, torch.where(c_new == c, 0.0, fc_new), fpc_new
 
-    c, fc, fpc = device_while(lambda s: torch.abs(s[1]) > eps, newton,
-                              (c,) + resid_and_deriv(c), int(max_newton),
-                              NEWTON_BODIES, "multiplier Newton")
+    warm = c_warm is not None
+    c, fc, fpc = device_while(
+        lambda s: torch.abs(s[1]) > eps, newton, (c,) + resid_and_deriv(c),
+        int(max_newton), WARM_NEWTON_BODIES if warm else NEWTON_BODIES,
+        "warm multiplier Newton" if warm else "multiplier Newton")
     # two polish steps (the second one's residual is never used)
     c_new = c - fc / fpc
     fc_new, fpc = resid_and_deriv(c_new)

@@ -4,7 +4,7 @@
     python3 chip_smoke.py --blocks-only [--root DIR] [--solves N]
                           [--gain-iters N]
     python3 chip_smoke.py --micro
-    python3 chip_smoke.py --bodies
+    python3 chip_smoke.py --bodies [--extras-only | --fastgram-only]
 
 With ``--micro`` it builds and runs ``csrc/micro_cluster.cu``: the clocks
 of the primitives the cluster kernels are built from (an exchange across a
@@ -23,10 +23,15 @@ tally, then as graphs of 256 and of 32 iterations at the bodies that
 cover 90%, 99% and 99.9% of their iterations; then the extras of phase
 4k (AIBM, UniversalGM and AdaptFGM on the Poisson problem, the
 primal-dual study with its line search) the same way (``--extras-only``
-runs this part alone); last, ABPG_gain's first capture right after its
-9000 eager iterations (where a capture once failed), retried with the
-collector off and with ``capture_error_mode="thread_local"`` if it
-fails.
+runs this part alone); then the fast_gram paths (ABPG_gain 30x10000,
+BPG-LS and ABPG_expo 30x1000 with ``fast_gram=True``) eagerly over their
+9000 iterations with both tallies (the loops' bodies, the gates'
+fallbacks), then as graphs at the trials, and on ABPG_gain the warm
+multiplier's passes, that cover 90%, 99% and 99.9% of them
+(``--fastgram-only`` runs this part alone); last, ABPG_gain's first
+capture right after its 9000 eager iterations (where a capture once
+failed), retried with the collector off and with
+``capture_error_mode="thread_local"`` if it fails.
 
 With ``--blocks-only`` it prints only the lazy-H kernel's block times
 (1000x5000, and K=3 of 1000x2000), the dense kernel's block times (B=1 and
@@ -119,6 +124,10 @@ and the script exits non-zero without the result line:
       rows against the graph's first 500 (bit for bit, or within 1e-13
       relative where cuBLAS took another algorithm under capture), and a
       traced window of 32 iterations of each (the device's idle share);
+      then a checkpoint written at iteration 50 by a graph run and
+      resumed as graphs to 100, every row and the iterate bit for bit
+      with an uninterrupted graph run of 100 iterations (the file under
+      the checkout's ``build/``);
    f. ``BPG`` with its line search (9000 iterations) on the 30x1000 seed-10
       design with the default h on the card, as graph chunks (the prox's
       Newton inside them): the last F row within 1e-7 of the reference's
@@ -199,24 +208,34 @@ and the script exits non-zero without the result line:
       of a traced run (the SVM ball's not traced); and the four examples'
       ``start()`` with their import changed to the port's (ex_aibm_svm's
       eagerly);
-   l. the fast_gram paths, which launch none of the kernels (their counts
-      go to 0 after phase 4e's route is measured, and must stay 0):
+   l. the fast_gram paths as graph chunks, which launch none of the
+      eight kernels (their counts go to 0 just before the phase and
+      must stay 0):
       ``ABPG_gain(gamma=2, 9000 iterations, fast_gram=True)`` on
       ``D_opt_design(30, 10000, randseed=10)`` with the default
       ``BurgEntropySimplex()`` on the card, whose fresh float64 F must
-      reach -16.0963 (phase e's bound), with its wall, its gates
-      (``fastgram.COUNTS``: settled, fallen back, reruns), and host syncs,
-      device operations and idle share per iteration over iterations
-      0-49 and 50-99 beside phase e's route's; then BPG (line search),
-      ABPG, ABPG_expo and ABDA with fast_gram at 30x1000 seed 10, 150
-      iterations, each against the port on the CPU on the same arrays
-      (rtol 1e-9 over the first 30 rows: later rows may part by
-      amplification);
+      reach -16.0963 (phase e's bound): one capture; the wall beside
+      phase e's in the same call, host syncs per solve, continuations,
+      nodes per graph, capture seconds, pool MiB, the idle share of a
+      traced window, and an ``eager_chunks`` run whose 500 rows the
+      graph's must equal (bit for bit, or within 1e-13 relative where
+      cuBLAS took another algorithm under capture, then said); the gates
+      and their fallbacks (``fastgram.TALLY``) and the bodies of each loop
+      over a tallied eager run of the first 500 iterations; the
+      checkpoint resumed as in e (the fast_gram carry: Grams, inverse,
+      logdet and the prox's multiplier); then BPG
+      (line search), ABPG, ABPG_expo and ABDA with fast_gram at 30x1000
+      seed 10, 150
+      iterations, each as graphs (one capture, none at the warm run)
+      against ``eager_chunks`` (bit for bit, or 1e-13 as above) and
+      against the port on the CPU on the same arrays (rtol 1e-9 over the
+      first 30 rows: later rows may part by amplification);
    m. sharding on one card: a world-size-1 NCCL group in this process
       (127.0.0.1, a free port) and ``data_mesh()`` on CUDA;
       ``shard_dopt_problem`` under ABPG_gain(fast_gram=True) at 30x10000
-      (100 iterations) equal to the unsharded card run at rtol 1e-12, the
-      iterate still a DTensor; ``shard_dopt_design`` under D_opt_FW_away
+      (100 iterations, eager with replicated scalars) equal to the
+      unsharded card run (a graph) at rtol 1e-12, the iterate still a
+      DTensor; ``shard_dopt_design`` under D_opt_FW_away
       at 30x1000 (500 iterations), where "auto" must take the exact
       engine, against the unsharded exact engine, and the kernel modes
       must refuse the sharded design; the group is destroyed.  One card
@@ -355,12 +374,21 @@ EX_ITERS, EX_CPU_ROWS, EX_HELD_ROWS, EX_RTOL = 100, 100, 30, 1e-8
 EX_COST_ITERS, PD_DUAL_ITERS, STOCH_ITERS = 40, 8, 200
 PD_N, PD_R, UFW_N, UFW_R, UFW_NOISES = 400, 10, 400, 1, (0.1, 10.0)
 # phase 4l: the fast_gram paths (ABPG_gain at GAIN_M x GAIN_N for
-# GAIN_ITERS; its per-iteration costs over two windows of FG_COST_ITERS, 50
-# since the graph phase 4o came, 100 before; the other four
-# drivers at BPG_M x BPG_N for FG_SMALL_ITERS (150 since phase 4o came, 300
-# before), their first FG_CPU_ROWS rows against the CPU at FG_RTOL: later
-# rows may part by amplification)
-FG_COST_ITERS, FG_SMALL_ITERS, FG_CPU_ROWS, FG_RTOL = 50, 150, 30, 1e-9
+# GAIN_ITERS, as graphs since the fast_gram graphs came, which left its
+# per-iteration cost windows out: a traced span of them holds ~103000
+# device operations, and the [bregman graph] line has syncs, nodes and the
+# idle share; the other four drivers at BPG_M x BPG_N for FG_SMALL_ITERS
+# (150 since phase 4o came, 300 before), their first FG_CPU_ROWS rows
+# against the CPU at FG_RTOL: later rows may part by amplification)
+FG_SMALL_ITERS, FG_CPU_ROWS, FG_RTOL = 150, 30, 1e-9
+# the gates' fallbacks are tallied over an eager run of the first
+# FG_TALLY_ITERS iterations (one read per gate; they gather there); the
+# host loop the fast_gram steps ran as before their graphs took
+# FG_HOST_LOOP_S on an "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md)
+FG_TALLY_ITERS, FG_HOST_LOOP_S = 500, "60-94 s"
+# phases 4e and 4l: a checkpoint written at CKPT_ITERS and resumed to
+# 2 CKPT_ITERS
+CKPT_ITERS = 50
 # phase 4m: the sharded solves on a one-card mesh
 SH_GAIN_ITERS, SH_FW_ITERS = 100, 500
 # phase 4n: examples/ex_Dopt_sweep.py's start_full and ex_Poisson_KL.py's
@@ -1578,7 +1606,8 @@ def bregman_graph(driver, label, run, iters, check):
     (``driver.eager_chunks``) over BREG_EAGER iterations against the
     graph's first rows (bit for bit, or within 1e-13 relative where cuBLAS
     took another algorithm under capture); the idle share of a traced
-    window of each.  Returns ``(result, the [bregman graph] text)``."""
+    window of each.  Returns ``(result, the [bregman graph] text, the
+    graph's wall)``."""
     driver.clear_graph_cache()
     before = dict(driver.GRAPH_STATS)
     res, wall, syncs = synced(lambda: run(iters))
@@ -1620,25 +1649,99 @@ def bregman_graph(driver, label, run, iters, check):
             f"iteration), {e_syncs / BREG_EAGER:.2f} host syncs per "
             f"iteration, device idle {pct(e_idle)}; first {BREG_EAGER} rows "
             f"{agree}; {gate}")
-    return res, text
+    return res, text, wall
 
 
 def bodies_study(iters=2000):
     """``--bodies`` (see the module docstring): the Bregman paths (each as
     graphs first, then eagerly: the order of phases 4e-4f), the FW line
-    searches (eagerly first) and ABPG_gain's first capture after its long
-    eager run."""
+    searches (eagerly first), the extras, the fast_gram paths and
+    ABPG_gain's first capture after its long eager run;
+    ``--extras-only`` and ``--fastgram-only`` run one part alone."""
     from accbpg_and_fw_tpu_torch.ops import _build
 
     _build.build_all(["simplex_mult", "threefry", "dual_prox"])
     print(f"[bodies] torch {torch.__version__}; {card_line()}", flush=True)
-    if "--extras-only" not in sys.argv:
+    only = {"--extras-only", "--fastgram-only"} & set(sys.argv)
+    if not only:
         bregman_bodies(iters)
         fw_bodies()
-    extras_bodies()
-    if "--extras-only" not in sys.argv:
+    if not only or "--extras-only" in only:
+        extras_bodies()
+    if not only or "--fastgram-only" in only:
+        fastgram_bodies(iters)
+    if not only:
         capture_after_eager()
     return 0
+
+
+def fastgram_bodies(iters):
+    """The fast_gram part of ``--bodies``: ABPG_gain 30x10000 and BPG-LS
+    and ABPG_expo 30x1000 with ``fast_gram=True`` and the default h under
+    ``eager_chunks`` over their 9000 iterations with ``_loops.TALLY`` (the
+    trials of each line search, the warm multiplier's and theta's Newton
+    passes) and ``fastgram.TALLY`` (the gates), then as graphs over
+    ``iters`` iterations at the masked trials that cover 90%, 99% and 99.9%
+    of the line searches (the warm multiplier's passes likewise, on
+    ABPG_gain): warm walls, continuations, nodes per graph, capture
+    seconds, pool MiB."""
+    import accbpg_and_fw_tpu_torch as port
+    from accbpg_and_fw_tpu_torch import _loops
+    from accbpg_and_fw_tpu_torch.algorithms import bpg, driver, fastgram
+    from accbpg_and_fw_tpu_torch.ops import roots
+
+    fg, _, Lg, xg = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
+                                      device="cuda")
+    fb, hb, Lb, xb = port.D_opt_design(BPG_M, BPG_N, randseed=10,
+                                       device="cuda")
+    hg = port.BurgEntropySimplex()
+    paths = {
+        "ABPG_gain": (lambda n: port.ABPG_gain(
+            fg, hg, Lg, xg, gamma=2, maxitrs=n, verbose=False,
+            fast_gram=True), GAIN_ITERS, "FG_GAIN_BODIES"),
+        "BPG-LS": (lambda n: port.BPG(
+            fb, hb, Lb, xb, maxitrs=n, verbose=False, fast_gram=True),
+            BPG_ITERS, "FG_BPG_BODIES"),
+        "ABPG_expo": (lambda n: port.ABPG_expo(
+            fb, hb, Lb, xb, 3.0, n, verbose=False, fast_gram=True),
+            BPG_ITERS, "FG_EXPO_BODIES"),
+    }
+    for name, (run, full_iters, attr) in paths.items():
+        _loops.TALLY[0], fastgram.TALLY[0] = {}, {}
+        with driver.eager_chunks():
+            res, ms = timed_plain(lambda: run(full_iters))
+        tally, gates = _loops.TALLY[0], fastgram.TALLY[0]
+        _loops.TALLY[0] = fastgram.TALLY[0] = None
+        print(f"[bodies] {name} fast_gram eager_chunks {len(res[1])} "
+              f"iterations in {ms / 1e3:.2f} s; "
+              f"{fg_text(gates, len(res[1]))}; bodies taken per loop: "
+              + "; ".join(f"{loop} {sorted(counts.items())}"
+                          for loop, counts in tally.items()), flush=True)
+        knobs = [(bpg, attr, tally[next(k for k in tally
+                                         if "fast_gram trials" in k)])]
+        if name == "ABPG_gain":
+            knobs.append((roots, "WARM_NEWTON_BODIES",
+                          tally["warm multiplier Newton"]))
+        for mod, knob, counts in knobs:
+            chosen, parts = getattr(mod, knob), []
+            for bodies in quantile_bodies(counts):
+                setattr(mod, knob, bodies)
+                driver.clear_graph_cache()
+                before = dict(driver.GRAPH_STATS)
+                run(iters)  # the capture
+                cont = (driver.GRAPH_STATS["continuations"]
+                        - before["continuations"])
+                entry = next(iter(driver._GRAPHS.values()))
+                _, ms = timed_plain(lambda: run(iters))
+                parts.append(f"{bodies}: {ms / 1e3:.3f} s warm, {cont} "
+                             f"continuations, {graph_nodes([entry])} nodes "
+                             f"per graph of {entry.span}, capture "
+                             f"{entry.capture_s:.2f} s, pool "
+                             f"{entry.pool_bytes / 2**20:.1f} MiB")
+            setattr(mod, knob, chosen)
+            print(f"[bodies] {name} fast_gram as graphs over {iters} "
+                  f"iterations by {knob}: " + "; ".join(parts)
+                  + f" ({knob} = {chosen})", flush=True)
 
 
 def extras_bodies():
@@ -1874,17 +1977,53 @@ def capture_after_eager():
           + "; ".join(tried), flush=True)
 
 
+def resume_check(driver, name, run):
+    """``run(n, checkpoint)``, a solve of n iterations as graph chunks: a
+    checkpoint written at the end of a run of CKPT_ITERS iterations and
+    resumed to 2 CKPT_ITERS, every history row and the iterate bit for bit
+    with an uninterrupted run of 2 CKPT_ITERS.  The file lies under the
+    checkout's ``build/``.  Returns the check's text."""
+    tmp = pathlib.Path(__file__).resolve().parent / "build" / "chip_tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    ck = tmp / f"{name}.npz"
+    ck.unlink(missing_ok=True)
+    whole = run(2 * CKPT_ITERS)
+    run(CKPT_ITERS, str(ck))
+    with np.load(ck) as z:
+        saved = int(z["__k_next"])
+    if saved != CKPT_ITERS:
+        raise AssertionError(f"{name}: checkpoint at {saved}, not "
+                             f"{CKPT_ITERS}")
+    before = dict(driver.GRAPH_STATS)
+    resumed = run(2 * CKPT_ITERS, str(ck))
+    replays = driver.GRAPH_STATS["replays"] - before["replays"]
+    ck.unlink()
+    if not replays:
+        raise AssertionError(f"{name}: the resumed run replayed no graph")
+    # the last element is the time history
+    if not (torch.equal(resumed[0], whole[0])
+            and all(np.array_equal(a, b)
+                    for a, b in zip(resumed[1:-1], whole[1:-1]))):
+        raise AssertionError(f"{name}: the run resumed from iteration "
+                             f"{CKPT_ITERS} parts from the uninterrupted "
+                             "run")
+    return (f"a checkpoint at iteration {CKPT_ITERS} resumed to "
+            f"{2 * CKPT_ITERS} as graphs ({replays} replays): rows and "
+            "iterate bit for bit with the uninterrupted run")
+
+
 def gain_path(port, sm, driver):
-    """Phase 4e; returns the kernel's launches in it (the card's count)
-    and the [bregman graph] text."""
+    """Phase 4e; returns the kernel's launches in it (the card's count),
+    the [bregman graph] text and the graph's wall."""
     f, _, L, x0 = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
                                     device="cuda")
     h = port.BurgEntropySimplex(use_pallas=True)
     probe = ProxProbe(h)
     counts = {}
 
-    def run(n):
-        return port.ABPG_gain(f, h, L, x0, gamma=2, maxitrs=n, verbose=False)
+    def run(n, checkpoint=None):
+        return port.ABPG_gain(f, h, L, x0, gamma=2, maxitrs=n, verbose=False,
+                              checkpoint=checkpoint)
 
     def check(res):
         x, F, Gain = res[0], res[1], res[2]
@@ -1911,11 +2050,12 @@ def gain_path(port, sm, driver):
 
     sm.reset_device_launches()
     sm.LAUNCHES = 0
-    _, text = bregman_graph(
+    _, text, wall = bregman_graph(
         driver, f"ABPG_gain gamma=2 {GAIN_M}x{GAIN_N} use_pallas=True", run,
         GAIN_ITERS, check)
+    text += "; " + resume_check(driver, "gain_plain", run)
     print(f"[bregman gain] {text}", flush=True)
-    return counts["launches"], text
+    return counts["launches"], text, wall
 
 
 def bpg_path(port, sm, driver):
@@ -1949,8 +2089,8 @@ def bpg_path(port, sm, driver):
                 f"(reference {BPG_F_REF}); the returned iterate's fresh F "
                 f"{Ff:.11f}")
 
-    _, text = bregman_graph(driver, f"BPG-LS {BPG_M}x{BPG_N} default h",
-                            run, BPG_ITERS, check)
+    _, text, _ = bregman_graph(driver, f"BPG-LS {BPG_M}x{BPG_N} default h",
+                               run, BPG_ITERS, check)
     print(f"[bregman bpg] {text}", flush=True)
     return text
 
@@ -2783,104 +2923,80 @@ def no_launches(label, counters):
     return launched
 
 
-def fg_counts():
-    from accbpg_and_fw_tpu_torch.algorithms import fastgram
-
-    return dict(fastgram.COUNTS)
-
-
-def fg_text(before, after, rows):
-    """The fast-Gram gates of a run: settled gates, fallbacks and trial
-    reruns (one more read each), per iteration."""
-    d = {k: after[k] - before[k] for k in after}
-    rate = d["fallbacks"] / d["gates"] if d["gates"] else float("nan")
-    return (f"{d['gates']} gates ({d['gates'] / rows:.2f} per iteration), "
-            f"{d['fallbacks']} fallbacks ({100 * rate:.2f}%), "
-            f"{d['reruns']} trial reruns ({d['reruns'] / rows:.3f} per "
-            "iteration)")
+def fg_text(tally, rows):
+    """The fast-Gram gates of a run (``fastgram.TALLY``): decisions and
+    fallbacks per gate, per iteration."""
+    gates = sum(sum(c.values()) for c in tally.values())
+    falls = sum(c.get(False, 0) for c in tally.values())
+    per = "; ".join(f"{name} {c.get(False, 0)} of {sum(c.values())}"
+                    for name, c in sorted(tally.items()))
+    return (f"{gates} gates ({gates / rows:.2f} per iteration), {falls} "
+            f"fallbacks ({100 * falls / max(gates, 1):.2f}%: {per})")
 
 
-def cost_text(cost):
-    syncs, ops, idle, n = cost
-    ops_txt = (f"{ops / n:.1f} device ops per iteration, device idle "
-               f"{100 * idle:.1f}% of a traced run" if ops else
-               "device ops not measured (no device events in the trace)")
-    return f"{syncs / n:.2f} syncs and {ops_txt}"
+def fastgram_paths(port, counters, plain_wall):
+    """Phase 4l: the fast_gram steps as graph chunks, which launch none of
+    the eight kernels (their counts go to 0 just before the phase and are
+    read just after).  ABPG_gain(fast_gram=True) at full width (30x10000,
+    9000 iterations) with the default h: the [bregman graph] measures
+    beside phase 4e's wall (``plain_wall``), and the gates' fallbacks and
+    the loops' bodies over a tallied eager run of its first
+    FG_TALLY_ITERS iterations; then BPG (line search), ABPG, ABPG_expo and
+    ABDA with fast_gram at 30x1000 as graphs against ``eager_chunks`` and
+    against the CPU."""
+    from accbpg_and_fw_tpu_torch import _loops
+    from accbpg_and_fw_tpu_torch.algorithms import driver, fastgram
 
-
-def window_cost(run, base):
-    """``fw_syncs_and_ops`` over iterations FG_COST_ITERS to
-    2 FG_COST_ITERS - 1 of ``run(maxitrs, checkpoint)``: each call resumes
-    from a copy of a checkpoint written at FG_COST_ITERS."""
-    import shutil
-
-    ck0, ck = base.with_suffix(".0.npz"), base.with_suffix(".npz")
-    for p in (ck0, ck):
-        p.unlink(missing_ok=True)
-    run(FG_COST_ITERS, str(ck0))
-
-    def resumed():
-        shutil.copyfile(ck0, ck)
-        return run(2 * FG_COST_ITERS, str(ck))
-
-    syncs, ops, idle, _ = fw_syncs_and_ops(resumed)
-    return syncs, ops, idle, FG_COST_ITERS
-
-
-def fastgram_paths(port, counters):
-    """Phase 4l: ABPG_gain(fast_gram=True) at full width (30x10000, 9000
-    iterations) with the default h, beside phase 4e's kernel route; then
-    the other four drivers with fast_gram at 30x1000 against the CPU.  No
-    kernel may launch."""
-    t0 = time.perf_counter()
+    reset_counts(counters)
+    t0 = t = time.perf_counter()
+    parts = []
     f, _, L, x0 = port.D_opt_design(GAIN_M, GAIN_N, randseed=10,
                                     device="cuda")
-    tmp = pathlib.Path(__file__).parent / "build" / "chip_tmp"
-    tmp.mkdir(parents=True, exist_ok=True)
+    h = port.BurgEntropySimplex()
 
-    def gain(h, fast):
-        def run(maxitrs=GAIN_ITERS, checkpoint=None):
-            return port.ABPG_gain(f, h, L, x0, gamma=2, maxitrs=maxitrs,
-                                  verbose=False, fast_gram=fast,
-                                  checkpoint=checkpoint)
-        return run
+    def run_l(maxitrs, checkpoint=None):
+        return port.ABPG_gain(f, h, L, x0, gamma=2, maxitrs=maxitrs,
+                              verbose=False, fast_gram=True,
+                              checkpoint=checkpoint)
 
-    run_e = gain(port.BurgEntropySimplex(use_pallas=True), False)
-    run_l = gain(port.BurgEntropySimplex(), True)
-    # phase 4e's route first (it launches kernel 5), then the counts go to
-    # 0 for the fast_gram paths; each route over two windows: the first
-    # FG_COST_ITERS iterations (the fast path's fallbacks gather there)
-    # and the next FG_COST_ITERS, resumed from a checkpoint
-    costs = {name: (fw_syncs_and_ops(lambda: run(FG_COST_ITERS)),
-                    window_cost(run, tmp / name))
-             for name, run in (("e", run_e), ("l", run_l))}
-    reset_counts(counters)
-    before = fg_counts()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    x, F, Gain, *_ = run_l()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    after = fg_counts()
-    Ff = fresh_F(f, x)
-    if not (np.all(np.isfinite(F)) and Ff <= GAIN_F_BOUND):
-        raise AssertionError(f"ABPG_gain fast_gram: fresh F {Ff!r} above "
-                             f"{GAIN_F_BOUND}")
-    trials = int(gain_trials(Gain, 1.0, 1.2).sum())
-    print(f"[fastgram] ABPG_gain gamma=2 fast_gram=True {GAIN_M}x{GAIN_N} "
-          f"seed 10 default h on cuda: wall {wall:.3f} s (after phase 4e "
-          f"warmed the libraries), {len(F)} iterations, {trials} "
-          f"line-search trials; fresh F {Ff:.9f} (recorded {F[-1]:.9f}, "
-          f"bound {GAIN_F_BOUND}); {fg_text(before, after, len(F))}",
+    def check(res):
+        x, F, Gain = res[0], res[1], res[2]
+        Ff = fresh_F(f, x)
+        if not (np.all(np.isfinite(F)) and Ff <= GAIN_F_BOUND):
+            raise AssertionError(f"ABPG_gain fast_gram: fresh F {Ff!r} "
+                                 f"above {GAIN_F_BOUND}")
+        trials = int(gain_trials(Gain, 1.0, 1.2).sum())
+        return (f"{trials} line-search trials; fresh F {Ff:.9f} (recorded "
+                f"{F[-1]:.9f}, bound {GAIN_F_BOUND})")
+
+    _, text, wall = bregman_graph(
+        driver, f"ABPG_gain gamma=2 fast_gram=True {GAIN_M}x{GAIN_N} "
+        "default h", run_l, GAIN_ITERS, check)
+    print(f"[fastgram] {text}; the graph's wall {wall:.3f} s against phase "
+          f"4e's plain graph route {plain_wall:.3f} s in this call (the "
+          f"host loop it replaces took {FG_HOST_LOOP_S} on an H100 80GB "
+          "HBM3 at 700 W)",
           flush=True)
-    for name, label in (("l", "fast_gram, default h"),
-                        ("e", "phase 4e's route (plain step, "
-                              "use_pallas=True)")):
-        first, tail = costs[name]
-        print(f"[fastgram] per iteration at {GAIN_M}x{GAIN_N}, {label}: "
-              f"iterations 0-{FG_COST_ITERS - 1} {cost_text(first)}; "
-              f"iterations {FG_COST_ITERS}-{2 * FG_COST_ITERS - 1} "
-              f"{cost_text(tail)}", flush=True)
+    parts.append(f"graph path {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    fastgram.TALLY[0], _loops.TALLY[0] = {}, {}
+    try:
+        with driver.eager_chunks():
+            res = run_l(FG_TALLY_ITERS)
+        tally, bodies = fastgram.TALLY[0], _loops.TALLY[0]
+    finally:
+        fastgram.TALLY[0] = _loops.TALLY[0] = None
+    print(f"[fastgram] gates over the first {len(res[1])} iterations "
+          f"(eager_chunks, one read per gate): "
+          f"{fg_text(tally, len(res[1]))}; bodies taken per loop: "
+          + "; ".join(f"{loop} {sorted(counts.items())}"
+                      for loop, counts in bodies.items()), flush=True)
+    parts.append(f"tally {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    print(f"[fastgram] ABPG_gain fast_gram: "
+          f"{resume_check(driver, 'gain_fastgram', run_l)}", flush=True)
+    parts.append(f"checkpoint {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
 
     fc, hc, Lc, xc = port.D_opt_design(BPG_M, BPG_N, randseed=10,
                                        device="cuda")
@@ -2900,28 +3016,28 @@ def fastgram_paths(port, counters):
             f_, h_, Lc, x_, 2.0, FG_SMALL_ITERS, verbose=False,
             fast_gram=True),
     }
-    parts = []
+    small = []
     for name, call in calls.items():
-        before = fg_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        Fg = call(fc, hc, xc)[1]
-        torch.cuda.synchronize()
-        w = time.perf_counter() - t
-        after = fg_counts()
+        res, w, text = fw_graph(driver, f"fast_gram {name}",
+                                lambda: call(fc, hc, xc))
+        with driver.eager_chunks():
+            eager = call(fc, hc, xc)
+        agree = same_rows(f"fast_gram {name}", res, eager, FG_SMALL_ITERS)
+        Fg = res[1]
         Fcpu = call(fh, hh, xh)[1]
         err = fw_against_cpu(f"{name} fast_gram", Fg, Fcpu, rows=FG_CPU_ROWS,
                              rtol=FG_RTOL)
-        parts.append(f"{name} wall {w:.3f} s, {len(Fg)} rows, F "
+        small.append(f"{name} warm wall {w:.3f} s, {len(Fg)} rows, F "
                      f"{Fg[-1]:.9f} (CPU {Fcpu[-1]:.9f}), card vs CPU "
-                     f"{err:.1e} over {FG_CPU_ROWS} rows, "
-                     f"{fg_text(before, after, len(Fg))}")
+                     f"{err:.1e} over {FG_CPU_ROWS} rows, eager_chunks "
+                     f"{agree}, {text}")
     launched = no_launches("phase 4l", counters)
     print(f"[fastgram] {BPG_M}x{BPG_N} seed 10 default h, "
-          f"{FG_SMALL_ITERS} iterations, fast_gram=True: "
-          + "; ".join(parts), flush=True)
-    print(f"[fastgram] phase 4l in {time.perf_counter() - t0:.1f} s; kernel "
-          f"launches: {launched}", flush=True)
+          f"{FG_SMALL_ITERS} iterations, fast_gram=True as graphs: "
+          + "; ".join(small), flush=True)
+    parts.append(f"four drivers {time.perf_counter() - t:.1f} s")
+    print(f"[fastgram] phase 4l in {time.perf_counter() - t0:.1f} s ("
+          f"{', '.join(parts)}); kernel launches: {launched}", flush=True)
 
 
 def free_port():
@@ -3647,6 +3763,8 @@ def main():
                          "bodies cost")
     ap.add_argument("--extras-only", action="store_true",
                     help="with --bodies: only the extras' loops")
+    ap.add_argument("--fastgram-only", action="store_true",
+                    help="with --bodies: only the fast_gram loops")
     args = ap.parse_args()
     # ---- 1. the card --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3792,7 +3910,7 @@ def main():
     from accbpg_and_fw_tpu_torch.algorithms import driver
 
     t = time.perf_counter()
-    simplex_launches, gain_text = gain_path(port, sm, driver)
+    simplex_launches, gain_text, gain_wall = gain_path(port, sm, driver)
     bpg_text = bpg_path(port, sm, driver)
     print(f"[bregman graph] ({card}) phases 4e-4f in "
           f"{time.perf_counter() - t:.1f} s; {gain_text}; {bpg_text}",
@@ -3806,8 +3924,15 @@ def main():
     lmo_centres(port, card, counters)
     a9a_phase(port, card, counters)
     _, drawn, dual_launches = extras_paths(port, card, counters, sm)
-    fastgram_paths(port, counters)
-    sharded_paths(port, counters)
+    from accbpg_and_fw_tpu_torch import _rng
+    from accbpg_and_fw_tpu_torch.ops import dual_prox as dp
+
+    # all eight kernels: the D-opt ones, kernel 5 (host and card counts),
+    # the threefry entries and the dual prox
+    every = counters + [(_rng, "SPLIT_LAUNCHES"), (_rng, "DRAW_LAUNCHES"),
+                        (dp, "LAUNCHES")]
+    fastgram_paths(port, every, gain_wall)
+    sharded_paths(port, every)
     diagnostics_and_examples(port, counters)
 
     # ---- 5. the record ------------------------------------------------------

@@ -202,17 +202,18 @@ def test_tensor_k_descent_step_matches_jax(symnmf):
 
 
 def test_chunk_mode_choice(monkeypatch):
-    """The choice, from the carry alone: a Python-bool ``done`` is the host
-    loop; a carry of plain tensors on one card is a graph; a host leaf (the
-    noise key), a DTensor or the CPU goes eager, and so does everything
-    inside ``eager_chunks``."""
+    """The choice, from the carry alone: a carry of plain tensors on one
+    card is a graph; a host leaf (a Python-bool ``done``, the noise key as
+    words), a DTensor or the CPU goes eager, and so does everything inside
+    ``eager_chunks``.  There is no third mode."""
     t = torch.zeros(3)
     done = torch.tensor(False)
-    assert driver.chunk_mode(dict(done=False, x=t)) == "host"
+    assert driver.chunk_mode(dict(done=False, x=t)) == "eager"
     assert driver.chunk_mode(dict(done=done, x=t)) == "eager"  # the CPU
     monkeypatch.setattr(torch.Tensor, "device",
                         property(lambda self: torch.device("cuda", 0)))
     assert driver.chunk_mode(dict(done=done, x=t)) == "graph"
+    assert driver.chunk_mode(dict(done=False, x=t)) == "eager"
     assert driver.chunk_mode(dict(done=done, x=t,
                                   key=np.zeros(2, np.uint32))) == "eager"
     assert driver.chunk_mode(dict(done=done, x=t, L=1.0)) == "eager"
@@ -290,6 +291,40 @@ def test_graph_cache_reuses_same_shapes(monkeypatch, dopt_problem):
     assert get(Vs, cs) is not a and len(made) == 2
     get(Vt, carry, cached=False)
     assert len(made) == 3 and len(driver._GRAPHS) == 2
+
+
+def test_replay_stops_at_an_overflowed_span(monkeypatch):
+    """A step whose bounded loop needs three bodies at k = 2 and k = 13 and
+    has one in the graph: chunks of 24 over spans of 8.  The replay from 0
+    stops after its first span (the overflow at 2), the one from 3 after
+    its second (at 13), the one from 14 runs its two: five spans launched
+    where launching the rest of each chunk took eight; two
+    continuations, and the eager run's rows."""
+    from accbpg_and_fw_tpu_torch import _loops
+
+    def step(c, k):
+        target = torch.where((torch.as_tensor(k) == 2)
+                             | (torch.as_tensor(k) == 13), 3.0, 0.0)
+        n = _loops.device_while(lambda s: s[0] < target,
+                                lambda s: (s[0] + 1.0,),
+                                (torch.zeros((), dtype=torch.float64),),
+                                None, 1)[0]
+        v = c["v"] + n
+        return (dict(done=c["done"], v=v),
+                dict(F=v, _stop=torch.zeros((), dtype=torch.bool)))
+
+    carry = dict(done=torch.tensor(False),
+                 v=torch.zeros((), dtype=torch.float64))
+    _, ref, _ = driver.run_driver(step, carry, 24, chunk=24, verbose=False)
+    monkeypatch.setattr(driver, "chunk_mode",
+                        lambda carry, problem=None, cfg=None: "graph")
+    before = dict(driver.GRAPH_STATS)
+    got, hist, _ = driver.run_driver(step, carry, 24, chunk=24,
+                                     verbose=False, graph_span=8)
+    st = {k: driver.GRAPH_STATS[k] - before[k] for k in before}
+    assert st["replays"] == 5 and st["continuations"] == 2
+    np.testing.assert_array_equal(hist["F"], ref["F"])
+    assert float(got["v"]) == 6.0 and len(hist["F"]) == 24
 
 
 # ---- on the card ------------------------------------------------------------

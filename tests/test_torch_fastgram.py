@@ -4,8 +4,8 @@
 
 * Every ``fastgram`` function against JAX's on the same seeded inputs at
   rtol 1e-12, on both branches of each gate (warm start or reseed;
-  series or factorization), and the speculative gates (``Gates``) giving
-  what a gate read at once gives.
+  series or factorization), each gate a device select of the branch its
+  sum decides (``fastgram.TALLY`` counting the decision).
 * The five drivers with ``fast_gram=True`` against JAX's on JAX-built
   ``DOptimalObj``s (12x60 and 16x64, random designs seeded as in
   ``tests/test_fast_gram.py``), 100 iterations with a chunk of 30 so the
@@ -115,18 +115,17 @@ def test_inv_at_both_branches(small, noise, warm):
     E0 = np.eye(len(G)) - M_prev @ G
     assert (np.sum(E0 * E0) <= pfg.WARM_TAU2) == warm
     ref = jfg.inv_at(fj, jnp.asarray(G), jnp.asarray(M_prev))
-    close(pfg.inv_at(fp, t(G), t(M_prev)), ref)
-    for guess in ([], [True], [False]):  # no guess takes the common branch
-        gates = pfg.Gates(guess)
-        got = pfg.inv_at(fp, t(G), t(M_prev), gates)
-        gates.check([float(q) for q in gates.pending()])
-        assert gates.ok == ((guess or [True])[0] == warm)
-        if not gates.ok:  # a wrong guess asks for a rerun, then holds
-            got = pfg.inv_at(fp, t(G), t(M_prev), gates)
-            gates.check([float(q) for q in gates.pending()])
-            assert gates.ok and gates.known == [warm]
-        assert gates.used == [warm]
-        close(got, ref)
+    pfg.TALLY[0] = {}
+    try:
+        got = pfg.inv_at(fp, t(G), t(M_prev))
+        tally = pfg.TALLY[0]
+    finally:
+        pfg.TALLY[0] = None
+    assert tally == {"warm start": {warm: 1}}
+    close(got, ref)
+    # the select form: the seed the gate takes, polished once
+    seed = t(M_prev) if warm else fp.inv_seed(t(G))
+    assert torch.equal(got, pfg.schulz(seed, t(G)))
 
 
 def test_series_logdet(small):
@@ -169,7 +168,8 @@ def test_init_and_refresh_state_match_jax(small):
         close(sp[k], sj[k], rtol=1e-11)
     rj = jfg.refresh_state(fj, jnp.asarray(x), x0j)
     rp = pfg.refresh_state(fp, t(x), x0p)
-    assert sorted(rp) == sorted(rj) and isinstance(rp["fx"], float)
+    assert sorted(rp) == sorted(rj)
+    assert isinstance(rp["fx"], torch.Tensor) and rp["fx"].dim() == 0
     for k in rj:
         close(rp[k], rj[k], rtol=1e-11)
     assert "Gz" not in pfg.refresh_state(fp, t(x), x0p, with_z=False)
@@ -276,19 +276,22 @@ def test_abpg_expo_fast_gram_matches_jax(request, inst, kw):
     ["plain", "checkdiv", "restart_g", "restart_f", "theta_closed"]))
 def test_abpg_gain_fast_gram_matches_jax(request, inst, kw):
     prob = request.getfixturevalue(inst)
-    before = dict(pfg.COUNTS)
-    rj, rp = _pair(prob, "ABPG_gain", 2.0, **kw)
+    pfg.TALLY[0] = {}
+    try:
+        rj, rp = _pair(prob, "ABPG_gain", 2.0, **kw)
+        tally = pfg.TALLY[0]
+    finally:
+        pfg.TALLY[0] = None
     assert len(rp) == len(rj) == 6
     assert_F(rp[1], rj[1])
     assert_hist(rp[2], rj[2], F_RTOL)  # Gain: the line search's decisions
     assert_hist(rp[3], rj[3], G_RTOL)
     assert_hist(rp[4], rj[4], F_RTOL)
     assert_x(rp[0], rj[0])
-    # the gates fell back on the way, and the guesses of the previous
-    # trial were wrong only some of the time
-    d = {k: pfg.COUNTS[k] - before[k] for k in before}
-    assert d["gates"] >= 3 * ITERS and d["fallbacks"] > 0
-    assert 0 < d["reruns"] < d["gates"] / 3
+    # three gates a trial, and the fallback branch taken on the way
+    gates = sum(sum(counts.values()) for counts in tally.values())
+    fallbacks = sum(counts.get(False, 0) for counts in tally.values())
+    assert gates >= 3 * ITERS and 0 < fallbacks < gates
 
 
 @pytest.mark.parametrize("inst,kw", _cases(

@@ -137,6 +137,35 @@ def _force_graph(monkeypatch, bodies, span=8):
     monkeypatch.setattr(driver, "_GRAPHS", type(driver._GRAPHS)())
 
 
+def record_continuations(monkeypatch):
+    """The iteration of each continuation of a forced graph run, as
+    ``_graph_run`` hands it to ``_device_chunk`` (which a forced run calls
+    for nothing else)."""
+    ks, run = [], driver._device_chunk
+
+    def rec(step, carry, k0, limit):
+        ks.append(k0)
+        return run(step, carry, k0, limit)
+
+    monkeypatch.setattr(driver, "_device_chunk", rec)
+    return ks
+
+
+def spans_replayed(conts, iters, chunk, span):
+    """The spans a forced graph run of ``iters`` iterations replays, with
+    continuations at ``conts``: in each chunk, from its start and from the
+    iteration after each continuation, through the span that holds the
+    chunk's next continuation, else to the chunk's end."""
+    n = 0
+    for c0 in range(0, iters, chunk):
+        c1 = min(c0 + chunk, iters)
+        starts = [c0] + [k + 1 for k in conts if c0 <= k < c1 - 1]
+        stops = [k for k in conts if c0 <= k < c1] + [None]
+        for s, k in zip(starts, stops):
+            n += -(-(c1 - s) // span) if k is None else (k - s) // span + 1
+    return n
+
+
 def _same(got, ref):
     """The iterate and the histories bit for bit (``FW_alg_descent_step``
     returns ``(x, F, T, G)``, the others ``(x, ..., T)``: T is a time)."""
@@ -161,12 +190,15 @@ def test_masked_loops_bit_equal_with_continuations(logistic, monkeypatch,
     name, kw, _ = CASES[case]
     ref = _run("port", logistic, name, 60, chunk=20, **kw)
     _force_graph(monkeypatch, bodies)
+    conts = record_continuations(monkeypatch)
     before = dict(driver.GRAPH_STATS)
     got = _run("port", logistic, name, 60, chunk=20, **kw)
     cont = driver.GRAPH_STATS["continuations"] - before["continuations"]
-    assert 0 < cont <= 60
-    # three chunks of three spans, and a replay from each continuation on
-    assert driver.GRAPH_STATS["replays"] - before["replays"] >= 9 + cont
+    assert 0 < cont <= 60 and len(conts) == cont
+    # three chunks of three spans; a replay stops at the span that
+    # overflowed, and another starts after each continuation
+    assert driver.GRAPH_STATS["replays"] - before["replays"] == (
+        spans_replayed(conts, 60, 20, 8))
     _same(got, ref)
 
 

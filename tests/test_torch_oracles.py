@@ -163,6 +163,7 @@ def test_simplex_inv_multiplier_tensor_warm_start():
     _close(cp, cj, ROOT_RTOL)
     hp = port.BurgEntropySimplex()
     x, c = hp.prox_map_warm(_t(gg), 1.0, 150.0)
+    assert isinstance(c, torch.Tensor) and c.dim() == 0  # no read, as JAX
     _close(c, cj, ROOT_RTOL)
     _close(x, 1.0 / (gg + np.asarray(cj)), ROOT_RTOL)
     y = np.random.default_rng(13).uniform(0.5, 1.5, 200)
