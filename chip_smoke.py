@@ -4,12 +4,17 @@
     python3 chip_smoke.py --blocks-only [--root DIR] [--solves N]
                           [--gain-iters N]
     python3 chip_smoke.py --micro
+    python3 chip_smoke.py --dual-prox
     python3 chip_smoke.py --bodies [--extras-only | --fastgram-only]
 
 With ``--micro`` it builds and runs ``csrc/micro_cluster.cu``: the clocks
 of the primitives the cluster kernels are built from (an exchange across a
 cluster by a store and the cluster barrier or by ``st.async`` and a
 transaction barrier, an IEEE FP64 division, the Newton reciprocal).
+
+With ``--dual-prox`` it builds the dual prox kernel and runs its part of
+phase 3 alone (below): the study's prox against the plain loop, the
+plan, the clocks per stage and the sweep of layouts.
 
 With ``--bodies`` it measures what the masked loops are chosen from:
 ABPG_gain 30x10000 (kernel route) and BPG-LS 30x1000 (default h) under
@@ -38,11 +43,12 @@ With ``--blocks-only`` it prints only the lazy-H kernel's block times
 B=32 of 30x1000, and two shapes whose layout streams V: B=1 of 165x1000 and
 B=2 of 200x700), the multiplier's time per call (n = 1000, 10000, 100000:
 by events, the kernel's device time in a trace, and the wrapper's host
-cost), the warm walls of the dense sweep and of one ``u_mode="pallas"``
-solve, of ``ABPG_gain`` 30x10000 over ``--gain-iters`` iterations (0: not
-run) and of ``--solves`` warm main-path solves, for the package under
-``--root`` (default: this file's directory), through the wrappers that
-every commit of the port has.  That is how two commits are compared
+cost), the dual prox's time at the primal-dual study's 400x10 (two
+timings of 10 launches by events), the warm walls of the dense sweep and
+of one ``u_mode="pallas"`` solve, of ``ABPG_gain`` 30x10000 over
+``--gain-iters`` iterations (0: not run) and of ``--solves`` warm
+main-path solves, for the package under ``--root`` (default: this file's
+directory), through the wrappers that every commit of the port has.  That is how two commits are compared
 on one card, in ONE call (two calls may land on cards with other power
 limits):
 
@@ -84,8 +90,12 @@ and the script exits non-zero without the result line:
    prox's kernel (``csrc/dual_prox.cu``: the primal-dual study's 400x10
    prox of up to 7000 steps, the same steps and X within 1e-12 of the
    plain loop's largest entry, its time by events and the plain loop's,
-   then a cluster of CTAs at 400x100 and the arrays in global memory at
-   1000x1000);
+   the plan (cluster, threads, elements a thread, registers), thread 0 of
+   CTA 0's clocks per stage of a step, every layout of clusters 1-16 and
+   1, 2, 4, 8 elements a thread or the arrays in memory held to the
+   plain loop and timed, with the clocks of the three fastest; then
+   200x100 in registers, the arrays in shared memory at 400x100 and in
+   global memory at 1000x1000);
 4. the paths, each with its kernel's launch count set to 0 just before it
    and read just after:
    a. the dense sweep: ``dopt_fw_batch(precision="pallas")`` on K=32 of
@@ -1443,23 +1453,42 @@ def dual_prox_bound(n, steps):
     return bound(8 * (3 * n + 1), 60 * n * steps)
 
 
-def compare_dual_prox(port, dev):
-    """Kernel ``csrc/dual_prox.cu`` against the plain loop
-    (``ops/dual_prox.py::dual_prox_reference``, on the card's tensors): the
-    primal-dual study's 400x10 prox (its start and gradient, the kernel's
-    alpha and sigma, num_iters 7000): the same step count, X within 1e-12
-    of the plain loop's largest entry, the kernel's ms by events and the
-    plain loop's wall; then two shapes the study does not reach, through
-    a cluster of CTAs (400x100) and with the arrays in global memory
-    (1000x1000, 60 steps), against the plain loop the same way.  Returns
-    ``(err, ms, plain_ms, bound_ms, bound_by)`` of the 400x10 prox."""
-    from accbpg_and_fw_tpu_torch.ops import dual_prox as dp
-
+def study_prox(port, dev):
+    """The primal-dual study's 400x10 prox input: ``(G, X0, kw)``, its
+    gradient at its start and the oracle's constants as ``dual_prox``
+    takes them (alpha and sigma of the study's h, num_iters 7000)."""
     f, _, h, _, X0 = pd_instance(port, dev)
     hd = port.SumOf2nd4thPowersDualProxMap(alpha=h.alpha, sigma=h.sigma)
     G = f.grad(X0) + hd.grad(X0)
     kw = dict(alpha=hd.alpha, sigma=hd.sigma, num_iters=hd.num_iters,
               eta_base=hd.eta_base, tol=hd.tolerance, radius=hd.radius)
+    return G, X0, kw
+
+
+def plan_text(dp, plan):
+    regs, _, spill, _ = dp.kernel_info(torch.cuda.current_device(),
+                                       plan.per_thread)
+    return (f"{plan.cluster} CTA x {plan.threads} threads, "
+            f"{plan.per_thread} a thread, {plan.layout}, {regs} registers, "
+            f"{spill} B spilled")
+
+
+def compare_dual_prox(port, dev):
+    """Kernel ``csrc/dual_prox.cu`` against the plain loop
+    (``ops/dual_prox.py::dual_prox_reference``, on the card's tensors): the
+    primal-dual study's 400x10 prox (``study_prox``): the same step count,
+    X within 1e-12 of the plain loop's largest entry, the kernel's ms by
+    events and the plain loop's wall, the plan, thread 0 of CTA 0's clocks
+    per stage and the sweep of layouts; then shapes the study does not
+    reach, in registers (200x100), the arrays in shared memory (400x100)
+    and in global memory (1000x1000, 60 steps), against the plain loop
+    the same way.  Returns ``(err, ms, plain_ms, bound_ms,
+    bound_by)`` of the 400x10 prox."""
+    from accbpg_and_fw_tpu_torch.ops import dual_prox as dp
+
+    G, X0, kw = study_prox(port, dev)
+    hd = port.SumOf2nd4thPowersDualProxMap(alpha=kw["alpha"],
+                                           sigma=kw["sigma"])
 
     def check(label, G, y, kw):
         X, steps, reads = dp.dual_prox(G, y, 1.0, **kw)
@@ -1470,32 +1499,100 @@ def compare_dual_prox(port, dev):
                 and reads == 0):
             raise AssertionError(f"dual prox {label}: {err:.3e}, steps "
                                  f"{float(steps)} / {float(steps_p)}")
-        return X, float(steps), err, plain_ms
+        return Xp, float(steps), err, plain_ms
 
-    X, steps, err, plain_ms = check("400x10", G, X0, kw)
+    Xp, steps, err, plain_ms = check("400x10", G, X0, kw)
     ms = time_launches(lambda: dp.dual_prox(G, X0, 1.0, **kw), 20)
     plan = dp.device_plan(X0.numel(), torch.cuda.current_device())
     rec = (err, ms, plain_ms) + dual_prox_bound(X0.numel(), steps)
     more = []
-    for shape, iters in (((400, 100), 400), ((1000, 1000), 60)):
+    for shape, iters in (((200, 100), 200), ((400, 100), 400),
+                         ((1000, 1000), 60)):
         rng = np.random.default_rng(3)
         y = torch.tensor(rng.random(shape), device=dev)
         g = torch.tensor(rng.standard_normal(shape), device=dev)
         kw2 = dict(kw, num_iters=iters, tol=1e-6)
-        _, s2, e2, p2 = check(f"{shape}", g + hd.grad(y), y, kw2)
+        _, s2, e2, _ = check(f"{shape}", g + hd.grad(y), y, kw2)
         pl = dp.device_plan(y.numel(), torch.cuda.current_device())
-        more.append(f"{shape[0]}x{shape[1]} ({pl.cluster} CTAs, "
-                    f"{'shared' if pl.resident else 'global'} memory) "
+        more.append(f"{shape[0]}x{shape[1]} ({plan_text(dp, pl)}) "
                     f"{s2:.0f} steps within {e2:.1e}")
     print(f"[dual prox] {X0.shape[0]}x{X0.shape[1]}: {steps:.0f} steps in "
           f"{ms:.3f} ms by events ({1e3 * ms / steps:.2f} us a step; plan "
-          f"{plan.cluster} CTA x {plan.threads} threads, "
-          f"{'shared' if plan.resident else 'global'} memory, registers "
-          f"{dp.kernel_info(torch.cuda.current_device())[0]}), the plain "
-          f"loop {plain_ms:.1f} ms; X within {err:.1e} of its largest "
-          f"entry; bound {rec[3]:.4f} ms by {rec[4]}; " + "; ".join(more),
-          flush=True)
+          f"{plan_text(dp, plan)}), the plain loop {plain_ms:.1f} ms; X "
+          f"within {err:.1e} of its largest entry; bound {rec[3]:.4f} ms by "
+          f"{rec[4]}; " + "; ".join(more), flush=True)
+    dual_prox_stages(dp, G, X0, kw, "400x10")
+    dual_prox_sweep(dp, G, X0, kw, Xp, steps)
     return rec
+
+
+def dual_prox_sweep(dp, G, y, kw, Xp, steps):
+    """The 400x10 prox under every layout: clusters 1-16, E = 1, 2, 4, 8
+    elements a thread in registers and E = 0 (the arrays in memory), each
+    held to the plain loop's steps and X (``Xp``) and timed by events; the
+    fastest is what ``dual_prox_plan`` should choose."""
+    index = torch.cuda.current_device()
+    limit = dp.smem_limit(index)
+    rows, timed = [], []
+    for cluster in (1, 2, 4, 8, 16):
+        for per_thread in (1, 2, 4, 8, 0):
+            plan = dp.layout_plan(y.numel(), cluster, per_thread, limit)
+            label = f"C={cluster} E={per_thread}"
+            if plan is None:
+                rows.append(f"{label} over "
+                            f"{dp.max_threads(per_thread)} threads")
+                continue
+            if not dp.schedulable(plan, index):
+                rows.append(f"{label} not schedulable")
+                continue
+
+            def run(plan=plan):
+                return dp._launch_cuda(G, y, 1.0, plan=plan, **kw)
+
+            X, s = run()
+            err = float((X - Xp).abs().max() / Xp.abs().max())
+            if not (err <= 1e-12 and float(s) == steps):
+                raise AssertionError(f"dual prox sweep {label}: {err:.3e}, "
+                                     f"steps {float(s)} / {steps}")
+            ms = time_launches(run, 5)
+            rows.append(f"{label} ({plan.threads} threads, {plan.layout}) "
+                        f"{ms:.3f} ms")
+            timed.append((ms, label, plan))
+    chosen = dp.device_plan(y.numel(), index)
+    timed.sort(key=lambda t: t[0])
+    print(f"[dual prox sweep] {y.shape[0]}x{y.shape[1]}, {steps:.0f} steps, "
+          f"each within 1e-12 of the plain loop: " + "; ".join(rows)
+          + f"; fastest {timed[0][1]} {timed[0][0]:.3f} ms; the plan takes "
+          f"C={chosen.cluster} E={chosen.per_thread}", flush=True)
+    for ms, label, plan in timed[:3]:
+        dual_prox_stages(dp, G, y, kw, f"400x10 {label}", plan)
+
+
+def dual_prox_stages(dp, G, y, kw, label, plan=None):
+    """Thread 0 of CTA 0's clocks per stage of a step of the dual prox
+    kernel (``dp.STAGES``) on one input (under ``plan``, else the device
+    plan), the timed launch's ms by events and the clock rate they
+    imply."""
+    prof = torch.zeros(len(dp.STAGES) + 1, dtype=torch.int64, device=y.device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    extra = {} if plan is None else {"plan": plan}
+    start.record()
+    dp._launch_cuda(G, y, 1.0, prof=prof, **extra, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    clocks = prof.cpu().numpy().astype(np.float64)
+    steps = int(clocks[-1])
+    if steps < 2:
+        raise AssertionError(f"the stage clocks were not written: {clocks}")
+    per_step = clocks[:-1] / steps
+    total = per_step.sum()
+    ms = start.elapsed_time(end)
+    parts = "; ".join(f"{name} {c:.0f} ({100 * c / total:.1f}%)"
+                      for name, c in zip(dp.STAGES, per_step))
+    print(f"[stages] dual prox {label}: {steps} steps, {total:.0f} clocks a "
+          f"step for thread 0 of CTA 0 ({ms:.3f} ms timed launch, "
+          f"{total * steps / (ms * 1e3):.0f} MHz): {parts}", flush=True)
+
 
 def first_prox_input(port, m, n):
     """gg of the first prox of BPG (L = 1) from the uniform start on the
@@ -3247,6 +3344,7 @@ def block_times(root, solves, gain_iters):
     import accbpg_and_fw_tpu_torch as port
     from accbpg_and_fw_tpu_torch.ops import dopt_dense as dd
     from accbpg_and_fw_tpu_torch.ops import dopt_lazy as dl
+    from accbpg_and_fw_tpu_torch.ops import dual_prox as dp
     from accbpg_and_fw_tpu_torch.ops import simplex as sm
     from accbpg_and_fw_tpu_torch.ops.dopt_common import factorize
 
@@ -3309,6 +3407,13 @@ def block_times(root, solves, gain_iters):
             f"device time in a trace, host cost {host_cost_us(call):.2f} us")
     print(f"[blocks] {root}: multiplier per call (random input): "
           + "; ".join(parts), flush=True)
+    G, X0, kw = study_prox(port, dev)
+    steps = float(dp.dual_prox(G, X0, 1.0, **kw)[1])
+    prox_ms = [time_launches(lambda: dp.dual_prox(G, X0, 1.0, **kw), 10)
+               for _ in range(2)]
+    print(f"[blocks] {root}: dual prox 400x10 ({steps:.0f} steps): "
+          + ", ".join(f"{t:.3f} ms ({1e3 * t / steps:.3f} us a step)"
+                      for t in prox_ms), flush=True)
 
     def walls(fn, reps=4):
         out = []
@@ -3748,14 +3853,18 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--blocks-only", action="store_true",
                     help="print only the block times of the lazy-H and "
-                         "dense kernels, the multiplier's time per call and "
-                         "the main-path walls of the package under --root")
+                         "dense kernels, the multiplier's time per call, "
+                         "the study's dual prox and the main-path walls of "
+                         "the package under --root")
     ap.add_argument("--root", default=str(pathlib.Path(__file__).parent),
                     help="checkout whose package --blocks-only times")
     ap.add_argument("--solves", type=int, default=3)
     ap.add_argument("--gain-iters", type=int, default=0,
                     help="with --blocks-only: also time ABPG_gain 30x10000 "
                          "over this many iterations")
+    ap.add_argument("--dual-prox", action="store_true",
+                    help="build the dual prox kernel and run its phase "
+                         "alone ([dual prox], [stages], the plan sweep)")
     ap.add_argument("--micro", action="store_true",
                     help="build and run csrc/micro_cluster.cu")
     ap.add_argument("--bodies", action="store_true",
@@ -3776,6 +3885,12 @@ def main():
                            args.solves, args.gain_iters)
     if args.micro:
         return micro()
+    if args.dual_prox:
+        import accbpg_and_fw_tpu_torch as port
+
+        print(f"[card] {card_line()}", flush=True)
+        compare_dual_prox(port, torch.device("cuda"))
+        return 0
     if args.bodies:
         return bodies_study()
     card = card_line()

@@ -121,29 +121,56 @@ def test_primal_dual_as_graphs_matches_eager(h_kind):
     assert (dp.device_launches() > 0) == (h_kind == "dual prox")
 
 
+def _study_prox():
+    """The primal-dual study's 400x10 prox input (examples/ex_primal_dual.py
+    figure()'s instance: its start, the gradient there, the oracle's
+    constants with num_iters 7000), where the projection is active in
+    every step."""
+    np.random.seed(11)
+    x = np.random.rand(400)
+    f, _, h, _, X0 = port.FrobeniusSymLossExWithLinearCnstrnts(
+        np.outer(x, x), 10, device="cuda")
+    hd = port.SumOf2nd4thPowersDualProxMap(alpha=h.alpha, sigma=h.sigma)
+    kw = dict(alpha=hd.alpha, sigma=hd.sigma, num_iters=hd.num_iters,
+              eta_base=hd.eta_base, tol=hd.tolerance, radius=hd.radius)
+    return f.grad(X0) + hd.grad(X0), X0, 1.0, kw
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,num_iters", [((10, 10), 3000),
-                                             ((100, 10), 3000),
-                                             ((200, 100), 200),
-                                             ((1000, 300), 30)])
-def test_dual_prox_kernel_matches_plain(shape, num_iters):
+@pytest.mark.parametrize("shape,num_iters,per_thread", [
+    ((10, 10), 3000, None), ((100, 10), 3000, None),
+    ((200, 100), 200, None), ((1000, 300), 30, None),
+    ("study", 7000, None), ((100, 40), 300, 8)])
+def test_dual_prox_kernel_matches_plain(shape, num_iters, per_thread):
     """The kernel against its plain version on the card's tensors: one CTA
-    (10x10), clusters of 4 and 16 CTAs (100x10, 200x100) and the arrays
-    in global memory (1000x300): the same steps, X within 1e-12 of its
-    largest entry."""
+    (10x10), clusters of 4 and 16 CTAs (100x10, 200x100), the arrays in
+    global memory (1000x300), the primal-dual study's 400x10 prox, and a
+    layout of 8 elements a thread (100x40): the same steps, X within 1e-12
+    of its largest entry."""
     from accbpg_and_fw_tpu_torch.ops import dual_prox as dp
 
     _card()
-    rng = np.random.default_rng(4)
-    y = torch.tensor(rng.random(shape), device="cuda")
-    G = torch.tensor(rng.standard_normal(shape), device="cuda")
-    kw = dict(alpha=6.0, sigma=3.0, num_iters=num_iters, eta_base=1e-2,
-              tol=1e-5, radius=15.0)
+    if shape == "study":
+        G, y, L, kw = _study_prox()
+    else:
+        rng = np.random.default_rng(4)
+        y = torch.tensor(rng.random(shape), device="cuda")
+        G = torch.tensor(rng.standard_normal(shape), device="cuda")
+        L = torch.tensor(2.0, device="cuda")
+        kw = dict(alpha=6.0, sigma=3.0, num_iters=num_iters, eta_base=1e-2,
+                  tol=1e-5, radius=15.0)
     before = dp.LAUNCHES
-    X, steps, reads = dp.dual_prox(G, y, torch.tensor(2.0, device="cuda"),
-                                   **kw)
-    Xp, steps_p, _ = dp.dual_prox_reference(G, y, 2.0, **kw)
-    assert dp.LAUNCHES - before == 1 and reads == 0
+    if per_thread is None:
+        X, steps, reads = dp.dual_prox(G, y, L, **kw)
+        assert dp.LAUNCHES - before == 1 and reads == 0
+    else:
+        index = torch.cuda.current_device()
+        cluster = dp.device_plan(y.numel(), index).cluster
+        plan = dp.layout_plan(y.numel(), cluster, per_thread,
+                              dp.smem_limit(index))
+        assert plan.per_thread == per_thread and dp.schedulable(plan, index)
+        X, steps = dp._launch_cuda(G, y, L, plan=plan, **kw)
+    Xp, steps_p, _ = dp.dual_prox_reference(G, y, L, **kw)
     assert float(steps) == float(steps_p)
     err = float((X - Xp).abs().max() / Xp.abs().max())
     assert err <= 1e-12

@@ -235,18 +235,20 @@ def test_dual_prox_plain_route_matches_jax(shape, L, num_iters):
 def test_dual_prox_plan_layouts():
     limit = 232448
     study = dp.dual_prox_plan(4000, limit, 16)  # the primal-dual study
-    assert (study.cluster, study.chunk, study.threads) == (16, 250, 256)
-    assert study.resident and study.smem_bytes == 4 * 8 * 250
+    assert (study.cluster, study.chunk, study.threads) == (16, 250, 64)
+    assert (study.per_thread, study.layout) == (4, "registers")
+    assert study.smem_bytes == 2 * 32 * 88 + 2 * 80 * 16 * 2
     assert sum(len(study.owned(r)) for r in range(16)) == 4000
     one = dp.dual_prox_plan(4000, limit, 1)  # a card with no clusters
-    assert (one.cluster, one.threads, one.resident) == (1, 1024, True)
+    assert (one.cluster, one.threads, one.layout) == (1, 256, "shared")
     big = dp.dual_prox_plan(40000, limit, 16)
-    assert big.cluster == 16 and big.chunk == 2500 and big.resident
-    assert big.threads == 1024
+    assert big.cluster == 16 and big.chunk == 2500 and big.layout == "shared"
+    assert big.threads == 256 and big.per_thread == 0
     huge = dp.dual_prox_plan(10**6, limit, 16)
-    assert huge.cluster == 16 and not huge.resident and huge.smem_bytes == 0
+    assert huge.cluster == 16 and huge.layout == "global"
+    assert huge.smem_bytes == 8 * 32 * 88 + 2 * 80 * 16 * 8
     small = dp.dual_prox_plan(50, limit, 16)
-    assert (small.cluster, small.threads) == (1, 64)
+    assert (small.cluster, small.threads, small.per_thread) == (1, 32, 4)
     assert dp.dual_prox_plan(40000, limit, 4).cluster == 4
     with pytest.raises(ValueError):
         dp.dual_prox_plan(0, limit, 16)
