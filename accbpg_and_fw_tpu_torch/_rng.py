@@ -20,20 +20,29 @@ saves it as JAX's ``uint32[2]`` and the packages resume each other's runs.
   ``erfinv`` (and CUDA's) is not XLA's polynomial, so a normal may part
   from JAX's in its last bits (tests/test_torch_rng_device.py measures
   how far); the uniform it starts from is JAX's bit for bit;
-* ``split_uniform(key)`` is ``split`` and the ``uniform`` of the draw key
-  in one call, the inexact drivers' per-iteration draw.
+* ``split_uniform(key, scale)`` is ``split`` and the ``uniform`` of the
+  draw key (times ``scale``) in one call, the inexact drivers'
+  per-iteration ``noise * uniform(sub)``;
+* ``split_noise(key, shape, shift, scale, base)`` is ``split`` and
+  ``base + (normal(sub, shape) - shift) * scale`` in one call: what JAX
+  compiles into one fused expression for a stochastic oracle's gradient
+  (the split in the driver, the noise in ``FrobeniusSymLoss._noise``).
 
 The hash is stateless, so a key gives the same bits in a graph, in a
 masked body that dies, eagerly and on the CPU.  On a CUDA key each
-function launches the kernel ``csrc/threefry.cu`` on the current stream
-(entry ``threefry_split_run`` for a split, ``threefry_draw_run`` for a
-draw: one thread per counter) and counts the launch on the host
-(``SPLIT_LAUNCHES``, ``DRAW_LAUNCHES``) and, from inside the kernel, in a
-device int64 per entry (``device_launches``: a graph's replays count
-there).  On a CPU key it
-runs the plain version: the same arithmetic in int64 tensor operations,
-each word masked to 32 bits after every add and rotate.  Nothing reads
-back to the host.
+function launches the kernel ``csrc/threefry.cu`` on the current stream,
+once: entry ``threefry_split_run`` for a split (one thread),
+``threefry_draw_run`` for a draw or a ``split_noise`` (``DRAW_PLAN``: the
+threads a block and the counters a thread); each launch is counted on the
+host (``SPLIT_LAUNCHES``, ``DRAW_LAUNCHES``) and, from inside the kernel,
+in a device int64 per entry (``device_launches``: a graph's replays count
+there).  The wrappers are lean: the ctypes functions, the stream getter
+and the counts' addresses are bound once, and a call's outputs (keys,
+values and the uniform's bits) are views of one ``torch.empty``.  On a
+CPU key each function runs the plain version: the same arithmetic in
+int64 tensor operations, each word masked to 32 bits after every add and
+rotate, and the same float64 tensor operations after the draw.  A CUDA
+key launches the kernel or raises.  Nothing reads back to the host.
 """
 
 from __future__ import annotations
@@ -53,9 +62,13 @@ _PARITY = 0x1BD11BDA
 _NORMAL_LO = float(np.nextafter(np.float64(-1.0), np.float64(0.0)))
 _NORMAL_SCALE = float(np.float64(1.0) - np.float64(_NORMAL_LO))
 _SQRT2 = float(np.sqrt(np.float64(2.0)))
-# a draw's output: the uniforms, the normals, or the two words of each
-# counter (for the tests); the kernel's ``Mode``
-_MODES = {"uniform": 0, "normal": 1, "bits": 2}
+# a draw's output: the uniforms, the normals, the two words of each
+# counter (for the tests), or ``split_noise``'s values and keys from the
+# chain key; the kernel's ``Mode``
+_MODES = {"uniform": 0, "normal": 1, "bits": 2, "noise": 3}
+# the draw entry's launch shape: threads a block, counters a thread
+# (chip_smoke.py's [threefry sweep] on the card; PERF.md)
+DRAW_PLAN = (128, 1)
 
 # Launches of the threefry kernel's two entries by their wrappers on CUDA
 # keys (never by the plain version): counted on the host when a wrapper runs
@@ -67,6 +80,9 @@ DRAW_LAUNCHES = 0
 # (``device_launches``).
 ENTRIES = ("split", "draw")
 _DEVICE_COUNTS: dict = {}
+# a card's counts' addresses, in ENTRIES order, and the bound entries
+_COUNT_PTRS: dict = {}
+_BOUND = None
 
 
 def key(seed, device=None):
@@ -105,17 +121,37 @@ def _check(k):
 
 def split(k):
     """``(next key, draw key)``: one link of the chain."""
-    return split_uniform(k)[:2]
-
-
-def split_uniform(k):
-    """``(next key, draw key, uniform(draw key))`` in one call (one launch
-    on the card)."""
+    if getattr(k, "is_cuda", False):
+        return _split_cuda(k, None, uniform=False)
     _check(k)
-    if k.device.type == "cpu":
-        nxt, sub = split_reference(k)
-        return nxt, sub, uniform_reference(sub)
-    return _split_cuda(k)
+    return split_reference(k)
+
+
+def split_uniform(k, scale=None):
+    """``(next key, draw key, uniform(draw key))`` in one call (one launch
+    on the card); with ``scale`` (on the card a float64 0-d tensor on the
+    key's device) the last is ``scale * uniform(draw key)``, rounded once
+    as JAX's ``noise * jax.random.uniform(sub)``."""
+    if getattr(k, "is_cuda", False):
+        return _split_cuda(k, scale)
+    _check(k)
+    nxt, sub = split_reference(k)
+    u = uniform_reference(sub)
+    return nxt, sub, u if scale is None else scale * u
+
+
+def split_noise(k, shape, shift=0.0, scale=1.0, base=None):
+    """``(next key, draw key, base + (normal(draw key, shape) - shift) *
+    scale)`` in one call (without ``base``: the noise alone), each
+    operation rounded on its own, so the values are those of ``split``,
+    ``normal`` and the three tensor operations bit for bit; one launch on
+    the card.  ``shift`` and ``scale`` are numbers; ``base`` a float64
+    tensor of ``shape`` on the key's device."""
+    if getattr(k, "is_cuda", False):
+        return _noise_cuda(k, shape, shift, scale, base)
+    _check(k)
+    return split_noise_reference(k, tuple(int(d) for d in shape), shift,
+                                 scale, base)
 
 
 def uniform(sub):
@@ -140,11 +176,11 @@ def bits(sub, shape):
 
 
 def _draw(sub, shape, mode):
-    _check(sub)
     shape = tuple(int(d) for d in shape)
-    if sub.device.type == "cpu":
-        return _draw_reference(sub, shape, mode)
-    return _draw_cuda(sub, shape, mode)
+    if getattr(sub, "is_cuda", False):
+        return _draw_cuda(sub, shape, mode)
+    _check(sub)
+    return _draw_reference(sub, shape, mode)
 
 
 # ---- the plain version --------------------------------------------------------
@@ -194,6 +230,14 @@ def uniform_reference(sub):
     return _draw_reference(sub, (), "uniform")
 
 
+def split_noise_reference(k, shape, shift, scale, base=None):
+    """The plain ``split_noise``: ``split_reference``, the plain normal
+    draw, and the tensor operations the unfused composition runs."""
+    nxt, sub = split_reference(k)
+    v = (_draw_reference(sub, shape, "normal") - shift) * scale
+    return nxt, sub, v if base is None else base + v
+
+
 def _draw_reference(sub, shape, mode):
     n = math.prod(shape)
     c_hi, c_lo = _counters(n, sub.device)
@@ -218,6 +262,17 @@ def _device_count(device, entry):
     return count
 
 
+def _count_ptrs(index):
+    """The addresses of the entries' device counts on card ``index``
+    (``ENTRIES`` order), made at a card's first launch and kept."""
+    ptrs = _COUNT_PTRS.get(index)
+    if ptrs is None:
+        dev = torch.device("cuda", index)
+        ptrs = tuple(_device_count(dev, e).data_ptr() for e in ENTRIES)
+        _COUNT_PTRS[index] = ptrs
+    return ptrs
+
+
 def device_launches(entry=None):
     """The launches of one entry (``"split"`` or ``"draw"``; both for None)
     the cards counted since the last reset (one read each)."""
@@ -235,60 +290,113 @@ def _kernel_lib():
     from .ops import _build
 
     lib = _build.load("threefry")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_double)
     lib.threefry_split_run.argtypes = [p, p, p, p, i, p]
     lib.threefry_split_run.restype = i
-    lib.threefry_draw_run.argtypes = [p, ll, i, p, p, p, i, p]
+    lib.threefry_draw_run.argtypes = [p, ll, i, d, d, p, p, p, i, i, i, p]
     lib.threefry_draw_run.restype = i
     lib.threefry_error_string.argtypes = [i]
     lib.threefry_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_err(err, what):
-    if err:
-        raise RuntimeError(f"threefry {what} failed: "
-                           + _kernel_lib().threefry_error_string(err)
-                           .decode())
+def _bound():
+    """The two entries' ctypes functions and the stream getter, bound at
+    the first launch."""
+    global _BOUND
+    if _BOUND is None:
+        lib = _kernel_lib()
+        _BOUND = (lib.threefry_split_run, lib.threefry_draw_run,
+                  torch._C._cuda_getCurrentRawStream)
+    return _BOUND
 
 
-def _stream(device):
-    return torch._C._cuda_getCurrentRawStream(device.index)
+def _raise(err, what):
+    raise RuntimeError(f"threefry {what} failed: "
+                       + _kernel_lib().threefry_error_string(err).decode())
 
 
-def _split_cuda(k):
+def _card_key(k):
+    """The key as the kernel takes it: int64[2], contiguous."""
+    if k.dtype != torch.int64 or k.shape != (2,):
+        _check(k)
+    return k if k.is_contiguous() else k.contiguous()
+
+
+def _split_cuda(k, scale, uniform=True):
     global SPLIT_LAUNCHES
-    k = k.contiguous()
-    out = torch.empty(4, dtype=torch.int64, device=k.device)
-    u = torch.empty((), dtype=torch.float64, device=k.device)
-    err = _kernel_lib().threefry_split_run(
-        k.data_ptr(), out.data_ptr(), u.data_ptr(),
-        _device_count(k.device, "split").data_ptr(), k.device.index,
-        _stream(k.device))
-    _check_err(err, "split launch")
+    split_fn, _, stream = _bound()
+    k = _card_key(k)
+    index = k.get_device()
+    scale_ptr = None
+    if scale is not None:
+        if not (isinstance(scale, torch.Tensor)
+                and scale.dtype == torch.float64 and scale.numel() == 1
+                and scale.get_device() == index):
+            raise ValueError("on the card a split's scale is a float64 "
+                             "0-d tensor on the key's device")
+        scale_ptr = scale.data_ptr()
+    # the two keys' words and the uniform's bits in one allocation
+    out = k.new_empty(5)
+    err = split_fn(k.data_ptr(), out.data_ptr(), scale_ptr,
+                   _count_ptrs(index)[0], index, stream(index))
+    if err:
+        _raise(err, "split launch")
     SPLIT_LAUNCHES += 1
-    return out[:2], out[2:], u
+    nxt, sub, u = out.split((2, 2, 1))
+    if not uniform:
+        return nxt, sub
+    return nxt, sub, u.view(torch.float64).view(())
 
 
 def _draw_cuda(sub, shape, mode):
     global DRAW_LAUNCHES
-    sub = sub.contiguous()
+    _, draw_fn, stream = _bound()
+    sub = _card_key(sub)
     n = math.prod(shape)
-    dev = sub.device
-    if mode == "bits":
-        words = torch.empty(2, n, dtype=torch.int64, device=dev)
-        out = None
-    else:
-        out = torch.empty(n, dtype=torch.float64, device=dev)
-        words = None
+    out = (sub.new_empty((2, n)) if mode == "bits"
+           else sub.new_empty(n, dtype=torch.float64))
     if n:
-        err = _kernel_lib().threefry_draw_run(
-            sub.data_ptr(), n, _MODES[mode],
-            None if out is None else out.data_ptr(),
-            None if words is None else words.data_ptr(),
-            _device_count(dev, "draw").data_ptr(), dev.index, _stream(dev))
-        _check_err(err, "draw launch")
+        index = sub.get_device()
+        err = draw_fn(sub.data_ptr(), n, _MODES[mode], 0.0, 1.0, None,
+                      out.data_ptr(), _count_ptrs(index)[1], *DRAW_PLAN,
+                      index, stream(index))
+        if err:
+            _raise(err, "draw launch")
         DRAW_LAUNCHES += 1
     if mode == "bits":
-        return words[0].reshape(shape), words[1].reshape(shape)
+        return out[0].reshape(shape), out[1].reshape(shape)
     return out.reshape(shape)
+
+
+def _noise_cuda(k, shape, shift, scale, base, plan=None):
+    """``split_noise`` on the card: one launch of the draw entry in its
+    noise mode, on the launch shape ``plan`` (``DRAW_PLAN`` for None)."""
+    global DRAW_LAUNCHES
+    _, draw_fn, stream = _bound()
+    k = _card_key(k)
+    index = k.get_device()
+    n = math.prod(shape)
+    base_ptr = None
+    if base is not None:
+        if base.dtype != torch.float64 or base.numel() != n \
+                or base.get_device() != index:
+            raise ValueError(f"a noise base is a float64 tensor of {n} "
+                             "values on the key's device")
+        if not base.is_contiguous():
+            base = base.contiguous()
+        base_ptr = base.data_ptr()
+    # the two keys' words, then the values' bits, in one allocation
+    out = k.new_empty(n + 4)
+    threads, per_thread = DRAW_PLAN if plan is None else plan
+    err = draw_fn(k.data_ptr(), n, _MODES["noise"], float(shift),
+                  float(scale), base_ptr,
+                  out.data_ptr(), _count_ptrs(index)[1], threads, per_thread,
+                  index, stream(index))
+    if err:
+        _raise(err, "noise launch")
+    DRAW_LAUNCHES += 1
+    nxt, sub, vals = out.split((2, 2, n))
+    vals = vals.view(torch.float64)
+    return nxt, sub, vals if len(shape) == 1 else vals.view(shape)

@@ -85,15 +85,30 @@ FG_GAIN_BODIES = 4
 GRAPH_SPAN = 32
 
 
-def _draw(cfg, c, fn, x):
-    """``(carry entries, fn(x))`` for one gradient evaluation: a
-    stochastic f-oracle gets a fresh draw key split from the carry's (the
-    JAX drivers' per-gradient split), and the next key comes back as
-    ``{"key": ...}`` for the step's carry; an exact one gets none."""
+def _keyed(f, x, key, value):
+    """``(next key, f.value_and_grad(x, key=sub))`` (``f.grad`` where not
+    ``value``) with ``(key, sub) = split(key)``: the oracle's keyed form
+    where it has one (``FrobeniusSymLoss``: the split and the noisy
+    gradient in one launch on the card), else the split and the keyed
+    call."""
+    keyed = getattr(f, "_value_and_grad_keyed" if value else "_grad_keyed",
+                    None)
+    if keyed is not None:
+        return keyed(x, key)
+    key, sub = _rng.split(key)
+    return key, (f.value_and_grad if value else f.grad)(x, key=sub)
+
+
+def _draw(cfg, c, f, x, value=True):
+    """``(carry entries, f.value_and_grad(x))`` (``f.grad(x)`` where not
+    ``value``) for one gradient evaluation: a stochastic f-oracle gets a
+    fresh draw key split from the carry's (the JAX drivers' per-gradient
+    split), and the next key comes back as ``{"key": ...}`` for the step's
+    carry; an exact one gets none."""
     if getattr(cfg, "stochastic", False):
-        key, sub = _rng.split(c["key"])
-        return {"key": key}, fn(x, key=sub)
-    return {}, fn(x)
+        key, out = _keyed(f, x, c["key"], value)
+        return {"key": key}, out
+    return {}, f.value_and_grad(x) if value else f.grad(x)
 
 
 def _stoch_carry(f, carry, seed, fast_gram=False):
@@ -108,15 +123,14 @@ def _stoch_carry(f, carry, seed, fast_gram=False):
     return stoch
 
 
-def _trial_draw(cfg, fn, x, key):
-    """``(key, fn(x))`` for one line-search trial: a stochastic f-oracle
-    gets a fresh draw key split from the trials' chain ``key`` (the JAX
-    drivers split one per trial: each trial has its own point), an exact
-    one none."""
+def _trial_draw(cfg, f, x, key, value=True):
+    """``(key, f.value_and_grad(x))`` (``f.grad(x)`` where not ``value``)
+    for one line-search trial: a stochastic f-oracle gets a fresh draw key
+    split from the trials' chain ``key`` (the JAX drivers split one per
+    trial: each trial has its own point), an exact one none."""
     if cfg.stochastic:
-        key, sub = _rng.split(key)
-        return key, fn(x, key=sub)
-    return key, fn(x)
+        return _keyed(f, x, key, value)
+    return key, f.value_and_grad(x) if value else f.grad(x)
 
 
 def _start(f, x0):
@@ -309,7 +323,7 @@ class _BPGCfg(NamedTuple):
 def _bpg_step(cfg, prob, c, k):
     f, h = prob["f"], prob["h"]
     x, Lk = c["x"], c["L"]
-    kc, (fx, g) = _draw(cfg, c, f.value_and_grad, x)
+    kc, (fx, g) = _draw(cfg, c, f, x)
     Fk = fx + h.extra_psi(x)
     stop = _past_first(k, torch.abs(Fk - c["F_prev"]) < prob["eps"])
 
@@ -438,7 +452,7 @@ def _abpg_step(cfg, prob, c, k):
     Fk = fx + h.extra_psi(x)
     theta = _abpg_theta(cfg, gam, c)
     y = _comb(theta, x, z)
-    kc, g = _draw(cfg, c, f.grad, y)
+    kc, g = _draw(cfg, c, f, y, value=False)
     z_new = h.div_prox_map(z, g, theta ** (gam - 1.0) * L)
     x_new = _comb(theta, x, z_new)
     dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
@@ -537,7 +551,7 @@ def _abpg_expo_step(cfg, prob, c, k):
     Fk = fx + h.extra_psi(x)
     theta = _abpg_theta(cfg, gamma, c)
     y = _comb(theta, x, z)
-    kc, (fy, g) = _draw(cfg, c, f.value_and_grad, y)
+    kc, (fy, g) = _draw(cfg, c, f, y)
 
     def attempt(gm):
         z_new = h.div_prox_map(z, g, theta ** (gm - 1.0) * L)
@@ -700,7 +714,7 @@ def _abpg_gain_step(cfg, prob, c, k):
                 theta_1)
         y = _comb(theta, x, z)
         # a stochastic oracle draws fresh noise per trial (each has its y)
-        key, (fy, g) = _trial_draw(cfg, f.value_and_grad, y, key)
+        key, (fy, g) = _trial_draw(cfg, f, y, key)
         z_new = h.div_prox_map(z, g, theta ** gam1 * G * L)
         x_new = _comb(theta, x, z_new)
         dxy, dzz = h.divergence(x_new, y), h.divergence(z_new, z)
@@ -884,7 +898,7 @@ def _abda_step(cfg, prob, c, k):
     Fk = fx + h.extra_psi(x)
     theta = _abpg_theta(cfg, gam, c)
     y = _comb(theta, x, z)
-    kc, g = _draw(cfg, c, f.grad, y)
+    kc, g = _draw(cfg, c, f, y, value=False)
     w = theta ** (1.0 - gam)
     gavg = c["gavg"] + w * g
     csum = c["csum"] + w

@@ -22,10 +22,11 @@ search needs more bodies runs again eagerly.  Eagerly (the CPU,
 ``driver.eager_chunks``) each loop reads its exit test once per turn.
 
 The inexact-oracle noise is JAX's: one ``_rng.split_uniform`` of the
-carried key per iteration (one kernel launch on the card), and a
-stochastic f-oracle's draw keys split per trial, as the JAX drivers split
-theirs.  The primal-dual driver computes both of JAX's branches and
-selects leaf by leaf; its productive line search runs only while the
+carried key per iteration, scaled by the noise (one kernel launch on the
+card), and a stochastic f-oracle's draw keys split per trial, as the JAX
+drivers split theirs (each trial's split and noisy gradient one launch,
+``bpg._keyed``).  The primal-dual driver computes both of JAX's branches
+and selects leaf by leaf; its productive line search runs only while the
 iterate is productive (the other branch's values are the ones kept).
 """
 
@@ -103,9 +104,10 @@ def _k_float(k, like):
 
 def _noise_draw(prob, c):
     """The iteration's ``(next key, noise * uniform)``: JAX's split of the
-    carried key and its uniform draw, in one launch on the card."""
-    key, _, u = _rng.split_uniform(c["key"])
-    return key, prob["noise"] * u
+    carried key, its uniform draw and the product, in one launch on the
+    card."""
+    key, _, delta = _rng.split_uniform(c["key"], scale=prob["noise"])
+    return key, delta
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +152,7 @@ def _aibm_step(cfg, prob, c, k):
         B = (Lt * alpha ** gamma) ** (1.0 / (gamma - 1.0))
         r = alpha / B
         x_t = r * z + (1.0 - r) * y
-        tkey, (fx_t, grad_x) = _trial_draw(cfg, f.value_and_grad, x_t, tkey)
+        tkey, (fx_t, grad_x) = _trial_draw(cfg, f, x_t, tkey)
         xi_t = xi + alpha * grad_x
         z_k = h.prox_map(xi_t, 1.0)
         w = r * z_k + (1.0 - r) * y
@@ -227,7 +229,7 @@ def _fgm_step(cfg, prob, c, k):
         alpha = (1.0 + torch.sqrt(1.0 + 4.0 * Lt * A_k)) / (2.0 * Lt)
         A = Lt * (alpha * alpha)
         y = (alpha * u_k + A_k * x_k) / A
-        tkey, g_y = _trial_draw(cfg, f.grad, y, tkey)
+        tkey, g_y = _trial_draw(cfg, f, y, tkey, value=False)
         if cfg.universal:
             g_y = g_y + nz
         u = h.div_prox_map(u_k, g_y * alpha, 1.0)

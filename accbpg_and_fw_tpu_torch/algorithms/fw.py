@@ -121,7 +121,7 @@ def _fw_div_step(cfg, prob, c, k):
     f, h = prob["f"], prob["h"]
     gamma, ls_ratio = prob["gamma"], prob["ls_ratio"]
     x, Lk = c["x"], c["L"]
-    kc, (fx, g) = _draw(cfg, c, f.value_and_grad, x)
+    kc, (fx, g) = _draw(cfg, c, f, x)
     Fk = fx + h.extra_psi(x)
     d, div, gdp, bad = _direction(cfg, h, x, g, prob["delta"])
 
@@ -208,7 +208,7 @@ def _fw_descent_step(cfg, prob, c, k):
     kf = k.to(c["x"].dtype) if isinstance(k, torch.Tensor) else k
     alpha = 2.0 / (kf + 2.0)
     x = c["x"] + alpha * d
-    kc, (fx, g) = _draw(cfg, c, f.value_and_grad, x)
+    kc, (fx, g) = _draw(cfg, c, f, x)
     Fk = fx + h.extra_psi(x)
     stop = (torch.abs(Fk - c["F_prev"]) < eps) | (fnorm(g) < eps)
     return (dict(done=c["done"], x=x, g=g, F_prev=Fk, **kc),

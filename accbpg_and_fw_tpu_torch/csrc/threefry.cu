@@ -8,7 +8,7 @@
 // driver's key chain is device tensors and a CUDA graph captures its draws.
 // The plain PyTorch version, the same arithmetic in int64 tensor
 // operations, is accbpg_and_fw_tpu_torch/_rng.py (threefry2x32_reference,
-// split_reference, _draw_reference).
+// split_reference, _draw_reference, split_noise_reference).
 //
 // * threefry2x32: 20 rounds of add, rotate and xor on two 32-bit words, the
 //   key injected every four rounds (JAX's _threefry2x32_lowering).
@@ -23,19 +23,38 @@
 //   the uniforms agree bit for bit; CUDA's erfinv is not torch's, so the
 //   normals agree to the last bits.
 //
-// What bounds it: a split is one thread and three hashes, so a launch's
-// latency (a few microseconds) is all of it; a draw of n values is n
-// hashes of 20 rounds each (about 100 integer operations) and 8n bytes
-// written, far below the card's rates at the solvers' n (up to 10^5): the
-// launch dominates again.  Its design is to be one node of a graph and to
-// read nothing back: one launch per split (the inexact drivers' uniform
-// comes with it), one per draw, a grid-stride loop of one thread per
-// counter.  Thread 0 of block 0 adds one to a device int64, the launch
-// count that a graph's replays keep adding to.
+// Two entries.  threefry_split_run: one link of the chain and the draw
+// key's uniform, times a scale read from the card where one is given (the
+// inexact drivers' noise * uniform(sub), JAX's one rounding).
+// threefry_draw_run: n uniforms, normals or raw words of a draw key, or,
+// in the noise mode, what a stochastic oracle's gradient adds in JAX's
+// fused expression: from the CHAIN key, the split, the n normals of the
+// draw key, and base + (normal - shift) * scale, each operation rounded on
+// its own (__dsub_rn, __dmul_rn, __dadd_rn: no contraction), so the values
+// are bit for bit those of the split, the normal draw and the three tensor
+// operations they replace, in one launch.
+//
+// What bounds it: a split is one thread and three dependent hashes; a draw
+// of n values is n hashes of 20 rounds (79 integer operations each), an
+// erfinv each for normals, and 8n bytes written (16n with a base read).
+// At the solvers' n (4000, up to 10^5) both are far below the card's
+// rates, so a launch's latency is all of it, and a graph node's floor is
+// most of that (chip_smoke.py [threefry walls]: 2.2 us a node at 400x10
+// beside an empty kernel's 0.8-1.0 us, on an H100 80GB HBM3 at 700 W).
+// The design is to be as few nodes as the JAX expression is, and to read
+// nothing back.  In the noise mode every warp derives the draw key from
+// the chain key itself (lane 0 hashes the counter (0, 0), the next key,
+// the other lanes (0, 1), the draw key, and lane 1's words are broadcast
+// with __shfl_sync: one hash's latency, the same instructions the warp
+// would issue for one lane), so no block waits for another; lanes 0 and 1
+// of block 0 write the two keys.  A thread hashes C counters at once (two
+// independent chains in flight for C = 2).  Thread 0 of block 0 adds one to
+// the entry's device int64, the launch count that a graph's replays keep
+// adding to.
 //
 // Interface: plain C, loaded with ctypes; the key is an int64[2] tensor
-// holding the two words.  The wrapper allocates the outputs with
-// torch.empty; the kernel launches on the caller's stream.
+// holding the two words.  The wrapper allocates each call's outputs with
+// one torch.empty; the kernel launches on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -45,7 +64,7 @@
 namespace {
 
 constexpr uint32_t kParity = 0x1BD11BDAu;
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
 constexpr long long kMaxBlocks = 4096;
 // jax.random.normal's interval: nextafter(-1, 0), and 1 - that, which
 // rounds to 2
@@ -53,8 +72,8 @@ constexpr double kNormalLo = -0x1.fffffffffffffp-1;
 constexpr double kNormalScale = 2.0;
 constexpr double kSqrt2 = 1.4142135623730951;
 
-// what a draw writes: the kernel's modes, as ops' _rng._MODES
-enum Mode { kUniform = 0, kNormal = 1, kBits = 2 };
+// what a draw writes: the kernel's modes, as _rng._MODES
+enum Mode { kUniform = 0, kNormal = 1, kBits = 2, kNoise = 3 };
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -87,9 +106,18 @@ __device__ __forceinline__ double unit(uint32_t hi, uint32_t lo) {
   return __dmul_rn(__ull2double_rn(mant), 0x1p-52);
 }
 
+// jax.random.normal of the 64-bit word: its uniform mapped onto
+// (nextafter(-1, 0), 1), then sqrt(2) erfinv.
+__device__ __forceinline__ double normal(uint32_t hi, uint32_t lo) {
+  const double v =
+      fmax(__dadd_rn(__dmul_rn(unit(hi, lo), kNormalScale), kNormalLo),
+           kNormalLo);
+  return __dmul_rn(kSqrt2, erfinv(v));
+}
+
 __global__ void threefry_split_kernel(const long long* __restrict__ key,
                                       long long* __restrict__ out,
-                                      double* __restrict__ u,
+                                      const double* __restrict__ scale,
                                       long long* count) {
   const uint32_t k0 = (uint32_t)key[0], k1 = (uint32_t)key[1];
   uint32_t n0 = 0, n1 = 0, s0 = 0, s1 = 1;
@@ -101,31 +129,63 @@ __global__ void threefry_split_kernel(const long long* __restrict__ key,
   out[3] = s1;
   uint32_t w0 = 0, w1 = 0;
   threefry2x32(s0, s1, w0, w1);
-  *u = unit(w0, w1);
+  const double u = unit(w0, w1);
+  reinterpret_cast<double*>(out)[4] =
+      scale == nullptr ? u : __dmul_rn(*scale, u);
   *count += 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One draw of n values; C counters a thread, a grid-stride loop.  In the
+// noise mode `key` is the chain key, out[0..4) (as int64 words) gets the
+// next key and the draw key, and the values follow them.
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads)
 threefry_draw_kernel(const long long* __restrict__ key, long long n, int mode,
-                     double* __restrict__ out, long long* __restrict__ words,
+                     double shift, double scale,
+                     const double* __restrict__ base, double* __restrict__ out,
                      long long* count) {
-  const uint32_t k0 = (uint32_t)key[0], k1 = (uint32_t)key[1];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    uint32_t x0 = (uint32_t)(i >> 32), x1 = (uint32_t)i;
+  uint32_t k0 = (uint32_t)key[0], k1 = (uint32_t)key[1];
+  if (mode == kNoise) {
+    const unsigned lane = threadIdx.x & 31u;
+    uint32_t x0 = 0, x1 = lane != 0;
     threefry2x32(k0, k1, x0, x1);
-    if (mode == kBits) {
-      words[i] = x0;
-      words[n + i] = x1;
-      continue;
+    if (blockIdx.x == 0 && threadIdx.x < 2) {
+      long long* keys = reinterpret_cast<long long*>(out);
+      keys[2 * threadIdx.x] = x0;
+      keys[2 * threadIdx.x + 1] = x1;
     }
-    double v = unit(x0, x1);
-    if (mode == kNormal) {
-      v = fmax(__dadd_rn(__dmul_rn(v, kNormalScale), kNormalLo), kNormalLo);
-      v = __dmul_rn(kSqrt2, erfinv(v));
+    k0 = __shfl_sync(0xffffffffu, x0, 1);
+    k1 = __shfl_sync(0xffffffffu, x1, 1);
+    out += 4;
+  }
+  const long long tile = (long long)blockDim.x * C;
+  for (long long t = (long long)blockIdx.x * tile + threadIdx.x; t < n;
+       t += (long long)gridDim.x * tile) {
+    uint32_t hi[C], lo[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const long long i = t + (long long)c * blockDim.x;
+      hi[c] = (uint32_t)(i >> 32);
+      lo[c] = (uint32_t)i;
+      threefry2x32(k0, k1, hi[c], lo[c]);
     }
-    out[i] = v;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const long long i = t + (long long)c * blockDim.x;
+      if (i >= n) break;
+      if (mode == kBits) {
+        long long* words = reinterpret_cast<long long*>(out);
+        words[i] = hi[c];
+        words[n + i] = lo[c];
+      } else if (mode == kUniform) {
+        out[i] = unit(hi[c], lo[c]);
+      } else if (mode == kNormal) {
+        out[i] = normal(hi[c], lo[c]);
+      } else {
+        double v = __dmul_rn(__dsub_rn(normal(hi[c], lo[c]), shift), scale);
+        out[i] = base == nullptr ? v : __dadd_rn(base[i], v);
+      }
+    }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *count += 1;
 }
@@ -137,32 +197,43 @@ cudaError_t no_preparation(int) { return cudaSuccess; }
 extern "C" {
 
 // split(key) into out[0..2) (the next key) and out[2..4) (the draw key),
-// and uniform(draw key) into u[0]; one thread on `stream` of `device`.
-// `count` is the device's launch count.  Returns the launch's cudaError_t.
-int threefry_split_run(const void* key, void* out, void* u, void* count,
-                       int device, void* stream) {
+// and uniform(draw key), times *scale where scale is not null, into out[4]
+// as a double; one thread on `stream` of `device`.  `count` is the
+// device's launch count.  Returns the launch's cudaError_t.
+int threefry_split_run(const void* key, void* out, const void* scale,
+                       void* count, int device, void* stream) {
   return (int)on_device(device, no_preparation, [&]() {
     threefry_split_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const long long*>(key), static_cast<long long*>(out),
-        static_cast<double*>(u), static_cast<long long*>(count));
+        static_cast<const double*>(scale), static_cast<long long*>(count));
     return cudaGetLastError();
   });
 }
 
-// n draws of the key: mode 0 uniforms and 1 normals into out[0..n), mode 2
-// the two words of each counter into words[0..n) and words[n..2n).
-int threefry_draw_run(const void* key, long long n, int mode, void* out,
-                      void* words, void* count, int device, void* stream) {
-  if (n < 1 || mode < kUniform || mode > kBits ||
-      (mode == kBits ? words == nullptr : out == nullptr))
+// n draws of `key`, `threads` threads a block (a multiple of 32 up to 256)
+// and `per_thread` (1 or 2) counters a thread: mode 0 uniforms and 1
+// normals into out[0..n), mode 2 the two words of each counter into
+// out[0..n) and out[n..2n) as int64; mode 3 (`key` the chain key) the next
+// key and the draw key into out[0..4) as int64 words and base[i] +
+// (normal_i - shift) * scale (no base where it is null) into out[4..n+4).
+int threefry_draw_run(const void* key, long long n, int mode, double shift,
+                      double scale, const void* base, void* out, void* count,
+                      int threads, int per_thread, int device, void* stream) {
+  if (n < (mode == kNoise ? 0 : 1) || mode < kUniform || mode > kNoise ||
+      out == nullptr || threads < 32 || threads > kMaxThreads ||
+      threads % 32 || (per_thread != 1 && per_thread != 2))
     return (int)cudaErrorInvalidValue;
   return (int)on_device(device, no_preparation, [&]() {
-    long long blocks = (n + kThreads - 1) / kThreads;
+    const long long tile = (long long)threads * per_thread;
+    long long blocks = (n + tile - 1) / tile;
+    if (blocks < 1) blocks = 1;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    threefry_draw_kernel<<<(unsigned)blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(key), n, mode,
-        static_cast<double*>(out), static_cast<long long*>(words),
+    auto kernel = per_thread == 2 ? threefry_draw_kernel<2>
+                                  : threefry_draw_kernel<1>;
+    kernel<<<(unsigned)blocks, threads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(key), n, mode, shift, scale,
+        static_cast<const double*>(base), static_cast<double*>(out),
         static_cast<long long*>(count));
     return cudaGetLastError();
   });

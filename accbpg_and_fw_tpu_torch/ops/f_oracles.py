@@ -265,15 +265,42 @@ class FrobeniusSymLoss(_DataOracle):
         return ((_rng.normal(_rng.as_key(key, x.device), x.shape) - 0.5)
                 * self.noise_level)
 
-    def grad(self, x, key=None):
-        return 2.0 * (x @ (x.T @ x) - self.M @ x) + self._noise(x, key)
+    def _exact_grad(self, x):
+        return 2.0 * (x @ (x.T @ x) - self.M @ x)
 
-    def value_and_grad(self, x, key=None):
+    def _value_and_exact_grad(self, x):
         XtX = x.T @ x
         MX = self.M @ x
         nrm = torch.linalg.vector_norm(XtX)
         f = 0.5 * (self.M_norm * self.M_norm + nrm * nrm) - vdot(x, MX)
-        return f, 2.0 * (x @ XtX - MX) + self._noise(x, key)
+        return f, 2.0 * (x @ XtX - MX)
+
+    def grad(self, x, key=None):
+        return self._exact_grad(x) + self._noise(x, key)
+
+    def value_and_grad(self, x, key=None):
+        f, G = self._value_and_exact_grad(x)
+        return f, G + self._noise(x, key)
+
+    # The drivers' keyed form (``bpg._keyed``): ``(next key, grad(x,
+    # key=sub))`` with ``(key, sub) = split(key)``, JAX's split and noisy
+    # gradient as one fused expression: one launch on the card
+    # (``_rng.split_noise``), the plain version on a CPU key, bit for bit
+    # the unfused composition either way.
+    def _with_noise(self, x, key, G):
+        if self.noise_level is None:  # exact: the unfused composition
+            key, sub = _rng.split(key)
+            return key, G + self._noise(x, sub)
+        key, _, g = _rng.split_noise(key, x.shape, 0.5, self.noise_level, G)
+        return key, g
+
+    def _grad_keyed(self, x, key):
+        return self._with_noise(x, key, self._exact_grad(x))
+
+    def _value_and_grad_keyed(self, x, key):
+        f, G = self._value_and_exact_grad(x)
+        key, g = self._with_noise(x, key, G)
+        return key, (f, g)
 
 
 class LogisticRegression(_DataOracle):

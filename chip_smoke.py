@@ -5,6 +5,7 @@
                           [--gain-iters N]
     python3 chip_smoke.py --micro
     python3 chip_smoke.py --dual-prox
+    python3 chip_smoke.py --threefry
     python3 chip_smoke.py --bodies [--extras-only | --fastgram-only]
 
 With ``--micro`` it builds and runs ``csrc/micro_cluster.cu``: the clocks
@@ -15,6 +16,11 @@ transaction barrier, an IEEE FP64 division, the Newton reciprocal).
 With ``--dual-prox`` it builds the dual prox kernel and runs its part of
 phase 3 alone (below): the study's prox against the plain loop, the
 plan, the clocks per stage and the sweep of layouts.
+
+With ``--threefry`` it builds the threefry kernel and runs its part of
+phase 3 alone: both entries against the plain chain, the sweep of the
+draw entry's launch shapes, and each call's time per node in a graph and
+host cost per eager call.
 
 With ``--bodies`` it measures what the masked loops are chosen from:
 ABPG_gain 30x10000 (kernel route) and BPG-LS 30x1000 (default h) under
@@ -44,7 +50,15 @@ B=32 of 30x1000, and two shapes whose layout streams V: B=1 of 165x1000 and
 B=2 of 200x700), the multiplier's time per call (n = 1000, 10000, 100000:
 by events, the kernel's device time in a trace, and the wrapper's host
 cost), the dual prox's time at the primal-dual study's 400x10 (two
-timings of 10 launches by events), the warm walls of the dense sweep and
+timings of 10 launches by events), the noise stream's calls (a split, a
+400x10 normal draw and a noisy gradient's draw, fused where the commit
+has it: the device time per node in a graph beside an empty kernel's,
+the host cost per eager call, and the host cost of each part of the
+split's wrapper), the stochastic runs through the public drivers as
+graphs (SymNMF 200x20 under ABPG_gain and FW_alg_descent_step, AIBM with
+noise 1e-6 on the Poisson problem: nodes per graph, warm walls, threefry
+launches, digests of the rows as graphs and eagerly, which must agree
+across commits bit for bit), the warm walls of the dense sweep and
 of one ``u_mode="pallas"`` solve, of ``ABPG_gain`` 30x10000 over
 ``--gain-iters`` iterations (0: not run) and of ``--solves`` warm
 main-path solves, for the package under ``--root`` (default: this file's
@@ -84,9 +98,16 @@ and the script exits non-zero without the result line:
    wrapper's host cost over 1000 unsynchronised calls and thread 0 of CTA
    0's clocks per stage of a pass); the noise stream's kernel
    (``csrc/threefry.cu``: its split entry over 3000 links of the chain,
-   keys and uniforms bit for bit, its draw entry at 400x10, 200x20 and
-   100001, bits and uniforms bit for bit and normals within 1e-13, each
-   entry's time by events beside the plain chain's on the card); the dual
+   every other one scaled, keys and uniforms bit for bit, its draw entry
+   at 400x10, 200x20 and 100001, bits and uniforms bit for bit and
+   normals within 1e-13, and its noise mode (a noisy gradient's split,
+   normals, shift, scale and add) with and without the gradient, keys bit
+   for bit, values within 1e-13 of the normal times the level of the plain
+   version and bit for bit with the unfused launches; the sweep of the
+   draw entry's launch shapes, 64/128/256 threads by 1/2 counters a
+   thread; each call's time per node in a graph of 500 beside an empty
+   kernel's, its host cost per eager call and the split wrapper's parts;
+   each entry's time by events beside the plain chain's on the card); the dual
    prox's kernel (``csrc/dual_prox.cu``: the primal-dual study's 400x10
    prox of up to 7000 steps, the same steps and X within 1e-12 of the
    plain loop's largest entry, its time by events and the plain loop's,
@@ -297,6 +318,7 @@ and the script exits non-zero without the result line:
 """
 
 import argparse
+import hashlib
 import json
 import math
 import pathlib
@@ -414,6 +436,9 @@ ATOL_HIST = 1e-12
 # highest rate for this type (the sheet's "FP64 Tensor Core" line; its
 # "FP64" line, outside the tensor cores, is 34 TFLOP/s)
 PEAK_BYTES, PEAK_FP64 = 3.35e12, 67e12
+# INT32 operations/s: 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock
+# (H100 SXM; the Hopper white paper's SM)
+PEAK_INT32 = 132 * 64 * 1.98e9
 PHASES = ("prologue", "pivots and step scalars", "phase 1 (H0 v, C v)",
           "barrier 1", "phase 2 (g)", "barrier 2", "phase 3 (u, w, x)",
           "barrier 3")
@@ -533,10 +558,12 @@ def timed_plain(fn):
     return out, (time.perf_counter() - t) * 1e3
 
 
-def bound(nbytes, flops):
-    """The least time (ms) the card could take: bytes over the HBM rate or
-    FP64 operations over the peak rate, whichever is larger, and which."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP64 * 1e3
+def bound(nbytes, flops, int_ops=0):
+    """The least time (ms) the card could take: bytes over the HBM rate,
+    FP64 operations over the peak rate or INT32 operations over theirs,
+    whichever is largest, and which ("bytes" or "operations")."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(flops / PEAK_FP64, int_ops / PEAK_INT32) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1379,36 +1406,199 @@ def compare_simplex(sm, gg, label):
 # normals' bar: the card's erfinv against torch's on the CPU
 THREEFRY_LINKS, THREEFRY_SHAPES, NORMAL_RTOL = 3000, ((400, 10), (200, 20),
                                                       (100001,)), 1e-13
+# a stochastic oracle's noise: (normal - NOISE_SHIFT) * NOISE_LEVEL added to
+# its gradient (FrobeniusSymLoss at the paths' noise 0.05); the inexact
+# drivers' scale (AIBM's noise=1e-6)
+NOISE_SHIFT, NOISE_LEVEL, SPLIT_SCALE = 0.5, 0.05, 1e-6
+# the draw entry's launch shapes swept (threads a block, counters a
+# thread), at the paths' n and at THREEFRY_SHAPES' largest
+DRAW_PLANS = tuple((t, c) for t in (64, 128, 256) for c in (1, 2))
+# launches a graph of back-to-back nodes holds, to time one node
+GRAPH_NODES = 500
+# threefry2x32's integer operations a hash, counted from csrc/threefry.cu:
+# 20 rounds of add, rotate (one funnel shift) and xor, the 2 initial and
+# 15 injection adds, the key schedule's 2 xors
+HASH_INT_OPS = 79
+# FP64 operations an element: the normal's map (multiply, add, max),
+# erfinv (~40) and sqrt(2) times it, and the uniform's conversion; the
+# noise's shift, scale and add
+NORMAL_FP64_OPS, NOISE_FP64_OPS = 45, 3
 
 
-def threefry_bound(n):
-    """Bound of one draw of n normals: the key read once, n float64
-    written once; the normal map's FP64 operations (its multiply and add,
-    erfinv's ~40, the scale: ~45 an element); the hash's ~100 integer
-    operations an element have no rate in the table and are not counted."""
-    return bound(16 + 8 * n, 45 * n)
+def threefry_bound(n, mode):
+    """Bound of one launch: the bytes (the key read once, a ``"noise"``
+    base read once, the values and keys written once), the hashes'
+    integer operations at PEAK_INT32 and the FP64 operations at PEAK_FP64,
+    whichever time is largest.  ``"split"``: three hashes, the scale read
+    and the uniform times it; ``"normal"``: n hashes and normals of a draw
+    key; ``"noise"``: the split's two hashes, n hashes and normals, the
+    shift, scale and add."""
+    if mode == "split":
+        return bound(16 + 8 + 40, 3, 3 * HASH_INT_OPS)
+    if mode == "normal":
+        return bound(16 + 8 * n, NORMAL_FP64_OPS * n, HASH_INT_OPS * n)
+    return bound(16 + 16 * n + 32, (NORMAL_FP64_OPS + NOISE_FP64_OPS) * n,
+                 HASH_INT_OPS * (n + 2))
+
+
+def graph_node_us(fn, nodes=GRAPH_NODES, reps=5):
+    """Device time (us) per node of a graph of ``nodes`` back-to-back calls
+    of ``fn``, captured once and replayed ``reps`` times between CUDA
+    events (after one warm-up replay)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(nodes):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    us = start.elapsed_time(end) / (reps * nodes) * 1e3
+    del graph
+    return us
+
+
+def chained(step, k):
+    """A call that advances the chain key ``k`` by ``step(key)``'s first
+    output at each call (a chain of dependent launches, as a driver's)."""
+    state = [k]
+
+    def call():
+        state[0] = step(state[0])[0]
+
+    return call
+
+
+def noisy_draw(rng):
+    """One noisy gradient's draw of ``rng`` (an ``_rng`` module of any
+    commit) on a chain key: ``(next key, G + (normal - 0.5) * 0.05)``, the
+    fused call where the module has it, else the split, the normal draw
+    and the three tensor operations."""
+    fused = getattr(rng, "split_noise", None)
+    if fused is not None:
+        def draw(k, G):
+            nxt, _, g = fused(k, G.shape, NOISE_SHIFT, NOISE_LEVEL, G)
+            return nxt, g
+    else:
+        def draw(k, G):
+            nxt, sub = rng.split(k)
+            return nxt, G + (rng.normal(sub, G.shape) - NOISE_SHIFT) \
+                * NOISE_LEVEL
+    return draw
+
+
+def threefry_walls(rng, dev):
+    """Each public call of the noise stream of ``rng`` (this commit's or a
+    parent's) on the card, timed two ways: the device time per node in a
+    graph of GRAPH_NODES back-to-back launches (chained keys), beside an
+    empty kernel's node (``torch.cuda._sleep(0)``: the launch floor), and
+    the host cost per eager call (unsynchronised calls); then the host cost
+    of each part of the split's wrapper.  Returns the text."""
+    k = rng.key(2**40 + 7, dev)
+    sub = rng.split(k)[1]
+    G = torch.tensor(np.random.default_rng(4).standard_normal((400, 10)),
+                     device=dev)
+    draw = noisy_draw(rng)
+    calls = {
+        "split": (rng.split_uniform, lambda: rng.split_uniform(k)),
+        "normal 400x10": (None, lambda: rng.normal(sub, (400, 10))),
+        "noisy gradient draw 400x10": (lambda kk: draw(kk, G),
+                                       lambda: draw(k, G)),
+    }
+    if hasattr(rng, "split_noise"):
+        scale = torch.tensor(SPLIT_SCALE, dtype=torch.float64, device=dev)
+        calls["split with scale"] = (
+            lambda kk: rng.split_uniform(kk, scale),
+            lambda: rng.split_uniform(k, scale))
+    floor = graph_node_us(lambda: torch.cuda._sleep(0))
+    parts = [f"empty kernel {floor:.3f} us a node"]
+    for name, (step, call) in calls.items():
+        node = graph_node_us(call if step is None else chained(step, k))
+        parts.append(f"{name} {node:.3f} us a node, host "
+                     f"{host_cost_us(call):.2f} us a call")
+    return "; ".join(parts) + "; split wrapper's parts: " + split_parts(rng, k)
+
+
+def split_parts(rng, k):
+    """Host cost (us) of each step a split's wrapper takes, in ``rng``'s
+    form (a parent's: a check, ``contiguous``, two ``torch.empty``, the
+    count's lookup, the stream, the ctypes launch, two slices; this
+    commit's: the key check, ``get_device``, one ``new_empty``, the bound
+    entries and counts, the stream, the launch, the views), each over
+    unsynchronised calls less an empty call's cost."""
+    dev, index = k.device, k.get_device()
+    lib = rng._kernel_lib()
+    out = torch.empty(5, dtype=torch.int64, device=dev)
+    # the third pointer is the uniform's (a parent's) or the scale's (1.0)
+    third = torch.ones((), dtype=torch.float64, device=dev)
+    count = rng._device_count(dev, "split")
+    stream = torch._C._cuda_getCurrentRawStream
+    steps = {"check": lambda: rng._check(k),
+             "k.device": lambda: k.device,
+             "contiguous": lambda: k.contiguous(),
+             "torch.empty int64[4]": lambda: torch.empty(
+                 4, dtype=torch.int64, device=dev),
+             "torch.empty float64 0-d": lambda: torch.empty(
+                 (), dtype=torch.float64, device=dev),
+             "count lookup": lambda: rng._device_count(dev, "split"),
+             "stream": lambda: stream(index),
+             "data_ptr": lambda: k.data_ptr(),
+             "ctypes launch": lambda: lib.threefry_split_run(
+                 k.data_ptr(), out.data_ptr(), third.data_ptr(),
+                 count.data_ptr(), index, stream(index)),
+             "slice": lambda: out[:2]}
+    if hasattr(rng, "_card_key"):
+        u = out.split((2, 2, 1))[2]
+        steps.update({"key check": lambda: rng._card_key(k),
+                      "get_device": lambda: k.get_device(),
+                      "new_empty(5)": lambda: k.new_empty(5),
+                      "bound entries": rng._bound,
+                      "count pointers": lambda: rng._count_ptrs(index),
+                      "split views": lambda: out.split((2, 2, 1)),
+                      "uniform view": lambda: u.view(
+                          torch.float64).view(())})
+    empty = host_cost_us(lambda: None, 2000)
+    text = [f"{name} {host_cost_us(fn, 300) - empty:.2f}"
+            for name, fn in steps.items()]
+    return ", ".join(text) + f" us (an empty call {empty:.2f} us)"
 
 
 def compare_threefry(dev):
     """Kernel ``csrc/threefry.cu`` against ``_rng``'s plain chain: the split
-    entry over THREEFRY_LINKS links (next key, draw key and uniform bit for
-    bit), the draw entry at THREEFRY_SHAPES (bits and uniforms bit for bit,
-    normals within NORMAL_RTOL); the ms per call of each entry by events
-    (the split, and a draw at 400x10), the plain chain's on the card, and
-    the bounds.  Returns ``(split record, draw record)``, each ``(err, ms,
-    plain_ms, bound_ms, bound_by)``."""
+    entry over THREEFRY_LINKS links, with and without a scale (next key,
+    draw key and uniform bit for bit); the draw entry at THREEFRY_SHAPES
+    (bits and uniforms bit for bit, normals within NORMAL_RTOL) and in its
+    noise mode with and without a base (keys bit for bit, values within
+    NORMAL_RTOL of the normal times the level, and bit for bit with the
+    unfused launches); the sweep of its launch shapes; each entry's time
+    by events, per node in a graph and the host cost per call (the
+    sweep's and the walls' lines); the plain versions' on the card; the
+    bounds.  Returns ``(split record, draw record)``, each ``(err, ms,
+    plain_ms, bound_ms, bound_by)``: the split with its scale, the draw in
+    its noise mode at 400x10 (what the paths launch), ``ms`` the device
+    time per node in a graph."""
     from accbpg_and_fw_tpu_torch import _rng
 
+    scale_c = torch.tensor(SPLIT_SCALE, dtype=torch.float64, device=dev)
     kc, kp = _rng.key(2**40 + 7, dev), _rng.key(2**40 + 7)
-    for _ in range(THREEFRY_LINKS):
-        nc, sc, uc = _rng.split_uniform(kc)
-        np_, sp, up = _rng.split_uniform(kp)
+    for link in range(THREEFRY_LINKS):
+        scaled = link % 2 == 1
+        nc, sc, uc = _rng.split_uniform(kc, scale_c if scaled else None)
+        np_, sp, up = _rng.split_uniform(kp, scale_c.cpu() if scaled
+                                         else None)
         if not (torch.equal(nc.cpu(), np_) and torch.equal(sc.cpu(), sp)
                 and torch.equal(uc.cpu(), up)):
             raise AssertionError("threefry split differs from the plain "
                                  "chain")
         kc, kp = nc, np_
-    errs = []
+    errs, noise_errs = [], []
     for shape in THREEFRY_SHAPES:
         hc, lc = _rng.bits(sc, shape)
         hp, lp = _rng.bits(sp, shape)
@@ -1422,28 +1612,111 @@ def compare_threefry(dev):
             raise AssertionError(f"threefry normals {shape}: {rel:.3e} > "
                                  f"{NORMAL_RTOL}")
         errs.append(float((zc - zp).abs().max()))
+        G = torch.tensor(np.random.default_rng(len(errs)).standard_normal(
+            shape))
+        for base in (G, None):
+            got = _rng.split_noise(kc, shape, NOISE_SHIFT, NOISE_LEVEL,
+                                   None if base is None else base.to(dev))
+            ref = _rng.split_noise(kp, shape, NOISE_SHIFT, NOISE_LEVEL, base)
+            unfused = (*_rng.split(kc), (_rng.normal(_rng.split(kc)[1], shape)
+                                         - NOISE_SHIFT) * NOISE_LEVEL)
+            if base is not None:
+                unfused = unfused[:2] + (base.to(dev) + unfused[2],)
+            if not (torch.equal(got[0].cpu(), ref[0])
+                    and torch.equal(got[1].cpu(), ref[1])
+                    and all(torch.equal(a, b) for a, b in zip(got, unfused))):
+                raise AssertionError(f"threefry noise {shape}: keys differ "
+                                     "or the values part from the unfused "
+                                     "launches")
+            z = _rng.normal(ref[1], shape)
+            diff = (got[2].cpu() - ref[2]).abs()
+            bar = (NORMAL_RTOL * z.abs() * NOISE_LEVEL
+                   + 2 * torch.from_numpy(np.spacing(ref[2].abs().numpy())))
+            if not bool((diff <= bar).all()):
+                raise AssertionError(f"threefry noise {shape}: off the plain "
+                                     f"version by {float(diff.max()):.3e}")
+            noise_errs.append(float(diff.max()))
+    print(f"[threefry] split over {THREEFRY_LINKS} links (every other one "
+          f"scaled by {SPLIT_SCALE}) bit for bit with the plain chain; draws "
+          f"{list(THREEFRY_SHAPES)}: bits and uniforms bit for bit, normals "
+          f"within {max(errs):.1e} (bar {NORMAL_RTOL} relative); noise mode "
+          f"(G + (normal - {NOISE_SHIFT}) * {NOISE_LEVEL}, and without G): "
+          f"keys bit for bit, values within {max(noise_errs):.1e} of the "
+          "plain version and bit for bit with the unfused launches",
+          flush=True)
+    threefry_sweep(_rng, dev)
+    print(f"[threefry walls] {threefry_walls(_rng, dev)}", flush=True)
+
     kd = _rng.key(1, dev)
-    split_ms = time_launches(lambda: _rng.split_uniform(kd), 2000)
-    draw_ms = time_launches(lambda: _rng.normal(kd, (400, 10)), 2000)
+    G = torch.tensor(np.random.default_rng(4).standard_normal((400, 10)),
+                     device=dev)
+
+    def scaled_split(kk):
+        return _rng.split_uniform(kk, scale_c)
+
+    def noise(kk):
+        return _rng.split_noise(kk, (400, 10), NOISE_SHIFT, NOISE_LEVEL, G)
+
+    # the kernels' time: the device's per node of a graph of chained
+    # launches (events around eager calls read the wrapper's host pace)
+    split_ms = graph_node_us(chained(scaled_split, kd)) * 1e-3
+    draw_ms = graph_node_us(chained(noise, kd)) * 1e-3
+    split_ev = time_launches(lambda: scaled_split(kd), 2000)
+    draw_ev = time_launches(lambda: noise(kd), 2000)
 
     def plain(fn):
         # the plain chain's torch operations on the card's tensors
         fn()
         return time_launches(fn, 50)
 
-    split_plain = plain(lambda: _rng.split_reference(kd))
-    draw_plain = plain(lambda: _rng._draw_reference(kd, (400, 10), "normal"))
-    split_rec = (0.0, split_ms, split_plain) + bound(16 + 32 + 8, 0)
-    draw_rec = (max(errs), draw_ms, draw_plain) + threefry_bound(4000)
-    print(f"[threefry] split+uniform over {THREEFRY_LINKS} links bit for "
-          f"bit with the plain chain; draws {list(THREEFRY_SHAPES)}: bits "
-          f"and uniforms bit for bit, normals within {max(errs):.1e} "
-          f"(bar {NORMAL_RTOL} relative); split {split_ms * 1e3:.2f} us a "
-          f"call by events (plain chain on the card {split_plain * 1e3:.1f} "
-          f"us), a 400x10 normal draw {draw_ms * 1e3:.2f} us (plain "
-          f"{draw_plain * 1e3:.1f} us); bounds {split_rec[3] * 1e3:.5f} / "
-          f"{draw_rec[3] * 1e3:.5f} us", flush=True)
+    split_plain = plain(lambda: scale_c * _rng.uniform_reference(
+        _rng.split_reference(kd)[1]))
+    draw_plain = plain(lambda: _rng.split_noise_reference(
+        kd, (400, 10), NOISE_SHIFT, NOISE_LEVEL, G))
+    split_rec = (0.0, split_ms, split_plain) + threefry_bound(0, "split")
+    draw_rec = ((max(errs + noise_errs), draw_ms, draw_plain)
+                + threefry_bound(4000, "noise"))
+    floor = graph_node_us(lambda: torch.cuda._sleep(0))
+    print(f"[threefry] per node in a graph / by events around eager calls: "
+          f"scaled split {split_ms * 1e3:.3f} / {split_ev * 1e3:.2f} us "
+          f"(plain chain on the card {split_plain * 1e3:.1f} us), a 400x10 "
+          f"noisy gradient's draw {draw_ms * 1e3:.3f} / {draw_ev * 1e3:.2f} "
+          f"us (plain {draw_plain * 1e3:.1f} us); bounds "
+          f"{split_rec[3] * 1e3:.5f} us "
+          f"({split_rec[4]}) / {draw_rec[3] * 1e3:.5f} us ({draw_rec[4]}; "
+          f"the hash counted: {HASH_INT_OPS} INT32 operations at "
+          f"{PEAK_INT32:.3e}/s); the launch floor, an empty kernel's node, "
+          f"{floor:.3f} us; {card_line()}", flush=True)
     return split_rec, draw_rec
+
+
+def threefry_sweep(rng, dev):
+    """The draw entry's noise mode at each of DRAW_PLANS, at the paths'
+    400x10 and at 100001: bit for bit with the default plan, the device
+    time per node in a graph and by events per eager call."""
+    rows = []
+    for shape in ((400, 10), (100001,)):
+        k = rng.key(6, dev)
+        G = torch.tensor(np.random.default_rng(6).standard_normal(shape),
+                         device=dev)
+        ref = rng.split_noise(k, shape, NOISE_SHIFT, NOISE_LEVEL, G)
+        cells = []
+        for plan in DRAW_PLANS:
+            def call(kk=k, plan=plan):
+                return rng._noise_cuda(kk, shape, NOISE_SHIFT, NOISE_LEVEL,
+                                       G, plan)
+
+            if not all(torch.equal(a, b) for a, b in zip(call(), ref)):
+                raise AssertionError(f"threefry noise {shape} at {plan} "
+                                     "differs from the default plan")
+            node = graph_node_us(chained(lambda kk: call(kk), k))
+            ms = time_launches(call, 500)
+            cells.append(f"{plan[0]}x{plan[1]} {node:.3f} / "
+                         f"{ms * 1e3:.2f}")
+        rows.append(f"n={math.prod(shape)}: " + ", ".join(cells))
+    print(f"[threefry sweep] noise mode, threads x counters a thread: us a "
+          f"node in a graph / us a call by events; default "
+          f"{rng.DRAW_PLAN}: " + "; ".join(rows), flush=True)
 
 
 def dual_prox_bound(n, steps):
@@ -2852,40 +3125,94 @@ def extras_universal_fw(port, driver):
           + "; ".join(out), flush=True)
 
 
-def stochastic_graphs(port, driver):
-    """Phase 4k: a stochastic f-oracle (its gradients draw normals from the
-    device key chain) under ABPG_gain and FW_alg_descent_step on SymNMF
-    200x20 at noise 0.05 (STOCH_ITERS iterations), as graphs against
-    eager, every row bit for bit; the threefry kernel's launches in the
-    warm graph runs by the card's count."""
-    from accbpg_and_fw_tpu_torch import _rng
-
+def stochastic_runs(port):
+    """The stochastic SymNMF 200x20 (noise 0.05, seed 5) under ABPG_gain
+    and FW_alg_descent_step: ``{name: run(it=STOCH_ITERS)}``."""
     M_ = symnmf_matrix(200)
     np.random.seed(3)
     f, (h, _), L, X0 = port.FrobeniusSymLossResMeasEx(M_, 20, noise=0.05,
                                                       device="cuda")
     # one LMO for every run: a graph is cached on the closure it captured
     lmo = port.lmo_linf_ball(1.0, 1.0)
-    runs = {
+    return {
         "ABPG_gain": lambda it=STOCH_ITERS: port.ABPG_gain(
             f, h, L, X0, 2.0, it, verbose=False, seed=5),
         "FW_alg_descent_step": lambda it=STOCH_ITERS:
             port.FW_alg_descent_step(f, h, X0, it, lmo, verbose=False,
                                      seed=5),
     }
+
+
+def rows_digest(res):
+    """A digest of a run's F rows and iterate (equal digests: equal bits)."""
+    return hashlib.sha256(np.asarray(res[1]).tobytes()
+                          + res[0].cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def stochastic_walls(port, driver, rng):
+    """``--blocks-only``: the stochastic runs through the public drivers as
+    graphs, the SymNMF 200x20 ones of ``stochastic_runs`` and AIBM with
+    noise 1e-6 on phase 4k's Poisson problem (EXP_ITERS iterations): per
+    run the nodes per graph (one capture at a cold run), two warm walls,
+    the threefry launches of a warm run by the card's count, and the
+    digests of the rows and iterate as graphs and under ``eager_chunks``
+    (equal within a commit; across commits where the bits are)."""
+    runs = stochastic_runs(port)
+    np.random.seed(1)
+    f, _, L, x0 = port.Poisson_regr_simplex_acc(EXP_M, EXP_N, noise=0.001,
+                                                device="cuda")
+    h = port.BurgEntropySimplex(eps=1e-7, use_pallas=True)
+    runs["AIBM noise=1e-6"] = lambda: port.AIBM(
+        f, h, L, x0, gamma=EXP_GAMMA, maxitrs=EXP_ITERS, epsilon=1e-12,
+        noise=1e-6, verbose=False)
     out = []
     for name, run in runs.items():
+        driver.clear_graph_cache()
+        run()
+        nodes = graph_nodes(list(driver._GRAPHS.values()))
+        walls = []
+        for _ in range(2):
+            rng.reset_device_launches()
+            res, wall, _ = synced(run)
+            walls.append(f"{wall:.3f}")
+        drawn = {e: rng.device_launches(e) for e in rng.ENTRIES}
+        with driver.eager_chunks():
+            eager = run()
+        out.append(f"{name} {len(res[1])} rows: graph {' '.join(walls)} s, "
+                   f"{nodes} nodes, threefry launches {drawn}, rows "
+                   f"{rows_digest(res)} as graphs, {rows_digest(eager)} "
+                   "eagerly")
+    return "; ".join(out)
+
+
+def stochastic_graphs(port, driver):
+    """Phase 4k: a stochastic f-oracle (its gradients draw normals from the
+    device key chain) under ABPG_gain and FW_alg_descent_step on SymNMF
+    200x20 at noise 0.05 (STOCH_ITERS iterations), as graphs against
+    eager, every row bit for bit; the threefry kernel's launches in the
+    warm graph runs by the card's count, per entry and per iteration (each
+    noisy gradient one launch of the draw entry, no split)."""
+    from accbpg_and_fw_tpu_torch import _rng
+
+    out = []
+    for name, run in stochastic_runs(port).items():
         res, text = extras_graph(driver, f"stochastic {name}", run,
                                  lambda: run(EX_COST_ITERS))
-        before = _rng.device_launches()
+        before = {e: _rng.device_launches(e) for e in _rng.ENTRIES}
         run()
-        drawn = _rng.device_launches() - before
+        drawn = {e: _rng.device_launches(e) - before[e]
+                 for e in _rng.ENTRIES}
         F = np.asarray(res[1])
-        if not (np.all(np.isfinite(F)) and drawn >= len(F)):
-            raise AssertionError(f"stochastic {name}: {drawn} threefry "
-                                 "launches")
-        out.append(f"{text}; {drawn} threefry launches in the warm graph "
-                   "run")
+        # each noisy gradient is one launch of the draw entry (its noise
+        # mode: the split, the normals, the shift, scale and add)
+        if not (np.all(np.isfinite(F)) and drawn["draw"] >= len(F)
+                and drawn["split"] == 0):
+            raise AssertionError(f"stochastic {name}: threefry launches "
+                                 f"{drawn}")
+        per = ", ".join(f"{e} {n} ({n / len(F):.2f} an iteration)"
+                        for e, n in drawn.items())
+        out.append(f"{text}; threefry launches in the warm graph run: "
+                   f"{per}")
     print(f"[extras] stochastic SymNMF 200x20 noise 0.05 ({STOCH_ITERS} "
           f"iterations, seed 5): " + "; ".join(out), flush=True)
 
@@ -3414,6 +3741,13 @@ def block_times(root, solves, gain_iters):
     print(f"[blocks] {root}: dual prox 400x10 ({steps:.0f} steps): "
           + ", ".join(f"{t:.3f} ms ({1e3 * t / steps:.3f} us a step)"
                       for t in prox_ms), flush=True)
+    from accbpg_and_fw_tpu_torch import _rng
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+
+    print(f"[blocks] {root}: threefry: {threefry_walls(_rng, dev)}",
+          flush=True)
+    print(f"[blocks] {root}: stochastic: "
+          f"{stochastic_walls(port, driver, _rng)}", flush=True)
 
     def walls(fn, reps=4):
         out = []
@@ -3865,6 +4199,9 @@ def main():
     ap.add_argument("--dual-prox", action="store_true",
                     help="build the dual prox kernel and run its phase "
                          "alone ([dual prox], [stages], the plan sweep)")
+    ap.add_argument("--threefry", action="store_true",
+                    help="build the threefry kernel and run its phase "
+                         "alone ([threefry], the sweep, the walls)")
     ap.add_argument("--micro", action="store_true",
                     help="build and run csrc/micro_cluster.cu")
     ap.add_argument("--bodies", action="store_true",
@@ -3890,6 +4227,10 @@ def main():
 
         print(f"[card] {card_line()}", flush=True)
         compare_dual_prox(port, torch.device("cuda"))
+        return 0
+    if args.threefry:
+        print(f"[card] {card_line()}", flush=True)
+        compare_threefry(torch.device("cuda"))
         return 0
     if args.bodies:
         return bodies_study()
