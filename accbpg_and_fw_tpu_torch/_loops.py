@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ._device import full
+from ._device import full, is_dtensor
 
 # While a chunk is built to run without a host read (``_masked_steps``), the
 # list that each bounded loop of the current iteration adds its overflow
@@ -30,12 +30,21 @@ LIVE = [None]
 TALLY = [None]
 
 
+def where(pred, a, b):
+    """``torch.where(pred, a, b)``, where a sharded step's replicated
+    predicate meets plain tensors that every rank holds whole (its Grams,
+    a noise key) as its local value."""
+    if is_dtensor(pred) and not is_dtensor(a) and not is_dtensor(b):
+        pred = full(pred)
+    return torch.where(pred, a, b)
+
+
 def _select(pred, new, old):
     """``new`` where ``pred`` holds, else ``old``, leaf by leaf (a tuple, a
     list or a dict of tensors)."""
     if isinstance(old, dict):
-        return {k: torch.where(pred, new[k], old[k]) for k in old}
-    return type(old)(torch.where(pred, a, b) for a, b in zip(new, old))
+        return {k: where(pred, new[k], old[k]) for k in old}
+    return type(old)(where(pred, a, b) for a, b in zip(new, old))
 
 
 def device_while(cond, body, state, bound, bodies, name=None):

@@ -15,12 +15,12 @@ JAX's expressions in JAX's order.  The line searches are
 ``device_while`` loops with JAX's bound (``_LS_MAX``); so are theta's
 Newton (``theta.solve_theta``) and the default simplex prox's
 (``roots.simplex_inv_multiplier``).  On the card a chunk of them is a CUDA
-graph (``driver.py``): the loops run as a fixed number of masked bodies
+graph (``driver.py``), a sharded run's too (its collectives captured
+with it): the loops run as a fixed number of masked bodies
 (``BPG_BODIES``, ``EXPO_BODIES``, ``GAIN_BODIES``), the host reads the
 chunk's rows once, and an iteration whose loop needs more bodies runs
-again eagerly.  Eagerly (the CPU, ``driver.eager_chunks``, a sharded run
-with its scalars replicated) each loop reads its exit test once per
-turn.
+again eagerly.  Eagerly (the CPU, ``driver.eager_chunks``) each loop
+reads its exit test once per turn.
 
 Checkpoints use the JAX drivers' carry keys, history names and
 fingerprints, so a run saved by either package resumes in the other.

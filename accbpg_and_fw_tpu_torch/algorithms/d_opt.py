@@ -61,7 +61,8 @@ def _pivot(a, largest):
     the ``(value, index)`` pairs with one c10d all-gather, keeping the
     first extreme entry.  DTensor's own arg-reduction gathers through
     functional collectives, which corrupted the heap on a gloo group
-    (torch 2.13, CPU)."""
+    (torch 2.13, CPU).  Nothing reads the host or copies from it, so a
+    graph chunk captures the gather with the step (NCCL)."""
     arg = torch.argmax if largest else torch.argmin
     if not is_dtensor(a):
         return arg(a)
@@ -78,17 +79,21 @@ def _pivot(a, largest):
     step = -(-a.shape[0] // world)  # torch.chunk's shard length
     if local.numel():
         j = arg(local)
-        pair = torch.stack([local[j], (j + rank * step).to(local.dtype)])
+        # ``local[j]`` of a 0-d index tensor reads it back to the host
+        pair = torch.stack([_at(local, j),
+                            (j + rank * step).to(local.dtype)])
     else:  # an empty trailing shard never wins
+        # fills on the device: a copy from the host cannot be captured
         worst = -torch.inf if largest else torch.inf
-        pair = torch.tensor([worst, a.shape[0]], dtype=local.dtype,
-                            device=local.device)
+        pair = torch.full((2,), worst, dtype=local.dtype,
+                          device=local.device)
+        pair[1:].fill_(a.shape[0])
     pairs = torch.empty(world * 2, dtype=local.dtype, device=local.device)
     dist.all_gather_into_tensor(pairs, pair, group=mesh.get_group())
     pairs = pairs.view(world, 2)
     # the first rank holding the extreme value holds its first index
     best = arg(pairs[:, 0])
-    return pairs[best, 1].to(torch.int64)
+    return _at(pairs[:, 1], best).to(torch.int64)
 
 
 def _dopt_step(cfg, prob, c, k):

@@ -12,12 +12,14 @@ one recorded, matching the reference's ``break``).
 A chunk runs in one of two ways, chosen from the carry's types and
 device before anything runs (``chunk_mode``):
 
-* ``"graph"``: ``done`` and every other leaf a plain tensor on one CUDA
-  device, and no oracle of the problem that reads the host inside its
+* ``"graph"``: ``done`` and every other leaf a tensor on one CUDA
+  device (plain, or a DTensor of one mesh whose shard on this rank lies
+  there), and no oracle of the problem that reads the host inside its
   calls (``host_reads``): the exact D-opt engine, the FW and Bregman
   drivers' steps (the ``fast_gram`` steps too, and the stochastic runs:
-  the noise key is a device tensor, ``_rng``) and the extras.  The chunk
-  is captured once as a ``torch.cuda.CUDAGraph`` of ``span`` iterations
+  the noise key is a device tensor, ``_rng``), the extras, and their
+  sharded solves, whose collectives (NCCL) are captured with them.  The
+  chunk is captured once as a ``torch.cuda.CUDAGraph`` of ``span`` iterations
   (the whole chunk unless the caller asks for fewer) and replayed back to
   back until the chunk is done, the counterpart of JAX's compiled chunk: the carry, the
   problem's tensors (those of its oracles included) and the first
@@ -43,10 +45,12 @@ device before anything runs (``chunk_mode``):
   (``device_while`` in its Python form reads its condition each turn;
   ``k`` a host int), for a carry on the CPU (where the tests run it), a
   carry with a host leaf (a number, which the first step makes a
-  tensor), a DTensor carry (``d_opt._pivot``'s c10d all-gather; a sharded Bregman
-  run, whose scalars are replicated) and a problem whose oracle reads the
-  host.  Once ``done`` is set the carry freezes through a ``torch.where``
-  select, as the JAX scan body does.
+  tensor), DTensors of two meshes, and a problem whose oracle reads the
+  host (``host_reads``: a user's oracle that declares it; none of the
+  port's does).  Once ``done`` is set the carry freezes through a
+  ``torch.where`` select, as the JAX scan body does.  A sharded chunk
+  reduces its partial scalars before an operation takes them
+  (``_ReplicatedScalars``), in a graph as eagerly.
 
 The chunk boundary is where ``between_chunks`` runs, where checkpoints are
 written and where the verbose table is printed.
@@ -61,6 +65,7 @@ host fallback (the device is the caller's explicit choice).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import os
@@ -207,17 +212,19 @@ def host_reads(problem, cfg=None):
 
 def chunk_mode(carry, problem=None, cfg=None):
     """How a chunk of this carry runs: ``"graph"`` where every leaf is a
-    plain tensor on one CUDA device (outside ``eager_chunks``) and no
+    tensor on one CUDA device, a plain tensor or a DTensor of one mesh
+    whose shard on this rank lies there (outside ``eager_chunks``), and no
     oracle of ``problem`` and no callable of ``cfg`` reads the host; else
-    ``"eager"`` (a CPU carry, a host leaf, a DTensor, or
+    ``"eager"`` (a CPU carry, a host leaf, DTensors of two meshes, or
     ``host_reads``)."""
     if _EAGER[0]:
         return "eager"
     leaves = list(carry.values())
     if not all(isinstance(v, torch.Tensor) for v in leaves):
         return "eager"
-    if any(is_dtensor(v) for v in leaves):
+    if len({v.device_mesh for v in leaves if is_dtensor(v)}) > 1:
         return "eager"
+    # a DTensor's device is its local shard's
     devices = {v.device for v in leaves}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         return "eager"
@@ -238,17 +245,30 @@ def _walked(tree, depth):
             and not isinstance(tree, _OPAQUE))
 
 
+def _tensor_spec(t):
+    """A tensor's shape, dtype and device; a DTensor's global and local
+    shapes, dtype, device, placements and mesh (device type, shape and
+    ranks), so that no solve replays a graph of another mesh or
+    placement."""
+    spec = (tuple(t.shape), str(t.dtype), str(t.device))
+    if not is_dtensor(t):
+        return spec
+    mesh = t.device_mesh
+    return spec + (tuple(t.to_local().shape), tuple(t.placements),
+                   mesh.device_type, tuple(mesh.shape),
+                   tuple(mesh.mesh.flatten().tolist()))
+
+
 def _spec(tree, leaves, keep, depth=0):
     """A hashable description of ``tree`` with its tensors appended to
-    ``leaves`` (each described by shape, dtype and device): dicts, lists,
+    ``leaves`` (each described by ``_tensor_spec``): dicts, lists,
     tuples, numbers, strings, devices and dtypes by value, an object with
     attributes (an oracle) by its type and attributes, anything else (a
     function, a closure such as an LMO) by identity, kept alive in
     ``keep`` so that the identity stays its own."""
     if isinstance(tree, torch.Tensor):
         leaves.append(tree)
-        return ("tensor", tuple(tree.shape), str(tree.dtype),
-                str(tree.device))
+        return ("tensor",) + _tensor_spec(tree)
     if tree is None or isinstance(tree, (bool, int, float, str,
                                          torch.device, torch.dtype)):
         return (type(tree).__name__, tree)
@@ -312,8 +332,7 @@ def graph_key(step, cfg, chunk, problem, carry, span=None):
     (the entry keeps them alive)."""
     leaves, keep = [], []
     pspec = _spec(problem, leaves, keep)
-    cspec = tuple((k, tuple(v.shape), str(v.dtype), str(v.device))
-                  for k, v in sorted(carry.items()))
+    cspec = tuple((k,) + _tensor_spec(v) for k, v in sorted(carry.items()))
     return (step, cfg, int(chunk), span, pspec, cspec), leaves, keep
 
 
@@ -332,35 +351,37 @@ def _masked_steps(step, carry, k0, limit, n, halted=None):
         halted = torch.zeros((), dtype=torch.bool, device=k0.device)
     ks = k0 + torch.arange(n, device=k0.device)
     rows = []
-    for i in range(n):
-        k = ks[i]
-        frozen = carry["done"] | (k >= limit) | halted
-        flags = []
-        _loops.OVERFLOW[0] = flags
-        try:
-            new, h = step(carry, k)
-        finally:
-            _loops.OVERFLOW[0] = None
-        hold = frozen
-        if flags:
-            over = torch.stack(flags).any()
-            hold = frozen | over
-            halted = halted | (over & torch.logical_not(frozen))
-        h = dict(h)
-        h["_valid"] = torch.logical_not(hold)
-        new = dict(new)
-        new["done"] = carry["done"] | new["done"] | h["_stop"]
-        carry = {key: torch.where(hold, carry[key], new[key])
-                 for key in carry}
-        h["_done"] = carry["done"]  # the carry's flag, read with the rows
-        h["_halt"] = halted
-        rows.append(h)
+    with _sharded_scope(carry):
+        for i in range(n):
+            k = ks[i]
+            frozen = carry["done"] | (k >= limit) | halted
+            flags = []
+            _loops.OVERFLOW[0] = flags
+            try:
+                new, h = step(carry, k)
+            finally:
+                _loops.OVERFLOW[0] = None
+            hold = frozen
+            if flags:
+                over = torch.stack([full(f) for f in flags]).any()
+                hold = frozen | over
+                halted = halted | (over & torch.logical_not(frozen))
+            h = dict(h)
+            h["_valid"] = torch.logical_not(hold)
+            new = dict(new)
+            new["done"] = carry["done"] | new["done"] | h["_stop"]
+            carry = {key: _loops.where(hold, carry[key],
+                                       _settled(new[key])) for key in carry}
+            h["_done"] = carry["done"]  # the carry's flag, read with the rows
+            h["_halt"] = halted
+            rows.append(h)
     names = list(rows[0])
     dtypes = [r.dtype if isinstance(r, torch.Tensor) else
               torch.float64 for r in rows[0].values()]
 
     def dev_row(v):
-        return (v if isinstance(v, torch.Tensor) else
+        # a sharded step's scalars are replicated: their local values
+        return (full(v) if isinstance(v, torch.Tensor) else
                 torch.full((), v, dtype=torch.float64, device=k0.device))
 
     packed = torch.stack([torch.stack([dev_row(r[name]) for r in rows])
@@ -368,22 +389,72 @@ def _masked_steps(step, carry, k0, limit, n, halted=None):
     return carry, packed, names, dtypes
 
 
+def _local(t):
+    """The tensor that holds ``t``'s values on this rank: a DTensor's
+    local shard, a plain tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _static(t):
+    """A static buffer for the tensor ``t`` and the tensor a captured step
+    sees: a clone of its local tensor, and for a DTensor a DTensor of the
+    same mesh, placements, shape and stride around that clone (a pending
+    partial sum reduced first, as ``_settled``)."""
+    t = _settled(t)
+    buf = _local(t).clone()
+    if not is_dtensor(t):
+        return buf, buf
+    from torch.distributed.tensor import DTensor
+
+    return buf, DTensor.from_local(buf, t.device_mesh, t.placements,
+                                   run_check=False, shape=t.shape,
+                                   stride=t.stride())
+
+
+def _copy_into(buf, view, v):
+    """``v`` into the static buffer ``buf`` behind ``view``: a DTensor in
+    other placements (a pending partial sum) is redistributed to
+    ``view``'s first, and one met by a plain buffer (a leaf that a sharded
+    step made a DTensor, a flag that started plain) goes in whole."""
+    if is_dtensor(v):
+        if not is_dtensor(view):
+            v = full(v)
+        elif tuple(v.placements) != tuple(view.placements):
+            v = v.redistribute(view.device_mesh, view.placements)
+    buf.copy_(_local(v))
+
+
+def _sharded_scope(carry):
+    """What ``carry``'s steps run under: ``_ReplicatedScalars`` where a leaf
+    is a DTensor (eagerly and in a graph alike, so both reduce the same
+    partial scalars at the same operations)."""
+    if any(is_dtensor(v) for v in carry.values()):
+        return _ReplicatedScalars()
+    return contextlib.nullcontext()
+
+
 class _GraphChunk:
     """A chunk of ``chunk`` iterations as replays of a CUDA graph of
     ``span`` iterations, with its static buffers: the carry and the
     overflow flag (read at the start of a replay and written at its end),
     the problem's tensors, ``k0``, ``limit``, the packed histories of a
-    replay and those of the chunk.  On the CPU (where the tests run the
-    same code) nothing is captured: a replay runs ``_masked_steps``."""
+    replay and those of the chunk.  A DTensor's static buffer is its local
+    shard, and the captured step sees a DTensor of the same placements
+    around it; the collectives of a sharded step are captured with it.
+    On the CPU (where the tests run the same
+    code) nothing is captured: a replay runs ``_masked_steps``."""
 
     def __init__(self, step, cfg, chunk, problem, leaves, carry, keep,
                  cached, span=None):
         dev = carry["done"].device
         self.keep = keep
         self.span = min(int(span or chunk), chunk)
-        self.leaves = [t.clone() for t in leaves]
-        self.problem = _rebuild(problem, iter(self.leaves))
-        self.carry = {k: v.clone() for k, v in carry.items()}
+        pairs = [_static(t) for t in leaves]
+        self.leaves = [buf for buf, _ in pairs]
+        self.problem = _rebuild(problem, iter(view for _, view in pairs))
+        self.bufs, self.carry = {}, {}
+        for k, v in carry.items():
+            self.bufs[k], self.carry[k] = _static(v)
         self.k0 = torch.zeros((), dtype=torch.int64, device=dev)
         self.limit = torch.zeros((), dtype=torch.int64, device=dev)
         self.halted = torch.zeros((), dtype=torch.bool, device=dev)
@@ -403,7 +474,8 @@ class _GraphChunk:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             # one step outside the capture: the libraries' handles and
-            # workspaces exist before the capture needs them
+            # workspaces, and a sharded step's NCCL communicator, exist
+            # before the capture needs them
             _masked_steps(self.run, self.carry, self.k0, self.limit, 1,
                           self.halted)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -422,7 +494,7 @@ class _GraphChunk:
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t
         self.rows = self._rows(chunk, dev)
-        static = self.leaves + list(self.carry.values())
+        static = self.leaves + list(self.bufs.values())
         # card memory the entry holds: its pool and its static buffers
         self.pool_bytes = (torch.cuda.memory_reserved(dev) - before
                            + sum(a.numel() * a.element_size()
@@ -442,14 +514,17 @@ class _GraphChunk:
                            dtype=torch.float64, device=dev)
 
     def load_problem(self, leaves):
+        """A new problem's tensors (their local shards) into the static
+        buffers."""
         for dst, src in zip(self.leaves, leaves):
+            src = _local(src)
             if dst.data_ptr() != src.data_ptr():
                 dst.copy_(src)
 
     def _store(self, carry):
         """A span's carry and overflow into the static buffers."""
         for k, v in carry.items():
-            self.carry[k].copy_(v)
+            _copy_into(self.bufs[k], self.carry[k], v)
         self.halted.copy_(self.hist[self.names.index("_halt"), -1] != 0)
 
     def _launch(self):
@@ -474,7 +549,7 @@ class _GraphChunk:
         a whole span frozen at every continuation.)"""
         for k, v in carry.items():
             if v is not self.carry[k]:
-                self.carry[k].copy_(v)
+                _copy_into(self.bufs[k], self.carry[k], v)
         self.halted.fill_(False)
         self.limit.fill_(limit)
         spans = -(-(limit - k0) // self.span)
@@ -555,6 +630,7 @@ def _frozen_steps(step, carry, k0, limit):
     the carry freezes through ``torch.where`` once done.  Returns
     ``(carry, rows)``."""
     rows = []
+    carry = _settled(carry)
     for k in range(k0, limit):
         done = carry["done"]
         new, h = step(carry, k)
@@ -562,10 +638,23 @@ def _frozen_steps(step, carry, k0, limit):
         h["_valid"] = torch.logical_not(done)
         new = dict(new)
         new["done"] = done | new["done"] | h["_stop"]
-        carry = {key: torch.where(done, carry[key], new[key])
+        carry = {key: _loops.where(done, carry[key], _settled(new[key]))
                  for key in carry}
         rows.append(h)
     return carry, rows
+
+
+def _settled(tree):
+    """A carry (or one leaf) with no pending partial sum: a sharded step's
+    partial leaf (a gradient summed over sharded samples) is reduced as it
+    enters the carry, eagerly and in a graph alike, so both carry the same
+    placements from iteration to iteration and across a graph's spans
+    (whose static buffers hold no partial value)."""
+    if isinstance(tree, dict):
+        return {k: _settled(v) for k, v in tree.items()}
+    if is_dtensor(tree) and any(p.is_partial() for p in tree.placements):
+        return replicated(tree)
+    return tree
 
 
 class _ReplicatedScalars(TorchFunctionMode):
@@ -589,10 +678,7 @@ class _ReplicatedScalars(TorchFunctionMode):
 
 def _device_chunk(step, carry, k0, limit):
     """``_frozen_steps`` with the histories read once."""
-    if any(is_dtensor(v) for v in carry.values()):
-        with _ReplicatedScalars():
-            carry, rows = _frozen_steps(step, carry, k0, limit)
-    else:
+    with _sharded_scope(carry):
         carry, rows = _frozen_steps(step, carry, k0, limit)
     hist = {name: (full(torch.stack([r[name] for r in rows])).cpu().numpy()
                    if isinstance(rows[0][name], torch.Tensor)

@@ -18,9 +18,10 @@ is replays of a CUDA graph of ``GRAPH_SPAN`` iterations (``driver.py``)
 whose loops run as a fixed number of masked bodies (``DIV_BODIES``,
 ``SHORTEST_BODIES``, ``LOG_BODIES``, ``LOG_ONLY_BODIES``), with one read
 per chunk; an iteration that needs more bodies runs again eagerly.
-Eagerly (the CPU, ``driver.eager_chunks``, a sharded run, an LMO that
-declares ``host_reads``) each loop reads its exit test once per turn.  ``FW_alg_descent_step`` has no
-loop: its step 2/(k+2) is computed from the graph's ``k``.
+Eagerly (the CPU, ``driver.eager_chunks``, a user's LMO that declares
+``host_reads``) each loop reads its exit test once per turn.
+``FW_alg_descent_step`` has no loop: its step 2/(k+2) is computed from
+the graph's ``k``.
 
 Where the LMO returns a direction with <g, d> > delta, the step records a
 ``bad`` flag in the history that stops the run at that row, and the

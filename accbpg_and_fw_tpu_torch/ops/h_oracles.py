@@ -348,7 +348,8 @@ class SumOf2nd4thPowersWithFrankWolfe(SumOf2nd4thPowers):
 
     @property
     def host_reads(self):
-        """Its LMO's: the nuclear ball's SVD reads the host."""
+        """Its LMO's: a user's LMO that reads the host (none of the
+        port's LMOs does)."""
         return getattr(self.lmo, "host_reads", False)
 
     def div_prox_map(self, y, g, L):

@@ -9,8 +9,8 @@ to the host: the degenerate-gradient rules are ``torch.where`` selects,
 and an array center or bound is copied to each device once, at the
 closure's first call there (a copy from the host cannot be captured in a
 graph chunk), as JAX's jitted closure takes it as a constant.  The nuclear
-ball's SVD checks its convergence on the host: its closure declares
-``host_reads``, and the drivers run its chunks eagerly.
+ball's top singular pair is a kernel (``ops/svd.py``) that reads nothing
+back, so its chunks are captured like the others.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from __future__ import annotations
 import numbers
 
 import torch
+
+from .svd import top_singular_pair
 
 
 def _constant(value):
@@ -44,15 +46,14 @@ def _constant(value):
 
 def lmo_nuclear_norm_ball():
     """Rank-1 vertex of the unit nuclear-norm ball: ``outer(u1, v1)`` from
-    the top singular pair of g (reference: functions_lmo.py:4-13).  The
-    product does not depend on the SVD's sign choice; it is ambiguous only
-    at a repeated top singular value."""
+    the top singular pair of g (reference: functions_lmo.py:4-13), by
+    one-sided Jacobi (``ops/svd.py``: the kernel on the card, its plain
+    version on the CPU).  The product does not depend on the sign of the
+    pair; it is ambiguous only at a repeated top singular value."""
 
     def f(g):
-        U, _, Vh = torch.linalg.svd(g, full_matrices=False)
-        return torch.outer(U[:, 0], Vh[0])
+        return top_singular_pair(g)
 
-    f.host_reads = True
     return f
 
 

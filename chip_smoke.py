@@ -116,7 +116,16 @@ and the script exits non-zero without the result line:
    1, 2, 4, 8 elements a thread or the arrays in memory held to the
    plain loop and timed, with the clocks of the three fastest; then
    200x100 in registers, the arrays in shared memory at 400x100 and in
-   global memory at 1000x1000);
+   global memory at 1000x1000); the nuclear ball's top singular pair
+   (``csrc/top_singular.cu``: one-sided Jacobi, ``outer(u1, v1)``) against
+   its plain version within 1e-13 at 6x4, 4x6, 200x20, 20x200, 600x60
+   (the streamed layout, a cooperative grid), a rank-1 7x5 and a zero
+   4x3, and 200x20 through the streamed layout too: the plan, the sweeps
+   (the largest, and none at the bound), ms by events at 200x20 and
+   600x60 beside the bound, the plain version's time and
+   ``torch.linalg.svd``'s; and 600x60, 1000x200 and 1000x1000 streamed
+   within 1e-12 of the plain version, timed beside ``torch.linalg.svd``
+   and the parent commit's LMO (``--svd`` runs these alone);
 4. the paths, each with its kernel's launch count set to 0 just before it
    and read just after:
    a. the dense sweep: ``dopt_fw_batch(precision="pallas")`` on K=32 of
@@ -264,13 +273,16 @@ and the script exits non-zero without the result line:
    m. sharding on one card: a world-size-1 NCCL group in this process
       (127.0.0.1, a free port) and ``data_mesh()`` on CUDA;
       ``shard_dopt_problem`` under ABPG_gain(fast_gram=True) at 30x10000
-      (100 iterations, eager with replicated scalars) equal to the
-      unsharded card run (a graph) at rtol 1e-12, the iterate still a
-      DTensor; ``shard_dopt_design`` under D_opt_FW_away
-      at 30x1000 (500 iterations), where "auto" must take the exact
-      engine, against the unsharded exact engine, and the kernel modes
-      must refuse the sharded design; the group is destroyed.  One card
-      shows the code path, not collectives across cards;
+      (100 iterations) and ``shard_dopt_design`` under D_opt_FW_away at
+      30x1000 (500 iterations; "auto" must take the exact engine), each as
+      graph chunks whose collectives are captured with them (captures
+      above 0), their rows bit for bit with the same sharded solve under
+      ``eager_chunks`` and within rtol 1e-12 of the unsharded card run (a
+      graph), the iterate still a DTensor; the sharded graph's wall (cold,
+      with its capture, and warm) beside the sharded eager wall and the
+      unsharded graph's; the kernel modes must refuse the sharded design;
+      no kernel may launch; the group is destroyed.  One card shows the
+      code path and its capture, not collectives across cards;
    n. ``diagnostics.profile_trace`` around a short solve (a trace under
       ``build/traces``) and ``debug_mode`` raising on a NaN start; then,
       with no kernel launch, ``examples/ex_Poisson_KL.py``'s ``poisson``
@@ -297,10 +309,14 @@ and the script exits non-zero without the result line:
       bounds on SymNMF 200x20, under the five FW drivers (200 iterations)
       as graphs (one capture each) against ``eager_chunks``, bit for bit;
       the nuclear ball under ``FW_alg_descent_step`` and under BPG through
-      ``SumOf2nd4thPowersWithFrankWolfe``, whose chunks must run eagerly
-      (no capture: the closure declares ``host_reads``), and whether
-      ``torch.linalg.svd`` can be captured at all (in a process of its
-      own);
+      ``SumOf2nd4thPowersWithFrankWolfe`` on SymNMF 200x20, as graphs (one
+      capture each) against ``eager_chunks`` bit for bit, with the walls
+      of both, the top-singular-pair kernel's launches on the card (the
+      only kernel the phase may launch), counted from a reset just before
+      each warm graph run to a read just after it, at least one a row,
+      and no solve at the sweep bound;
+      and whether ``torch.linalg.svd`` can be captured at all (in a
+      process of its own: the record of why the kernel exists);
    q. the a9a path, no kernel launch: a synthetic LIBSVM file of a9a's
       published shape under ``build/`` (32561 rows, 123 binary features,
       14 ones a row, labels +1 / -1, numpy seed 9), parsed by the port's
@@ -1865,6 +1881,140 @@ def dual_prox_stages(dp, G, y, kw, label, plan=None):
     print(f"[stages] dual prox {label}: {steps} steps, {total:.0f} clocks a "
           f"step for thread 0 of CTA 0 ({ms:.3f} ms timed launch, "
           f"{total * steps / (ms * 1e3):.0f} MHz): {parts}", flush=True)
+
+
+# ---- the nuclear ball's top singular pair ---------------------------------
+
+# the kernel against its plain version at these shapes (600x60 takes the
+# streamed layout: A is 288 KB) and on a rank-1 and a zero matrix; the
+# bar: the two sum the dot products in other orders
+SVD_SHAPES = ((6, 4), (4, 6), (200, 20), (20, 200), (600, 60))
+SVD_TOL = 1e-13
+# Gradients larger than the nuclear ball's SymNMF 200x20, in the streamed
+# layout, timed against torch.linalg.svd and the parent commit's LMO
+# (torch.linalg.svd, then the outer product of the top pair); held to the
+# plain version at SVD_TOL_LARGE: ten thousand rounds at 1000x1000 carry
+# each sum's last-bit differences further than 200x20's 150.
+SVD_LARGE = ((1000, 200), (1000, 1000))
+SVD_TOL_LARGE = 1e-12
+
+
+def svd_bound(m, n, sweeps):
+    """Bound of one top-singular-pair solve of an m x n matrix that took
+    ``sweeps`` sweeps: g read once and s written once; each sweep's k (k -
+    1) / 2 pairs take ~6 p FP64 operations each for their three dot
+    products (p = max(m, n), k = min(m, n))."""
+    p, k = max(m, n), min(m, n)
+    return bound(16 * m * n, sweeps * k * (k - 1) // 2 * 6 * p)
+
+
+def compare_svd(dev):
+    """Kernel ``csrc/top_singular.cu`` against its plain version
+    (``ops/svd.py::top_singular_pair_reference`` on the card's tensors) at
+    SVD_SHAPES, a rank-1 and a zero matrix, within SVD_TOL, and 200x20
+    through the streamed layout as well; the plan and sweeps of each (none
+    at the bound); ms by events at 200x20 (the nuclear ball's SymNMF
+    shape) and 600x60, beside the bound, the plain version's wall and
+    ``torch.linalg.svd``'s ms.  Returns ``(err, ms, plain_ms, bound_ms,
+    bound_by, library_ms)`` at 200x20."""
+    from accbpg_and_fw_tpu_torch.ops import svd
+
+    rng = np.random.default_rng(9)
+    cases = [(f"{m}x{n}", torch.tensor(rng.standard_normal((m, n)),
+                                       device=dev)) for m, n in SVD_SHAPES]
+    cases += [("rank-1 7x5", torch.outer(
+                  torch.arange(1.0, 8.0, dtype=torch.float64, device=dev),
+                  torch.tensor(rng.standard_normal(5), device=dev))),
+              ("zero 4x3", torch.zeros(4, 3, dtype=torch.float64,
+                                       device=dev))]
+    lines, errs, most = [], [], 0
+    for label, g in cases:
+        plan = svd.device_plan(*g.shape, dev.index)
+        s, sweeps = svd._launch_cuda(g)
+        ref = svd.top_singular_pair_reference(g)
+        ref_sweeps = svd._jacobi_reference(g)[2]
+        err = float((s - ref).abs().max())
+        sweeps = int(sweeps)
+        if not (err <= SVD_TOL and sweeps < svd.MAX_SWEEPS):
+            raise AssertionError(f"top singular pair {label}: error "
+                                 f"{err:.3e}, {sweeps} sweeps")
+        errs.append(err)
+        most = max(most, sweeps)
+        lines.append(f"{label} {plan.layout} {plan.warps} warps "
+                     f"{sweeps} sweeps (plain {ref_sweeps}) within "
+                     f"{err:.1e}")
+    g = cases[2][1]  # 200x20
+    streamed = svd.svd_plan(200, 20, 0)
+    err = float((svd._launch_cuda(g, streamed)[0]
+                 - svd.top_singular_pair(g)).abs().max())
+    if not err <= SVD_TOL:
+        raise AssertionError(f"top singular pair 200x20 streamed: {err:.3e}")
+    lines.append(f"200x20 through the streamed layout within {err:.1e}")
+    timed = {}
+    for label, g in (cases[2], cases[4]):
+        m, n = g.shape
+        sweeps = int(svd._launch_cuda(g)[1])
+        ms = time_launches(lambda: svd.top_singular_pair(g), 20)
+        _, plain_ms = timed_plain(lambda: svd.top_singular_pair_reference(g))
+        lib_ms = time_launches(
+            lambda: torch.linalg.svd(g, full_matrices=False), 20)
+        b, by = svd_bound(m, n, sweeps)
+        timed[label] = (ms, plain_ms, b, by, lib_ms)
+        lines.append(f"{label} {ms:.4f} ms by events ({sweeps} sweeps, "
+                     f"bound {b:.6f} ms by {by}), plain {plain_ms:.2f} ms, "
+                     f"torch.linalg.svd {lib_ms:.4f} ms")
+    svd_large(svd, dev)
+    _, at_bound, _ = svd.device_stats()
+    if at_bound:
+        raise AssertionError(f"{at_bound} top-singular-pair solves reached "
+                             "the sweep bound")
+    print(f"[svd] top singular pair against its plain version (bar "
+          f"{SVD_TOL:g}): " + "; ".join(lines) + f"; most sweeps {most} "
+          f"(bound {svd.MAX_SWEEPS})", flush=True)
+    ms, plain_ms, b, by, lib_ms = timed["200x20"]
+    return max(errs), ms, plain_ms, b, by, lib_ms
+
+
+def parent_lmo(g):
+    """The nuclear ball's LMO of the parent commit: cuSOLVER's SVD, then
+    the outer product of the top pair (refuses a capture)."""
+    U, _, Vh = torch.linalg.svd(g, full_matrices=False)
+    return torch.outer(U[:, 0], Vh[0])
+
+
+def svd_large(svd, dev):
+    """The kernel at SVD_LARGE (the streamed layout, a cooperative grid)
+    and 600x60: its plan, sweeps, error against the plain version, ms by
+    events beside the bound, torch.linalg.svd's ms and the parent's LMO's
+    ms, and the plain version's wall; printed before the bar is checked."""
+    rng = np.random.default_rng(11)
+    lines, bad = [], []
+    for m, n in ((600, 60),) + SVD_LARGE:
+        g = torch.tensor(rng.standard_normal((m, n)), device=dev)
+        plan = svd.device_plan(m, n, dev.index)
+        s, sweeps = svd._launch_cuda(g)
+        sweeps = int(sweeps)
+        ref, plain_ms = timed_plain(
+            lambda: svd.top_singular_pair_reference(g))
+        err = float((s - ref).abs().max())
+        reps = 3 if m * n > 100000 else 20
+        ms = time_launches(lambda: svd.top_singular_pair(g), reps)
+        lib_ms = time_launches(
+            lambda: torch.linalg.svd(g, full_matrices=False), reps)
+        parent_ms = time_launches(lambda: parent_lmo(g), reps)
+        b, by = svd_bound(m, n, sweeps)
+        lines.append(
+            f"{m}x{n} {plan.layout} {plan.ctas}x{plan.warps} warps "
+            f"{sweeps} sweeps, within {err:.1e} of the plain version: "
+            f"{ms:.4f} ms by events (bound {b:.6f} ms by {by}), "
+            f"torch.linalg.svd {lib_ms:.4f} ms, the parent's LMO (svd and "
+            f"outer) {parent_ms:.4f} ms, plain {plain_ms:.2f} ms")
+        if not (err <= SVD_TOL_LARGE and sweeps < svd.MAX_SWEEPS):
+            bad.append(f"{m}x{n}: error {err:.3e}, {sweeps} sweeps")
+    print(f"[svd sizes] ({card_line()}) " + "; ".join(lines), flush=True)
+    if bad:
+        raise AssertionError("top singular pair, large shapes (bar "
+                             f"{SVD_TOL_LARGE:g}): " + "; ".join(bad))
 
 
 def first_prox_input(port, m, n):
@@ -3472,15 +3622,101 @@ def free_port():
         return s.getsockname()[1]
 
 
+class span_clock:
+    """While open, the host seconds graph chunks spend in their replays
+    (``_GraphChunk.replay``: the spans' launches and the one read of their
+    rows, which waits for them) and in their continuations
+    (``_device_chunk`` as ``_graph_run`` calls it: the iteration whose
+    bounded loops overflowed, rerun eagerly, synced at its end as
+    ``_graph_run``'s next read of ``done`` would be); ``split(wall)`` says
+    what is left of a wall for the driver's host code around them."""
+
+    def __init__(self, driver):
+        self.driver = driver
+        self.s = {"replay": 0.0, "continuation": 0.0}
+        self.n = {"replay": 0, "continuation": 0}
+
+    def _timed(self, what, fn, sync):
+        def run(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            if sync:
+                torch.cuda.synchronize()
+            self.s[what] += time.perf_counter() - t
+            self.n[what] += 1
+            return out
+        return run
+
+    def __enter__(self):
+        d = self.driver
+        self.saved = d._GraphChunk.replay, d._device_chunk
+        d._GraphChunk.replay = self._timed("replay", self.saved[0], False)
+        d._device_chunk = self._timed("continuation", self.saved[1], True)
+        return self
+
+    def __exit__(self, *exc):
+        self.driver._GraphChunk.replay, self.driver._device_chunk = \
+            self.saved
+
+    def split(self, wall):
+        rest = wall - self.s["replay"] - self.s["continuation"]
+        return (f"{self.s['replay']:.3f} s in {self.n['replay']} replay "
+                f"calls, {self.s['continuation']:.3f} s in "
+                f"{self.n['continuation']} continuations, {rest:.3f} s "
+                "around them")
+
+
+def sharded_run(driver, run):
+    """``run`` (a sharded solve) as graph chunks, cold (its capture) and
+    warm (under ``span_clock``), then under ``eager_chunks``: ``(graph
+    result, eager result, captures, the warm run's replays and
+    continuations, cold s, warm s, eager s, the warm run's span_clock)``;
+    the rows must agree bit for bit and the iterates too."""
+    driver.clear_graph_cache()
+    before = driver.GRAPH_STATS["captures"]
+    walls = []
+    for clock in (None, span_clock(driver)):
+        warm = dict(driver.GRAPH_STATS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if clock is None:
+            res = run()
+        else:
+            with clock:
+                res = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    captures = driver.GRAPH_STATS["captures"] - before
+    spans = tuple(driver.GRAPH_STATS[k] - warm[k]
+                  for k in ("replays", "continuations"))
+    t = time.perf_counter()
+    with driver.eager_chunks():
+        eager = run()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t)
+    for a, b in zip(res[1:-1], eager[1:-1]):
+        if not np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True):
+            raise AssertionError("a sharded graph's rows differ from "
+                                 "eager_chunks'")
+    if not torch.equal(res[0].full_tensor(), eager[0].full_tensor()):
+        raise AssertionError("a sharded graph's iterate differs from "
+                             "eager_chunks'")
+    if captures < 1:
+        raise AssertionError("a sharded solve was not captured")
+    return (res, eager, captures, spans) + tuple(walls) + (clock,)
+
+
 def sharded_paths(port, counters):
     """Phase 4m: a world-size-1 NCCL group in this process and a one-card
     mesh: ``shard_dopt_problem`` under ABPG_gain(fast_gram=True) and
-    ``shard_dopt_design`` under D_opt_FW_away on the exact engine, each
-    against the same solve unsharded on the card.  No kernel may launch."""
+    ``shard_dopt_design`` under D_opt_FW_away on the exact engine, each as
+    graph chunks (``sharded_run``: captured, rows bit for bit with
+    ``eager_chunks``) and against the same solve unsharded on the card (a
+    graph).  No kernel may launch."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
-    from accbpg_and_fw_tpu_torch.algorithms import d_opt
+    from accbpg_and_fw_tpu_torch.algorithms import d_opt, driver
     from accbpg_and_fw_tpu_torch.parallel import (data_mesh,
                                                   shard_dopt_design,
                                                   shard_dopt_problem)
@@ -3499,14 +3735,23 @@ def sharded_paths(port, counters):
         f_sh, x_sh = shard_dopt_problem(f, x0, mesh)
         kw = dict(gamma=2, maxitrs=SH_GAIN_ITERS, verbose=False,
                   fast_gram=True)
-        t = time.perf_counter()
-        r_sh = port.ABPG_gain(f_sh, h, L, x_sh, **kw)
-        torch.cuda.synchronize()
-        w_sh = time.perf_counter() - t
-        t = time.perf_counter()
-        r_pl = port.ABPG_gain(f, h, L, x0, **kw)
-        torch.cuda.synchronize()
-        w_pl = time.perf_counter() - t
+        (r_sh, _, g_caps, g_spans, g_cold, g_warm, g_eager,
+         g_clock) = sharded_run(
+            driver, lambda: port.ABPG_gain(f_sh, h, L, x_sh, **kw))
+        w_pl = []
+        for pl_clock in (None, span_clock(driver)):  # captured, replayed
+            pl_stats = dict(driver.GRAPH_STATS)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if pl_clock is None:
+                r_pl = port.ABPG_gain(f, h, L, x0, **kw)
+            else:
+                with pl_clock:
+                    r_pl = port.ABPG_gain(f, h, L, x0, **kw)
+            torch.cuda.synchronize()
+            w_pl.append(time.perf_counter() - t)
+        pl_spans = tuple(driver.GRAPH_STATS[k] - pl_stats[k]
+                         for k in ("replays", "continuations"))
         if not isinstance(r_sh[0], DTensor):
             raise AssertionError("the sharded ABPG_gain returned a plain "
                                  "tensor")
@@ -3526,13 +3771,15 @@ def sharded_paths(port, counters):
         plain_engine = d_opt._resolve_auto_u_mode(fd.H, "auto", fd.H.device)
         if engine != "exact":
             raise AssertionError(f"'auto' took {engine} for a sharded design")
-        t = time.perf_counter()
-        fw_sh = port.D_opt_FW_away(V_sh, xd_sh, EPS, SH_FW_ITERS,
-                                   verbose=False)
+        fw_sh, _, f_caps, _, f_cold, f_warm, f_eager, f_clock = sharded_run(
+            driver, lambda: port.D_opt_FW_away(V_sh, xd_sh, EPS, SH_FW_ITERS,
+                                               verbose=False))
         torch.cuda.synchronize()
-        wf_sh = time.perf_counter() - t
+        t = time.perf_counter()
         fw_pl = port.D_opt_FW_away(fd.H, xd, EPS, SH_FW_ITERS, verbose=False,
                                    u_mode="exact")
+        torch.cuda.synchronize()
+        wf_pl = time.perf_counter() - t
         if len(fw_sh[1]) != len(fw_pl[1]):
             raise AssertionError(f"sharded FW-away: {len(fw_sh[1])} rows, "
                                  f"unsharded {len(fw_pl[1])}")
@@ -3552,15 +3799,25 @@ def sharded_paths(port, counters):
         dist.destroy_process_group()
     launched = no_launches("phase 4m", counters)
     print(f"[sharded] one card, a world-size-1 NCCL group and data_mesh() "
-          f"on cuda (the code path of a sharded solve, not collectives "
-          f"across cards): ABPG_gain fast_gram {GAIN_M}x{GAIN_N} "
-          f"{SH_GAIN_ITERS} iterations sharded {w_sh:.3f} s vs unsharded "
-          f"{w_pl:.3f} s, F max rel diff {gerr:.1e} (bar 1e-12), x a "
-          f"DTensor {r_sh[0].placements}; D_opt_FW_away {BPG_M}x{BPG_N} on "
+          f"on cuda (the code path of a sharded solve and its capture, not "
+          f"collectives across cards): ABPG_gain fast_gram {GAIN_M}x{GAIN_N} "
+          f"{SH_GAIN_ITERS} iterations sharded as graphs ({g_caps} "
+          f"captures) {g_cold:.3f} s cold (capture included), {g_warm:.3f} "
+          f"s warm ({g_spans[0]} replays, {g_spans[1]} continuations; "
+          f"{g_clock.split(g_warm)}), rows "
+          f"and x bit for bit with the sharded eager_chunks run "
+          f"{g_eager:.3f} s; the unsharded graph {w_pl[0]:.3f} s cold, "
+          f"{w_pl[1]:.3f} s warm ({pl_spans[0]} replays, {pl_spans[1]} "
+          f"continuations; {pl_clock.split(w_pl[1])}); F max rel "
+          f"diff to the unsharded {gerr:.1e} (bar 1e-12), x a DTensor "
+          f"{r_sh[0].placements}; D_opt_FW_away {BPG_M}x{BPG_N} on "
           f"shard_dopt_design: 'auto' took {engine} (unsharded: "
-          f"{plain_engine}), {len(fw_sh[1])} rows in {wf_sh:.3f} s, F max "
-          f"rel diff {ferr:.1e} vs the unsharded exact engine; "
-          f"u_mode {refused} refused", flush=True)
+          f"{plain_engine}), {len(fw_sh[1])} rows as graphs ({f_caps} "
+          f"captures) {f_cold:.3f} s cold, {f_warm:.3f} s warm "
+          f"({f_clock.split(f_warm)}), bit for bit "
+          f"with eager_chunks {f_eager:.3f} s; the unsharded exact engine "
+          f"{wf_pl:.3f} s; F max rel diff {ferr:.1e}; u_mode {refused} "
+          f"refused", flush=True)
     print(f"[sharded] phase 4m in {time.perf_counter() - t0:.1f} s; kernel "
           f"launches: {launched}", flush=True)
 
@@ -4020,8 +4277,11 @@ def centre_runs(driver, label, runs, x0, lmo, f):
 def lmo_centres(port, card, counters):
     """Phase 4p: the four LMOs that take an array (a numpy centre, numpy
     bounds) under the five FW drivers as graphs against ``eager_chunks``,
-    and the nuclear ball, whose chunks run eagerly (``host_reads``), with
-    whether its SVD can be captured at all (in a process of its own)."""
+    and the nuclear ball under the descent step and BPG's FW-as-prox as
+    graphs against ``eager_chunks``, with whether ``torch.linalg.svd`` can
+    be captured at all (in a process of its own).  Only the top singular
+    pair's kernel may launch; returns its launches on the card in the two
+    warm graph runs (the main path), each counted alone."""
     from accbpg_and_fw_tpu_torch.algorithms import driver
 
     reset_counts(counters)
@@ -4058,36 +4318,87 @@ def lmo_centres(port, card, counters):
 
     # the reference's nuclear vertex is the top singular pair's, an ascent
     # vertex for the line-search drivers (which raise on it, as JAX's do):
-    # the descent step, and BPG through the FW-as-prox h-oracle
+    # the descent step, and BPG through the FW-as-prox h-oracle, as graphs
+    # whose only kernel is the top singular pair's
+    from accbpg_and_fw_tpu_torch.ops import svd
+
     nuc = port.lmo_nuclear_norm_ball()
     Xn = X0 / (2.0 * torch.linalg.matrix_norm(X0, ord="nuc"))
-    before = dict(driver.GRAPH_STATS)
-    nuc_runs = {
-        "FW_alg_descent_step": port.FW_alg_descent_step(
+    nuc_calls = {
+        "FW_alg_descent_step": lambda: port.FW_alg_descent_step(
             fs, hs[0], Xn, LMO_ITERS, nuc, verbose=False),
-        "BPG(SumOf2nd4thPowersWithFrankWolfe)": port.BPG(
+        "BPG(SumOf2nd4thPowersWithFrankWolfe)": lambda: port.BPG(
             fs, port.SumOf2nd4thPowersWithFrankWolfe(lmo=nuc), 1.0, Xn,
             LMO_ITERS, linesearch=False, verbose=False)}
-    if driver.GRAPH_STATS["captures"] != before["captures"]:
-        raise AssertionError("the nuclear ball's chunks were captured")
-    for name, res in nuc_runs.items():
-        if not np.all(np.isfinite(np.asarray(res[1]))):
-            raise AssertionError(f"nuclear ball {name}: F not finite")
+    svd.LAUNCHES = 0
+    nuc_text, nuc_launches, at_bound, most = [], 0, 0, 0
+
+    def kernel_stats(run):
+        """``run()`` synced, with the kernel's counts on the card from a
+        reset just before it to a read just after it."""
+        svd.reset_device_stats()
+        out = synced(run)
+        return out, svd.device_stats()
+
+    for name, run in nuc_calls.items():
+        driver.clear_graph_cache()
+        before = driver.GRAPH_STATS["captures"]
+        (_, cold_wall, _), cold = kernel_stats(run)  # captured
+        # the main path: the replayed graph, its launches counted alone
+        (res, warm_wall, _), warm = kernel_stats(run)
+        captures = driver.GRAPH_STATS["captures"] - before
+        with driver.eager_chunks():
+            (eager, eager_wall, _), side = kernel_stats(run)
+        F = np.asarray(res[1])
+        if captures != 1 or not np.all(np.isfinite(F)):
+            raise AssertionError(f"nuclear ball {name}: {captures} captures,"
+                                 f" F finite {np.all(np.isfinite(F))}")
+        # every iteration calls the LMO at least once (the descent step
+        # once, BPG-FW's prox once or more); F's first row is the start's
+        if warm[0] < len(F) - 1:
+            raise AssertionError(f"nuclear ball {name}: the replayed graph "
+                                 f"launched the kernel {warm[0]} times for "
+                                 f"{len(F) - 1} iterations")
+        for a, b in zip(histories(name, res), histories(name, eager)):
+            if not np.array_equal(np.asarray(a), np.asarray(b),
+                                  equal_nan=True):
+                raise AssertionError(f"nuclear ball {name}: the graph's rows "
+                                     "differ from eager_chunks'")
+        if not torch.equal(res[0], eager[0]):
+            raise AssertionError(f"nuclear ball {name}: the graph's iterate "
+                                 "differs from eager_chunks'")
+        nuc_launches += warm[0]
+        at_bound += cold[1] + warm[1] + side[1]
+        most = max(most, cold[2], warm[2], side[2])
+        nuc_text.append(
+            f"{name.replace('FW_', '')} {len(F)} rows, F {F[0]:.4e} -> "
+            f"{F[-1]:.4e}, one capture, bit for bit with eager_chunks; graph"
+            f" {cold_wall:.3f} s cold, {warm_wall:.3f} s warm, eager "
+            f"{eager_wall:.3f} s; the kernel's launches on the card: "
+            f"{warm[0]} in the warm graph run (the main path), {cold[0]} in "
+            f"the capturing run, {side[0]} in the eager comparison")
+    if at_bound:
+        raise AssertionError(f"nuclear ball: {at_bound} solves at the sweep "
+                             "bound")
     probe = subprocess.run([sys.executable, "-c", SVD_PROBE],
                            capture_output=True, text=True, timeout=300)
-    svd = (probe.stdout.strip().splitlines() or
-           [f"probe failed (exit {probe.returncode})"])[-1]
+    svd_probe = (probe.stdout.strip().splitlines() or
+                 [f"probe failed (exit {probe.returncode})"])[-1]
     lines.append(
-        f"lmo_nuclear_norm_ball on SymNMF: "
-        + ", ".join(f"{n.replace('FW_', '')} {len(r[1])} rows eager, F "
-                    f"{r[1][0]:.4e} -> {r[1][-1]:.4e}"
-                    for n, r in nuc_runs.items())
-        + f", no capture; torch.linalg.svd under a capture alone: {svd}")
+        f"lmo_nuclear_norm_ball on SymNMF {FW_SYM_N}x{FW_SYM_R}: "
+        + "; ".join(nuc_text)
+        + f"; the top singular pair's kernel launched {nuc_launches} times "
+        f"on the card in the two warm graph runs ({svd.LAUNCHES} host "
+        f"launches: the captures and the eager runs), most sweeps {most}, "
+        f"none at the bound "
+        f"{svd.MAX_SWEEPS}; torch.linalg.svd under a capture alone (why the "
+        f"kernel exists): {svd_probe}")
     launched = no_launches("phase 4p", counters)
     print(f"[lmo] phase 4p ({card}, {LMO_ITERS} iterations each, graphs "
-          "against eager_chunks): " + "; ".join(lines) + f"; kernel "
+          "against eager_chunks): " + "; ".join(lines) + f"; other kernels' "
           f"launches {launched}; phase 4p in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return nuc_launches
 
 
 def write_a9a_like(path):
@@ -4202,6 +4513,9 @@ def main():
     ap.add_argument("--threefry", action="store_true",
                     help="build the threefry kernel and run its phase "
                          "alone ([threefry], the sweep, the walls)")
+    ap.add_argument("--svd", action="store_true",
+                    help="build the top singular pair's kernel and run its "
+                         "phase alone ([svd], [svd sizes])")
     ap.add_argument("--micro", action="store_true",
                     help="build and run csrc/micro_cluster.cu")
     ap.add_argument("--bodies", action="store_true",
@@ -4232,6 +4546,10 @@ def main():
         print(f"[card] {card_line()}", flush=True)
         compare_threefry(torch.device("cuda"))
         return 0
+    if args.svd:
+        print(f"[card] {card_line()}", flush=True)
+        compare_svd(torch.device("cuda"))
+        return 0
     if args.bodies:
         return bodies_study()
     card = card_line()
@@ -4248,7 +4566,7 @@ def main():
 
     # ---- 2. the build -------------------------------------------------------
     names = ("dopt_lazy", "dopt_dense", "simplex_mult", "threefry",
-             "dual_prox")
+             "dual_prox", "top_singular")
     cached = [n for n in names if _build.library_path(n).exists()]
     t = time.perf_counter()
     _build.build_all(names)
@@ -4303,6 +4621,7 @@ def main():
         simplex_errs.append(compare_simplex(sm, gg, "random")[0])
     threefry_split, threefry_draw = compare_threefry(dev)
     dual_prox = compare_dual_prox(port, dev)
+    top_singular = compare_svd(dev)
 
     # the small slice end to end on the card against the CPU exact engine
     x_s, F_s, _, _, _ = D_opt_FW_away(V_small, np.full(160, 1 / 160), 1e-8,
@@ -4377,31 +4696,34 @@ def main():
                 (sm, "LAUNCHES"), (DeviceCount(sm), "LAUNCHES")]
     fw_paths(port, card, counters)
     graph_paths(port, card, counters)
-    lmo_centres(port, card, counters)
+    svd_launches = lmo_centres(port, card, counters)
     a9a_phase(port, card, counters)
     _, drawn, dual_launches = extras_paths(port, card, counters, sm)
     from accbpg_and_fw_tpu_torch import _rng
     from accbpg_and_fw_tpu_torch.ops import dual_prox as dp
+    from accbpg_and_fw_tpu_torch.ops import svd
 
-    # all eight kernels: the D-opt ones, kernel 5 (host and card counts),
-    # the threefry entries and the dual prox
+    # all nine kernels: the D-opt ones, kernel 5 (host and card counts),
+    # the threefry entries, the dual prox and the top singular pair
     every = counters + [(_rng, "SPLIT_LAUNCHES"), (_rng, "DRAW_LAUNCHES"),
-                        (dp, "LAUNCHES")]
+                        (dp, "LAUNCHES"), (svd, "LAUNCHES")]
     fastgram_paths(port, every, gain_wall)
     sharded_paths(port, every)
     diagnostics_and_examples(port, counters)
 
     # ---- 5. the record ------------------------------------------------------
     def entry(name, source, replaces, launches, measured):
-        err, ms, plain_ms, bound_ms, bound_by = measured
         # library_ms: no single PyTorch call computes any of these functions
-        # (torch's own generator draws other bits than JAX's threefry)
+        # (torch's own generator draws other bits than JAX's threefry) but
+        # the top singular pair's (torch.linalg.svd)
+        err, ms, plain_ms, bound_ms, bound_by = measured[:5]
+        library_ms = measured[5] if len(measured) > 5 else None
         return {"name": name, "route": "cuda",
                 "source": f"accbpg_and_fw_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None}
+                "library_ms": library_ms}
 
     kernels = [
         entry("dopt_lazy_block", "dopt_lazy.cu",
@@ -4429,6 +4751,9 @@ def main():
         entry("dual_prox", "dual_prox.cu",
               "accbpg_and_fw_tpu/ops/h_oracles.py:505", dual_launches,
               dual_prox),
+        # no TPU kernel: the SVD that JAX compiles into the chunk
+        entry("top_singular_pair", "top_singular.cu",
+              "accbpg_and_fw_tpu/ops/lmo.py:20", svd_launches, top_singular),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -318,17 +318,25 @@ def test_checkpoint_resumes_across_packages(problems, tmp_path, case,
 
 def test_chunk_mode_of_a_problem_that_reads_the_host(monkeypatch):
     """A carry of plain tensors on one card is a graph, unless an oracle
-    of the problem declares ``host_reads`` (the FW adapter's nuclear-ball
-    SVD): then its chunks run eagerly.  The dual prox's loop is one
-    kernel launch on the card and reads nothing back, so its chunks are
-    graphs; a solve on the CPU with it runs."""
+    of the problem declares ``host_reads`` (a user's LMO behind the FW
+    adapter here): then its chunks run eagerly.  The dual prox's loop and
+    the nuclear ball's top singular pair are each one kernel launch on the
+    card and read nothing back, so their chunks are graphs; a solve on the
+    CPU with the dual prox runs."""
     dual = port.SumOf2nd4thPowersDualProxMap(num_iters=40)
     svd_h = port.SumOf2nd4thPowersWithFrankWolfe(
         lmo=port.lmo_nuclear_norm_ball())
+
+    def user_lmo(g):
+        return -g / float(torch.linalg.vector_norm(g))  # a host read
+
+    user_lmo.host_reads = True
+    user_h = port.SumOf2nd4thPowersWithFrankWolfe(lmo=user_lmo)
     assert not getattr(dual, "host_reads", False)
     assert not getattr(port.BurgEntropySimplex(), "host_reads", False)
-    assert driver.host_reads(dict(h=svd_h)) and not driver.host_reads(None)
+    assert driver.host_reads(dict(h=user_h)) and not driver.host_reads(None)
     assert not driver.host_reads(dict(h=dual))
+    assert not driver.host_reads(dict(h=svd_h))
     t = torch.zeros(3)
     carry = dict(done=torch.tensor(False), x=t, L=t.sum())
     monkeypatch.setattr(torch.Tensor, "device",
@@ -337,7 +345,8 @@ def test_chunk_mode_of_a_problem_that_reads_the_host(monkeypatch):
     assert driver.chunk_mode(carry, dict(h=port.BurgEntropySimplex())) == \
         "graph"
     assert driver.chunk_mode(carry, dict(f=None, h=dual)) == "graph"
-    assert driver.chunk_mode(carry, dict(f=None, h=svd_h)) == "eager"
+    assert driver.chunk_mode(carry, dict(f=None, h=svd_h)) == "graph"
+    assert driver.chunk_mode(carry, dict(f=None, h=user_h)) == "eager"
     monkeypatch.undo()
     A = np.random.default_rng(5).standard_normal((12, 4))
     f = port.FrobeniusSymLoss(A @ A.T, device="cpu")

@@ -203,8 +203,9 @@ def test_tensor_k_descent_step_matches_jax(symnmf):
 
 def test_chunk_mode_choice(monkeypatch):
     """The choice, from the carry alone: a carry of plain tensors on one
-    card is a graph; a host leaf (a Python-bool ``done``, the noise key as
-    words), a DTensor or the CPU goes eager, and so does everything inside
+    card is a graph, and so is one with a DTensor of one mesh there; a
+    host leaf (a Python-bool ``done``, the noise key as words), DTensors
+    of two meshes or the CPU goes eager, and so does everything inside
     ``eager_chunks``.  There is no third mode."""
     t = torch.zeros(3)
     done = torch.tensor(False)
@@ -217,8 +218,13 @@ def test_chunk_mode_choice(monkeypatch):
     assert driver.chunk_mode(dict(done=done, x=t,
                                   key=np.zeros(2, np.uint32))) == "eager"
     assert driver.chunk_mode(dict(done=done, x=t, L=1.0)) == "eager"
+    t.device_mesh = "mesh a"  # a DTensor's, whose device is its shard's
     monkeypatch.setattr(driver, "is_dtensor", lambda a: a is t)
-    assert driver.chunk_mode(dict(done=done, x=t)) == "eager"
+    assert driver.chunk_mode(dict(done=done, x=t)) == "graph"
+    u = torch.zeros(3)
+    u.device_mesh = "mesh b"
+    monkeypatch.setattr(driver, "is_dtensor", lambda a: a is t or a is u)
+    assert driver.chunk_mode(dict(done=done, x=t, y=u)) == "eager"
     monkeypatch.setattr(driver, "is_dtensor", lambda a: False)
     with driver.eager_chunks():
         assert driver.chunk_mode(dict(done=done, x=t)) == "eager"

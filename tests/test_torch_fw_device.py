@@ -1,6 +1,6 @@
 """The four Frank-Wolfe line-search drivers as device-scalar steps
 (``algorithms/fw.py``), their bounded loops (``_loops.device_while``), the
-LMOs' array constants and the nuclear ball's ``host_reads``, held against
+LMOs' array constants and the nuclear ball in a graph, held against
 the JAX package on the CPU.
 
 On the CPU a chunk runs eagerly and every line search is the Python form
@@ -316,26 +316,38 @@ def test_array_constants_are_copied_once(monkeypatch, name):
     assert torch.equal(lmo(g), first) and not torch.equal(second, first)
 
 
-def test_nuclear_ball_chunk_is_eager(monkeypatch):
-    """The nuclear ball's closure declares ``host_reads`` (its SVD checks
-    convergence on the host), so a carry that would be a graph runs its
-    chunks eagerly, as does a Bregman prox that delegates to it; the other
-    LMOs leave the graph alone.  A CPU solve with it runs."""
+def test_nuclear_ball_chunk_is_a_graph(monkeypatch):
+    """The nuclear ball's closure reads nothing back (its top singular pair
+    is a kernel on the card, ``ops/svd.py``), so a carry that is a graph
+    stays one with it, as does a Bregman prox that delegates to it, and so
+    does the l2 ball's; an LMO of the user's that declares ``host_reads``
+    sends the chunks to the eager loop, through the config or through the
+    prox.  A CPU solve with the nuclear ball runs."""
     nuc = port.lmo_nuclear_norm_ball()
-    assert nuc.host_reads
+    assert not getattr(nuc, "host_reads", False)
     assert not getattr(port.lmo_l2_ball(1.0), "host_reads", False)
+
+    def user_lmo(g):
+        return -g / float(torch.linalg.vector_norm(g))  # a host read
+
+    user_lmo.host_reads = True
     fw_h = port.SumOf2nd4thPowersWithFrankWolfe(lmo=nuc)
-    assert fw_h.host_reads and not port.SumOf2nd4thPowersWithFrankWolfe(
+    user_h = port.SumOf2nd4thPowersWithFrankWolfe(lmo=user_lmo)
+    assert not fw_h.host_reads and user_h.host_reads
+    assert not port.SumOf2nd4thPowersWithFrankWolfe(
         lmo=port.lmo_l2_ball(1.0)).host_reads
     t = torch.zeros(3)
     carry = dict(done=torch.tensor(False), x=t, L=t.sum())
     monkeypatch.setattr(torch.Tensor, "device",
                         property(lambda self: torch.device("cuda", 0)))
     cfg_nuc = fw._FWDivCfg(lmo=nuc, linesearch=True)
+    cfg_user = fw._FWDivCfg(lmo=user_lmo, linesearch=True)
     cfg_l2 = fw._FWDivCfg(lmo=port.lmo_l2_ball(1.0), linesearch=True)
-    assert driver.chunk_mode(carry, dict(h=None), cfg_nuc) == "eager"
+    assert driver.chunk_mode(carry, dict(h=None), cfg_nuc) == "graph"
     assert driver.chunk_mode(carry, dict(h=None), cfg_l2) == "graph"
-    assert driver.chunk_mode(carry, dict(h=fw_h)) == "eager"
+    assert driver.chunk_mode(carry, dict(h=None), cfg_user) == "eager"
+    assert driver.chunk_mode(carry, dict(h=fw_h)) == "graph"
+    assert driver.chunk_mode(carry, dict(h=user_h)) == "eager"
     monkeypatch.undo()
     A = np.random.default_rng(5).standard_normal((12, 4))
     f = port.FrobeniusSymLoss(A @ A.T, device="cpu")

@@ -282,6 +282,53 @@ def test_fw_away_sharded_design(refs, spawn):
     np.testing.assert_array_equal(x[51:], 0.0)
 
 
+def test_sharded_graph_chunk_matches_eager_and_jax(refs, spawn):
+    """A sharded solve through the graph chunk's code (on the CPU its
+    spans run ``_masked_steps`` without a capture): its rows bit for bit
+    with the eager sharded run's, and against JAX's sharded run and the
+    port's unsharded one at the eager case's bars.  ABPG_gain fast_gram
+    runs the worker's GRAPH_ITERS (10) iterations, held to the first rows
+    of the 40-iteration references; D_opt_FW_away its whole run, the
+    iterate too."""
+    result = spawn.get()
+    got = result["gain_fast_graph"]
+    assert got["eager_equal"] and got["sharded"]
+    for i in (1, 2):
+        for ref in refs["gain_fast"]:
+            h = np.asarray(ref[i])[:len(got[f"h{i}"])]
+            assert len(got[f"h{i}"]) == 10
+            np.testing.assert_allclose(got[f"h{i}"], h, rtol=1e-9)
+    got = result["fw51_graph"]
+    assert got["eager_equal"] and got["sharded"]
+    _check(got, *refs["fw51"], 51, rtol=1e-9, atol=1e-11)
+
+
+def test_sharded_graph_chunk_static_buffers(spawn):
+    """The entry's static buffers are the local shards (plain tensors, x
+    of 64 / 2 entries), the step sees DTensors of the carry's placements
+    around them, and the key names x's local shape, placements and mesh."""
+    e = spawn.get()["graph_entry"]
+    assert e["bufs"]["x"] == ["Tensor", [32]]
+    assert e["bufs"]["Gx"] == ["Tensor", [16, 16]]
+    assert all(kind == "Tensor" for kind, _ in e["bufs"].values())
+    assert e["views"]["x"] == "(Shard(dim=0),)"
+    assert e["views"]["Gx"] == e["views"]["done"] == "(Replicate(),)"
+    assert e["x_spec"] == ["(64,)", "torch.float64", "cpu", "(32,)",
+                           "(Shard(dim=0),)", "cpu", "(2,)", "(0, 1)"]
+    assert e["problem_plain"] and [16, 32] in e["problem_local_shapes"]
+
+
+def test_sharded_graph_chunk_second_solve_and_keys(spawn):
+    """A second solve of the same shapes on other data replays the same
+    entry and matches its eager run; another placement of x and a mesh of
+    other ranks give other keys."""
+    result = spawn.get()
+    second = result["graph_second"]
+    assert second == {"entries": 1, "eager_equal": True,
+                      "differs_from_first": True}
+    assert result["graph_keys_distinct"]
+
+
 def test_group_and_mesh(spawn):
     result = spawn.get()
     assert result["world"] == 2 and result["mesh"] == [2]

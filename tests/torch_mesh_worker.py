@@ -18,6 +18,10 @@ import json
 import os
 import sys
 
+# iterations of the sharded ABPG_gain through the graph chunk's code, and
+# the iterations of its graph spans there
+GRAPH_ITERS, GRAPH_SPAN = 10, 5
+
 
 def main():
     faulthandler.enable()
@@ -134,9 +138,112 @@ def main():
     record("symnmf", port.BPG(f_sh, h, 1.0, X_sh, 50, linesearch=False,
                               **quiet))
 
+    graph_cases(out, z, mesh, record, port, h_simplex, shard_dopt_problem,
+                shard_dopt_design)
+
     torch.distributed.destroy_process_group()
     if rank == 0:
         print("RESULT " + json.dumps(out), flush=True)
+
+
+def graph_cases(out, z, mesh, record, port, h_simplex, shard_dopt_problem,
+                shard_dopt_design):
+    """The sharded solves through the graph chunk's code (``_GraphChunk``,
+    which on the CPU runs ``_masked_steps`` without a capture), forced by
+    ``chunk_mode``: ABPG_gain fast_gram on dopt16 (GRAPH_ITERS iterations:
+    its masked loops make an iteration here several times an eager one)
+    and D_opt_FW_away on fw51, each against the eager run recorded above
+    bit for bit, and recorded for the test's bars against JAX; the entry's
+    static buffers and keys; a second solve of the same shapes on other
+    data; the key of another placement and of another mesh."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from accbpg_and_fw_tpu_torch.algorithms import bpg, driver
+
+    def rows_equal(got, name, hists):
+        """The histories of ``got`` against the first rows of the eager run
+        recorded as ``name``, bit for bit."""
+        return all(np.array_equal(np.asarray(got[i]),
+                                  np.asarray(out[name][f"h{i}"])[
+                                      :len(got[i])], equal_nan=True)
+                   for i in hists)
+
+    def as_graph(run):
+        # a span runs whole, masked past the run's end: spans of
+        # GRAPH_SPAN iterations keep the masked steps few
+        mode, span = driver.chunk_mode, bpg.GRAPH_SPAN
+        driver.chunk_mode = lambda carry, problem=None, cfg=None: "graph"
+        bpg.GRAPH_SPAN = GRAPH_SPAN
+        try:
+            return run()
+        finally:
+            driver.chunk_mode, bpg.GRAPH_SPAN = mode, span
+
+    f = port.DOptimalObj(z["dopt16_H"], device="cpu")
+    f_sh, x_sh = shard_dopt_problem(f, z["dopt16_x0"], mesh)
+    L = float(z["dopt16_L"])
+
+    def gain(f_, x_, iters=GRAPH_ITERS):
+        return port.ABPG_gain(f_, h_simplex, L, x_, 2.0, iters,
+                              fast_gram=True, verbose=False)
+
+    driver.clear_graph_cache()
+    graph = as_graph(lambda: gain(f_sh, x_sh))
+    record("gain_fast_graph", graph, (1, 2))
+    out["gain_fast_graph"]["eager_equal"] = rows_equal(graph, "gain_fast",
+                                                       (1, 2))
+    (key, entry), = driver._GRAPHS.items()
+    cspec = dict((k[0], k[1:]) for k in key[5])
+    out["graph_entry"] = {
+        "bufs": {k: (type(v).__name__, list(v.shape))
+                 for k, v in entry.bufs.items()},
+        "views": {k: (str(v.placements) if isinstance(v, DTensor) else None)
+                  for k, v in entry.carry.items()},
+        "x_spec": [str(a) for a in cspec["x"]],
+        "problem_local_shapes": [list(t.shape) for t in entry.leaves],
+        "problem_plain": all(not isinstance(t, DTensor)
+                             for t in entry.leaves)}
+
+    # a second solve of the same shapes on other data: no new entry
+    rng = np.random.default_rng(7)
+    f2 = port.DOptimalObj(z["dopt16_H"] * rng.uniform(0.5, 1.5, (16, 64)),
+                          device="cpu")
+    f2_sh, x2_sh = shard_dopt_problem(f2, z["dopt16_x0"], mesh)
+    eager2 = gain(f2_sh, x2_sh, 4)
+    graph2 = as_graph(lambda: gain(f2_sh, x2_sh, 4))
+    out["graph_second"] = {
+        "entries": len(driver._GRAPHS),
+        "eager_equal": all(np.array_equal(a, b) for a, b in
+                           zip(graph2[1:-1], eager2[1:-1])),
+        "differs_from_first": not np.array_equal(graph2[1],
+                                                 graph[1][:4])}
+
+    # another placement, another mesh: other keys
+    carry = dict(done=DTensor.from_local(torch.tensor(False), mesh,
+                                         [Replicate()]), x=x_sh)
+    keys = [driver.graph_key(gain, None, 8, None, carry)[0]]
+    carry["x"] = x_sh.redistribute(mesh, [Replicate()])
+    keys.append(driver.graph_key(gain, None, 8, None, carry)[0])
+    flipped = DeviceMesh("cpu", list(range(mesh.size()))[::-1])
+    carry["x"] = DTensor.from_local(x_sh.to_local(), flipped,
+                                    list(x_sh.placements), run_check=False)
+    keys.append(driver.graph_key(gain, None, 8, None, carry)[0])
+    out["graph_keys_distinct"] = len(set(keys)) == 3
+
+    # D_opt_FW_away on the column-sharded design, through the c10d gather
+    V_sh, x_sh = shard_dopt_design(z["fw51_V"], z["fw51_x0"], mesh)
+    # chunks of 100: the rows of the chunks of 400 above (no hook runs
+    # between chunks), and fewer frozen steps after the stop
+    graph = as_graph(lambda: port.D_opt_FW_away(V_sh, x_sh, 1e-6, 800,
+                                                chunk=100, verbose=False))
+    record("fw51_graph", graph, (1, 2, 3))
+    out["fw51_graph"]["eager_equal"] = (
+        rows_equal(graph, "fw51", (1, 2, 3))
+        and len(graph[1]) == len(out["fw51"]["h1"])
+        and out["fw51_graph"]["x"] == out["fw51"]["x"])
 
 
 if __name__ == "__main__":
