@@ -49,8 +49,8 @@ device before anything runs (``chunk_mode``):
   host (``host_reads``: a user's oracle that declares it; none of the
   port's does).  Once ``done`` is set the carry freezes through a
   ``torch.where`` select, as the JAX scan body does.  A sharded chunk
-  reduces its partial scalars before an operation takes them
-  (``_ReplicatedScalars``), in a graph as eagerly.
+  reduces its partial sums before an operation takes them
+  (``_ReducedPartials``), in a graph as eagerly.
 
 The chunk boundary is where ``between_chunks`` runs, where checkpoints are
 written and where the verbose table is printed.
@@ -425,11 +425,12 @@ def _copy_into(buf, view, v):
 
 
 def _sharded_scope(carry):
-    """What ``carry``'s steps run under: ``_ReplicatedScalars`` where a leaf
-    is a DTensor (eagerly and in a graph alike, so both reduce the same
-    partial scalars at the same operations)."""
+    """What ``carry``'s steps, and a driver's set-up of it, run under:
+    ``_ReducedPartials`` where a leaf is a DTensor (eagerly and in a graph
+    alike, so both reduce the same partial sums at the same
+    operations)."""
     if any(is_dtensor(v) for v in carry.values()):
-        return _ReplicatedScalars()
+        return _ReducedPartials()
     return contextlib.nullcontext()
 
 
@@ -657,18 +658,22 @@ def _settled(tree):
     return tree
 
 
-class _ReplicatedScalars(TorchFunctionMode):
-    """Inside a sharded eager chunk: each 0-d DTensor that holds a partial
-    (a sum or an extreme over a sharded axis) is reduced before an
-    operation takes it, so the steps' scalars are replicated.  DTensor's
-    dispatch cache cannot take a partial scalar met by a Python number and
-    later by a tensor (``Partial + 0.0`` before ``Partial + Replicate``
-    raises)."""
+class _ReducedPartials(TorchFunctionMode):
+    """Inside a sharded chunk, eager or in a graph, and a driver's set-up
+    before it: each DTensor that holds a partial (a sum or an extreme over
+    a sharded axis: a gradient summed over sharded samples, a scalar) is
+    reduced before an operation takes it, as XLA reduces a sharded
+    contraction where it ends.  DTensor passes a partial sum through some
+    operations that are not linear in it (``torch.div(1.0, g)`` of a
+    ``Partial`` g stays ``Partial``, each rank's reciprocal summed): a
+    partial gradient met by a nonlinear prox gave another iterate.  And
+    its dispatch cache cannot take a partial scalar met by a Python
+    number and later by a tensor (``Partial + 0.0`` before ``Partial +
+    Replicate`` raises)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         def rep(a):
-            if (is_dtensor(a) and a.dim() == 0
-                    and any(p.is_partial() for p in a.placements)):
+            if is_dtensor(a) and any(p.is_partial() for p in a.placements):
                 return replicated(a)
             return a
 

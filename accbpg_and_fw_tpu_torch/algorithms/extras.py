@@ -43,7 +43,7 @@ from .._scalar import read
 from ..ops.base import vdot
 from .bpg import (_device_carry, _num, _past_first, _scalars, _start,
                   _trial_draw)
-from .driver import run_driver
+from .driver import _sharded_scope, run_driver
 
 _LS_MAX = 64  # doubling line searches multiply L by 2^t; 2^64 is past overflow
 
@@ -195,7 +195,8 @@ def AIBM(f, h, L, x0, gamma, maxitrs, epsilon=1e-14, verbose=True, noise=0,
     carry = _device_carry(x0, key=_rng.key(seed, x0.device), y=x0, z=x0,
                           L=L, A=0.0, xi=torch.zeros_like(x0),
                           F_prev=float("inf"))
-    carry, F0, G0 = _aibm_init(prob, carry)
+    with _sharded_scope(carry):  # the steps' rule for a sharded carry
+        carry, F0, G0 = _aibm_init(prob, carry)
     header = ("\nAIBM method for min_{x in C} F(x) = f(x) + Psi(x)\n"
               "     k      F(x)       L       time")
     cfg = _AIBMCfg(stochastic=bool(getattr(f, "stochastic", False)))
@@ -269,7 +270,8 @@ def _fgm_like(f, h, L, x0, maxitrs, epsilon, verbose, noise, verbskip, seed,
     # the k=0 row (reference: algorithms.py:680-684) consumes one noise
     # draw that it does not use; so does the JAX driver, and so here
     key, _ = _rng.split(_rng.key(seed, x0.device))
-    F0 = f.value(x_init) + h.extra_psi(x_init)
+    with _sharded_scope(dict(x=x_init)):  # the steps' rule for a shard
+        F0 = f.value(x_init) + h.extra_psi(x_init)
     carry = _device_carry(x_init, key=key, u=ones, A=0.0, L=L, F_prev=F0)
     cfg = _FGMCfg(universal=bool(universal),
                   stochastic=bool(getattr(f, "stochastic", False)))

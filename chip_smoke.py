@@ -54,7 +54,8 @@ timings of 10 launches by events), the noise stream's calls (a split, a
 400x10 normal draw and a noisy gradient's draw, fused where the commit
 has it: the device time per node in a graph beside an empty kernel's,
 the host cost per eager call, and the host cost of each part of the
-split's wrapper), the stochastic runs through the public drivers as
+split's wrapper), the top singular pair at 200x20, 600x60, 1000x200 and
+1000x1000 in the layouts the commit's plan takes, the stochastic runs through the public drivers as
 graphs (SymNMF 200x20 under ABPG_gain and FW_alg_descent_step, AIBM with
 noise 1e-6 on the Poisson problem: nodes per graph, warm walls, threefry
 launches, digests of the rows as graphs and eagerly, which must agree
@@ -62,8 +63,8 @@ across commits bit for bit), the warm walls of the dense sweep and
 of one ``u_mode="pallas"`` solve, of ``ABPG_gain`` 30x10000 over
 ``--gain-iters`` iterations (0: not run) and of ``--solves`` warm
 main-path solves, for the package under ``--root`` (default: this file's
-directory), through the wrappers that every commit of the port has.  That is how two commits are compared
-on one card, in ONE call (two calls may land on cards with other power
+directory), through the wrappers that every commit of the port has.
+That is how two commits are compared on one card, in ONE call (two calls may land on cards with other power
 limits):
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
@@ -119,13 +120,22 @@ and the script exits non-zero without the result line:
    global memory at 1000x1000); the nuclear ball's top singular pair
    (``csrc/top_singular.cu``: one-sided Jacobi, ``outer(u1, v1)``) against
    its plain version within 1e-13 at 6x4, 4x6, 200x20, 20x200, 600x60
-   (the streamed layout, a cooperative grid), a rank-1 7x5 and a zero
-   4x3, and 200x20 through the streamed layout too: the plan, the sweeps
-   (the largest, and none at the bound), ms by events at 200x20 and
-   600x60 beside the bound, the plain version's time and
-   ``torch.linalg.svd``'s; and 600x60, 1000x200 and 1000x1000 streamed
-   within 1e-12 of the plain version, timed beside ``torch.linalg.svd``
-   and the parent commit's LMO (``--svd`` runs these alone);
+   (the ring layout: CTAs that keep a run of pairs' columns in shared
+   memory and pass the columns that leave it to the neighbouring CTA),
+   a rank-1 7x5 and a zero 4x3, and 200x20 through the streamed layout
+   and rings of one, two and five CTAs too: the plan, the sweeps (the
+   largest, and none at the bound), the kernels' registers and spills;
+   ``[svd sizes]``: 200x20, 600x60, 1000x200 and 1000x1000 in their
+   layouts (1e-13, and 1e-12 at the two large ones, of the plain
+   version), ms by events beside the bound (the rotations a timed launch
+   counted), the streamed layout's ms (the parent commit's design),
+   ``torch.linalg.svd``'s and the LMO's before the kernel, and the plain
+   version's wall; ``[svd stages]``: thread 0 of CTA 0's clocks per stage
+   of a round (dots, rotation, send, wait, the sweep's test) in the ring
+   and the streamed layouts at 600x60, 1000x200 and 1000x1000;
+   ``[svd sweep]``: ring layouts of other pairs, warps and clusters
+   timed beside the plan's (``--svd`` runs these alone; ``--svd --root DIR`` times another
+   checkout's top singular pair, as ``--blocks-only`` does);
 4. the paths, each with its kernel's launch count set to 0 just before it
    and read just after:
    a. the dense sweep: ``dopt_fw_batch(precision="pallas")`` on K=32 of
@@ -281,8 +291,13 @@ and the script exits non-zero without the result line:
       graph), the iterate still a DTensor; the sharded graph's wall (cold,
       with its capture, and warm) beside the sharded eager wall and the
       unsharded graph's; the kernel modes must refuse the sharded design;
-      no kernel may launch; the group is destroyed.  One card shows the
-      code path and its capture, not collectives across cards;
+      no kernel may launch; then AIBM on
+      ``examples/ex_aibm_poisson.py``'s 2000x1000 Poisson problem placed
+      by ``shard_regression_problem`` (30 iterations), as graphs against
+      ``eager_chunks`` bit for bit, its first 4 rows within rtol 1e-9 of
+      the unsharded run (the first row past it reported; only the
+      threefry split entry launches, a noise draw an iteration); the group is destroyed.  One card shows the code path
+      and its capture, not collectives across cards;
    n. ``diagnostics.profile_trace`` around a short solve (a trace under
       ``build/traces``) and ``debug_mode`` raising on a NaN start; then,
       with no kernel launch, ``examples/ex_Poisson_KL.py``'s ``poisson``
@@ -437,8 +452,12 @@ FG_TALLY_ITERS, FG_HOST_LOOP_S = 500, "60-94 s"
 # phases 4e and 4l: a checkpoint written at CKPT_ITERS and resumed to
 # 2 CKPT_ITERS
 CKPT_ITERS = 50
-# phase 4m: the sharded solves on a one-card mesh
-SH_GAIN_ITERS, SH_FW_ITERS = 100, 500
+# phase 4m: the sharded solves on a one-card mesh; AIBM on a sample-sharded
+# Poisson problem of examples/ex_aibm_poisson.py's 2000x1000 over
+# SH_AIBM_ITERS iterations
+SH_GAIN_ITERS, SH_FW_ITERS, SH_AIBM_ITERS = 100, 500, 30
+# ... its first SH_AIBM_HELD rows held to the unsharded run at 1e-9
+SH_AIBM_HELD = 4
 # phase 4n: examples/ex_Dopt_sweep.py's start_full and ex_Poisson_KL.py's
 # runs, cut for the time
 SWEEP_K, SWEEP_ITERS, EXAMPLE_ITERS = 1, 150, 1000
@@ -1886,37 +1905,62 @@ def dual_prox_stages(dp, G, y, kw, label, plan=None):
 # ---- the nuclear ball's top singular pair ---------------------------------
 
 # the kernel against its plain version at these shapes (600x60 takes the
-# streamed layout: A is 288 KB) and on a rank-1 and a zero matrix; the
+# ring layout: A and V are 317 KB) and on a rank-1 and a zero matrix; the
 # bar: the two sum the dot products in other orders
 SVD_SHAPES = ((6, 4), (4, 6), (200, 20), (20, 200), (600, 60))
 SVD_TOL = 1e-13
-# Gradients larger than the nuclear ball's SymNMF 200x20, in the streamed
-# layout, timed against torch.linalg.svd and the parent commit's LMO
-# (torch.linalg.svd, then the outer product of the top pair); held to the
-# plain version at SVD_TOL_LARGE: ten thousand rounds at 1000x1000 carry
-# each sum's last-bit differences further than 200x20's 150.
+# Gradients larger than the nuclear ball's SymNMF 200x20, in the ring
+# layout, timed against torch.linalg.svd, the streamed layout (the parent
+# commit's design) and the LMO of the commit before it (torch.linalg.svd,
+# then the outer product of the top pair); held to the plain version at
+# SVD_TOL_LARGE: ten thousand rounds at 1000x1000 carry each sum's
+# last-bit differences further than 200x20's 150.
 SVD_LARGE = ((1000, 200), (1000, 1000))
 SVD_TOL_LARGE = 1e-12
+# every shape [svd sizes] times (the path's 200x20 first)
+SVD_TIMED = ((200, 20), (600, 60)) + SVD_LARGE
 
 
-def svd_bound(m, n, sweeps):
+def svd_bound(m, n, sweeps, rotations):
     """Bound of one top-singular-pair solve of an m x n matrix that took
-    ``sweeps`` sweeps: g read once and s written once; each sweep's k (k -
-    1) / 2 pairs take ~6 p FP64 operations each for their three dot
-    products (p = max(m, n), k = min(m, n))."""
+    ``sweeps`` sweeps and ``rotations`` rotations (a timed launch's
+    count): g read once and s written once; each sweep's k (k - 1) / 2
+    pairs take 6 p FP64 operations for their three dot products, and each
+    rotation 6 (p + k) for two columns of A and of V (p = max(m, n), k =
+    min(m, n))."""
     p, k = max(m, n), min(m, n)
-    return bound(16 * m * n, sweeps * k * (k - 1) // 2 * 6 * p)
+    return bound(16 * m * n, sweeps * k * (k - 1) // 2 * 6 * p
+                 + rotations * 6 * (p + k))
+
+
+def svd_timed(svd, g, plan=None):
+    """One timed launch (``_launch_cuda(prof=...)``): ``(sweeps,
+    rotations, rounds, {stage: clocks a round})``."""
+    prof = torch.zeros(svd.PROF_LEN, dtype=torch.int64, device=g.device)
+    svd._launch_cuda(g, plan, prof)
+    got = prof.tolist()
+    stages, (rounds, sweeps, rotations) = got[:len(svd.STAGES)], got[-3:]
+    return sweeps, rotations, rounds, {
+        name: c / max(rounds, 1) for name, c in zip(svd.STAGES, stages)}
+
+
+def svd_plan_text(plan):
+    if plan.layout == "ring":
+        return (f"ring {plan.ctas} CTAs x {plan.pairs} pairs x "
+                f"{plan.pair_warps} warps, clusters of {plan.cluster}, "
+                f"{plan.smem_bytes} shared bytes a CTA")
+    return f"{plan.layout} {plan.ctas}x{plan.warps} warps"
 
 
 def compare_svd(dev):
     """Kernel ``csrc/top_singular.cu`` against its plain version
     (``ops/svd.py::top_singular_pair_reference`` on the card's tensors) at
     SVD_SHAPES, a rank-1 and a zero matrix, within SVD_TOL, and 200x20
-    through the streamed layout as well; the plan and sweeps of each (none
-    at the bound); ms by events at 200x20 (the nuclear ball's SymNMF
-    shape) and 600x60, beside the bound, the plain version's wall and
-    ``torch.linalg.svd``'s ms.  Returns ``(err, ms, plain_ms, bound_ms,
-    bound_by, library_ms)`` at 200x20."""
+    through the streamed layout and rings of one, two and five CTAs as
+    well; the plan and sweeps of each (none at the bound); the kernels'
+    registers and spills; then ``svd_large`` and ``svd_stages``.
+    Returns ``(err, ms, plain_ms, bound_ms, bound_by, library_ms)`` at
+    200x20, the nuclear ball's SymNMF shape."""
     from accbpg_and_fw_tpu_torch.ops import svd
 
     rng = np.random.default_rng(9)
@@ -1940,81 +1984,183 @@ def compare_svd(dev):
                                  f"{err:.3e}, {sweeps} sweeps")
         errs.append(err)
         most = max(most, sweeps)
-        lines.append(f"{label} {plan.layout} {plan.warps} warps "
-                     f"{sweeps} sweeps (plain {ref_sweeps}) within "
-                     f"{err:.1e}")
+        lines.append(f"{label} {svd_plan_text(plan)} {sweeps} sweeps (plain "
+                     f"{ref_sweeps}) within {err:.1e}")
     g = cases[2][1]  # 200x20
-    streamed = svd.svd_plan(200, 20, 0)
-    err = float((svd._launch_cuda(g, streamed)[0]
-                 - svd.top_singular_pair(g)).abs().max())
-    if not err <= SVD_TOL:
-        raise AssertionError(f"top singular pair 200x20 streamed: {err:.3e}")
-    lines.append(f"200x20 through the streamed layout within {err:.1e}")
-    timed = {}
-    for label, g in (cases[2], cases[4]):
-        m, n = g.shape
-        sweeps = int(svd._launch_cuda(g)[1])
-        ms = time_launches(lambda: svd.top_singular_pair(g), 20)
-        _, plain_ms = timed_plain(lambda: svd.top_singular_pair_reference(g))
-        lib_ms = time_launches(
-            lambda: torch.linalg.svd(g, full_matrices=False), 20)
-        b, by = svd_bound(m, n, sweeps)
-        timed[label] = (ms, plain_ms, b, by, lib_ms)
-        lines.append(f"{label} {ms:.4f} ms by events ({sweeps} sweeps, "
-                     f"bound {b:.6f} ms by {by}), plain {plain_ms:.2f} ms, "
-                     f"torch.linalg.svd {lib_ms:.4f} ms")
-    svd_large(svd, dev)
+    limit = svd.smem_limit(dev.index)
+    for label, plan in (("streamed", svd.svd_plan(200, 20, 0)),
+                        ("a ring of one CTA",
+                         svd.ring_plan(200, 20, 10, 1, 1, limit)),
+                        ("a ring of two CTAs",
+                         svd.ring_plan(200, 20, 5, 2, 1, limit)),
+                        ("a ring of five CTAs in clusters of two",
+                         svd.ring_plan(200, 20, 2, 2, 2, limit))):
+        err = float((svd._launch_cuda(g, plan)[0]
+                     - svd.top_singular_pair(g)).abs().max())
+        if not err <= SVD_TOL:
+            raise AssertionError(f"top singular pair 200x20 {label}: "
+                                 f"{err:.3e}")
+        lines.append(f"200x20 through {label} within {err:.1e}")
+    info = "; ".join(f"{name} {regs} registers, {spill} spill bytes"
+                     for name, (regs, _, spill)
+                     in svd.kernel_info(dev.index).items())
+    print(f"[svd] top singular pair against its plain version (bar "
+          f"{SVD_TOL:g}): " + "; ".join(lines) + f"; most sweeps {most} "
+          f"(bound {svd.MAX_SWEEPS}); kernels: {info}", flush=True)
+    timed = svd_large(svd, dev)
+    svd_stages(svd, dev)
+    svd_sweep(svd, dev)
     _, at_bound, _ = svd.device_stats()
     if at_bound:
         raise AssertionError(f"{at_bound} top-singular-pair solves reached "
                              "the sweep bound")
-    print(f"[svd] top singular pair against its plain version (bar "
-          f"{SVD_TOL:g}): " + "; ".join(lines) + f"; most sweeps {most} "
-          f"(bound {svd.MAX_SWEEPS})", flush=True)
-    ms, plain_ms, b, by, lib_ms = timed["200x20"]
-    return max(errs), ms, plain_ms, b, by, lib_ms
+    return (max(errs),) + timed
 
 
 def parent_lmo(g):
-    """The nuclear ball's LMO of the parent commit: cuSOLVER's SVD, then
-    the outer product of the top pair (refuses a capture)."""
+    """The nuclear ball's LMO of the commit before the kernel: cuSOLVER's
+    SVD, then the outer product of the top pair (refuses a capture)."""
     U, _, Vh = torch.linalg.svd(g, full_matrices=False)
     return torch.outer(U[:, 0], Vh[0])
 
 
 def svd_large(svd, dev):
-    """The kernel at SVD_LARGE (the streamed layout, a cooperative grid)
-    and 600x60: its plan, sweeps, error against the plain version, ms by
-    events beside the bound, torch.linalg.svd's ms and the parent's LMO's
-    ms, and the plain version's wall; printed before the bar is checked."""
+    """The kernel at SVD_TIMED, each in the layout its shape takes: its
+    plan, sweeps, error against the plain version, ms by events beside the
+    bound (the rotations from a timed launch), the streamed layout's ms
+    (the parent commit's design, in this call), torch.linalg.svd's and
+    the LMO before the kernel; the plain version's wall; printed before
+    the bar is checked.  Returns ``(ms, plain_ms, bound_ms, bound_by,
+    library_ms)`` at 200x20."""
     rng = np.random.default_rng(11)
-    lines, bad = [], []
-    for m, n in ((600, 60),) + SVD_LARGE:
+    lines, bad, out = [], [], None
+    for m, n in SVD_TIMED:
         g = torch.tensor(rng.standard_normal((m, n)), device=dev)
         plan = svd.device_plan(m, n, dev.index)
         s, sweeps = svd._launch_cuda(g)
         sweeps = int(sweeps)
+        _, rotations, _, _ = svd_timed(svd, g)
         ref, plain_ms = timed_plain(
             lambda: svd.top_singular_pair_reference(g))
         err = float((s - ref).abs().max())
         reps = 3 if m * n > 100000 else 20
+        streamed = svd.svd_plan(m, n, 0, plan.ctas if plan.ctas > 1
+                                else None)
         ms = time_launches(lambda: svd.top_singular_pair(g), reps)
+        st_ms = time_launches(lambda: svd._launch_cuda(g, streamed), reps)
         lib_ms = time_launches(
             lambda: torch.linalg.svd(g, full_matrices=False), reps)
         parent_ms = time_launches(lambda: parent_lmo(g), reps)
-        b, by = svd_bound(m, n, sweeps)
+        ms2 = time_launches(lambda: svd.top_singular_pair(g), reps)
+        b, by = svd_bound(m, n, sweeps, rotations)
         lines.append(
-            f"{m}x{n} {plan.layout} {plan.ctas}x{plan.warps} warps "
-            f"{sweeps} sweeps, within {err:.1e} of the plain version: "
-            f"{ms:.4f} ms by events (bound {b:.6f} ms by {by}), "
-            f"torch.linalg.svd {lib_ms:.4f} ms, the parent's LMO (svd and "
-            f"outer) {parent_ms:.4f} ms, plain {plain_ms:.2f} ms")
-        if not (err <= SVD_TOL_LARGE and sweeps < svd.MAX_SWEEPS):
+            f"{m}x{n} {svd_plan_text(plan)}: {sweeps} sweeps, {rotations} "
+            f"rotations, within {err:.1e} of the plain version: {ms:.4f} "
+            f"and {ms2:.4f} ms by events (bound {b:.6f} ms by {by}); the "
+            f"streamed layout ({streamed.ctas}x{streamed.warps} warps) "
+            f"{st_ms:.4f} ms; torch.linalg.svd {lib_ms:.4f} ms; the LMO "
+            f"before the kernel (svd and outer) {parent_ms:.4f} ms; plain "
+            f"{plain_ms:.2f} ms")
+        tol = SVD_TOL_LARGE if (m, n) in SVD_LARGE else SVD_TOL
+        if not (err <= tol and sweeps < svd.MAX_SWEEPS):
             bad.append(f"{m}x{n}: error {err:.3e}, {sweeps} sweeps")
+        if out is None:
+            out = (ms, plain_ms, b, by, lib_ms)
     print(f"[svd sizes] ({card_line()}) " + "; ".join(lines), flush=True)
     if bad:
-        raise AssertionError("top singular pair, large shapes (bar "
-                             f"{SVD_TOL_LARGE:g}): " + "; ".join(bad))
+        raise AssertionError("top singular pair against its plain version: "
+                             + "; ".join(bad))
+    return out
+
+
+def svd_stages(svd, dev):
+    """``[svd stages]``: thread 0 of CTA 0's clocks per stage of a round
+    in a timed launch of the ring layout and of the streamed one (a grid
+    barrier a round), at 600x60, 1000x200 and 1000x1000, with the rounds,
+    sweeps and rotations of each and the launch's ms (the timed instance's
+    own)."""
+    rng = np.random.default_rng(11)
+    lines = []
+    for m, n in ((600, 60),) + SVD_LARGE:
+        g = torch.tensor(rng.standard_normal((m, n)), device=dev)
+        ring = svd.device_plan(m, n, dev.index)
+        for plan in (ring, svd.svd_plan(m, n, 0, ring.ctas)):
+            svd_timed(svd, g, plan)  # warm
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            sweeps, rotations, rounds, per = svd_timed(svd, g, plan)
+            end.record()
+            torch.cuda.synchronize()
+            total = sum(per.values())
+            lines.append(
+                f"{m}x{n} {svd_plan_text(plan)}: {rounds} rounds, {sweeps} "
+                f"sweeps, {rotations} rotations, {total:.0f} clocks a "
+                f"round (" + ", ".join(f"{k} {v:.0f}" for k, v in
+                                       per.items())
+                + f"), {start.elapsed_time(end):.3f} ms timed")
+    print(f"[svd stages] ({card_line()}) " + "; ".join(lines), flush=True)
+
+
+# [svd sweep]: ring layouts (pairs a CTA, warps a pair, CTAs a cluster)
+# timed against the plan's, from which svd_plan's rule was chosen
+SVD_SWEEP = {(600, 60): ((2, 1, 16), (2, 2, 16), (2, 4, 16), (4, 1, 16),
+                         (1, 4, 1), (2, 4, 1), (4, 2, 1)),
+             (1000, 200): ((7, 1, 16), (7, 2, 16), (2, 2, 1), (2, 4, 1),
+                           (2, 4, 2), (4, 2, 1), (1, 8, 1)),
+             (1000, 1000): ((4, 1, 1), (4, 2, 1), (4, 4, 1), (4, 2, 2),
+                            (5, 2, 1))}
+
+
+def svd_sweep(svd, dev):
+    """``[svd sweep]``: each SVD_SWEEP layout's ms by events (3 launches
+    after one) beside the plan's; a cluster the card cannot hold at once
+    is said, not run."""
+    rng = np.random.default_rng(11)
+    limit = svd.smem_limit(dev.index)
+    lines = []
+    for (m, n), layouts in SVD_SWEEP.items():
+        g = torch.tensor(rng.standard_normal((m, n)), device=dev)
+        plan = svd.device_plan(m, n, dev.index)
+        parts = [f"plan {plan.pairs}x{plan.pair_warps}x{plan.cluster} "
+                 f"{time_launches(lambda: svd._launch_cuda(g), 3):.4f}"]
+        for pairs, warps, cluster in layouts:
+            ring = svd.ring_plan(m, n, pairs, warps, cluster, limit)
+            if cluster > 1 and (svd.active_clusters(ring, dev.index)
+                                * cluster < ring.ctas):
+                parts.append(f"{pairs}x{warps}x{cluster} not held")
+                continue
+            ms = time_launches(lambda: svd._launch_cuda(g, ring), 3)
+            parts.append(f"{pairs}x{warps}x{cluster} {ms:.4f}")
+        lines.append(f"{m}x{n} (pairs x warps x cluster, ms): "
+                     + ", ".join(parts))
+    print(f"[svd sweep] ({card_line()}) " + "; ".join(lines), flush=True)
+
+
+def svd_times(root):
+    """``--svd --root DIR`` and ``--blocks-only``: the top singular pair of
+    the checkout under DIR at SVD_TIMED through its ``top_singular_pair``
+    (the layouts its plan takes), ms by events, for a parent and a change
+    timed in turns in one call."""
+    sys.path.insert(0, root)
+    try:
+        from accbpg_and_fw_tpu_torch.ops import svd
+    except ImportError:  # a commit before the kernel
+        print(f"[blocks] {root}: no top singular pair kernel", flush=True)
+        return
+    if pathlib.Path(root) not in pathlib.Path(svd.__file__).resolve().parents:
+        raise RuntimeError(f"imported {svd.__file__}, not the package "
+                           f"under {root}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    parts = []
+    for m, n in SVD_TIMED:
+        g = torch.tensor(rng.standard_normal((m, n)), device=dev)
+        reps = 3 if m * n > 100000 else 20
+        ms = time_launches(lambda: svd.top_singular_pair(g), reps)
+        parts.append(f"{m}x{n} {svd.device_plan(m, n).layout} {ms:.4f} ms")
+    print(f"[blocks] {root}: top singular pair by events: "
+          + "; ".join(parts), flush=True)
 
 
 def first_prox_input(port, m, n):
@@ -3795,9 +3941,10 @@ def sharded_paths(port, counters):
         if refused != ["pallas", "pallas_lazy"]:
             raise AssertionError(f"kernel modes on a sharded design: only "
                                  f"{refused} refused")
+        launched = no_launches("phase 4m", counters)
+        aibm = sharded_aibm(port, driver, mesh, counters)
     finally:
         dist.destroy_process_group()
-    launched = no_launches("phase 4m", counters)
     print(f"[sharded] one card, a world-size-1 NCCL group and data_mesh() "
           f"on cuda (the code path of a sharded solve and its capture, not "
           f"collectives across cards): ABPG_gain fast_gram {GAIN_M}x{GAIN_N} "
@@ -3818,8 +3965,60 @@ def sharded_paths(port, counters):
           f"with eager_chunks {f_eager:.3f} s; the unsharded exact engine "
           f"{wf_pl:.3f} s; F max rel diff {ferr:.1e}; u_mode {refused} "
           f"refused", flush=True)
+    print(f"[sharded] {aibm}", flush=True)
     print(f"[sharded] phase 4m in {time.perf_counter() - t0:.1f} s; kernel "
-          f"launches: {launched}", flush=True)
+          f"launches before AIBM: {launched}", flush=True)
+
+
+def sharded_aibm(port, driver, mesh, counters):
+    """Phase 4m's AIBM: examples/ex_aibm_poisson.py's 2000x1000 Poisson
+    problem (seed 1) placed by ``shard_regression_problem`` (samples
+    sharded, x replicated) under AIBM with the default simplex prox, as
+    graph chunks against ``eager_chunks`` bit for bit (``sharded_run``)
+    and its first SH_AIBM_HELD rows against the same solve unsharded on
+    the card at rtol 1e-9: the k=0 set-up and the steps reduce the
+    partial gradient before the prox.
+    Only the threefry split entry may launch (one noise draw an
+    iteration).  Returns the ``[sharded]`` text."""
+    from accbpg_and_fw_tpu_torch.parallel import shard_regression_problem
+
+    np.random.seed(1)
+    f, _, L, x0 = port.Poisson_regr_simplex_acc(EXP_M, EXP_N, noise=0.001,
+                                                device="cuda")
+    f_sh, x_sh = shard_regression_problem(f, x0, mesh)
+    h = port.BurgEntropySimplex(eps=1e-7)
+
+    def run(f_, x_):
+        return port.AIBM(f_, h, L, x_, gamma=EXP_GAMMA,
+                         maxitrs=SH_AIBM_ITERS, epsilon=1e-12, verbose=False)
+
+    reset_counts(counters)
+    (res, _, caps, spans, cold, warm, eager,
+     clock) = sharded_run(driver, lambda: run(f_sh, x_sh))
+    launched = {k: v for k, v in read_counts(counters).items() if v}
+    if set(launched) - {"_rng.SPLIT_LAUNCHES"}:
+        raise AssertionError(f"sharded AIBM launched {launched}")
+    plain = run(f, x0)
+    F, F_pl = np.asarray(res[1]), np.asarray(plain[1])
+    if not np.all(np.isfinite(F)):  # (its first rows need not fall)
+        raise AssertionError(f"sharded AIBM: F {F[0]} -> {F[-1]}")
+    # the first rows against the unsharded run at 1e-9; later a line
+    # search's decision may flip on last-bit differences of other
+    # kernels' sums, and the accelerated run parts from there
+    np.testing.assert_allclose(F[:SH_AIBM_HELD], F_pl[:SH_AIBM_HELD],
+                               rtol=1e-9)
+    n = min(len(F), len(F_pl))
+    off = np.abs(F[:n] - F_pl[:n]) > 1e-9 * np.abs(F_pl[:n])
+    past = int(np.argmax(off)) if off.any() else "none"
+    return (f"AIBM Poisson {EXP_M}x{EXP_N} on shard_regression_problem, "
+            f"{SH_AIBM_ITERS} iterations as graphs ({caps} captures) "
+            f"{cold:.3f} s cold, {warm:.3f} s warm ({spans[0]} replays, "
+            f"{spans[1]} continuations; {clock.split(warm)}), rows and x "
+            f"bit for bit with eager_chunks {eager:.3f} s; F {F[0]:.6e}"
+            f" -> {F[-1]:.6e}; the unsharded graph's first {SH_AIBM_HELD} "
+            f"rows within 1e-9, the first row past it {past}; x "
+            f"{res[0].placements}; launches "
+            f"{launched}")
 
 
 class _JnpOnCard:
@@ -3998,6 +4197,7 @@ def block_times(root, solves, gain_iters):
     print(f"[blocks] {root}: dual prox 400x10 ({steps:.0f} steps): "
           + ", ".join(f"{t:.3f} ms ({1e3 * t / steps:.3f} us a step)"
                       for t in prox_ms), flush=True)
+    svd_times(root)
     from accbpg_and_fw_tpu_torch import _rng
     from accbpg_and_fw_tpu_torch.algorithms import driver
 
@@ -4499,8 +4699,8 @@ def main():
     ap.add_argument("--blocks-only", action="store_true",
                     help="print only the block times of the lazy-H and "
                          "dense kernels, the multiplier's time per call, "
-                         "the study's dual prox and the main-path walls of "
-                         "the package under --root")
+                         "the study's dual prox, the top singular pair and "
+                         "the main-path walls of the package under --root")
     ap.add_argument("--root", default=str(pathlib.Path(__file__).parent),
                     help="checkout whose package --blocks-only times")
     ap.add_argument("--solves", type=int, default=3)
@@ -4515,7 +4715,9 @@ def main():
                          "alone ([threefry], the sweep, the walls)")
     ap.add_argument("--svd", action="store_true",
                     help="build the top singular pair's kernel and run its "
-                         "phase alone ([svd], [svd sizes])")
+                         "phase alone ([svd], [svd sizes], [svd stages]); "
+                         "with --root of another checkout, time only that "
+                         "checkout's top singular pair")
     ap.add_argument("--micro", action="store_true",
                     help="build and run csrc/micro_cluster.cu")
     ap.add_argument("--bodies", action="store_true",
@@ -4548,7 +4750,11 @@ def main():
         return 0
     if args.svd:
         print(f"[card] {card_line()}", flush=True)
-        compare_svd(torch.device("cuda"))
+        root = pathlib.Path(args.root).resolve()
+        if root != pathlib.Path(__file__).resolve().parent:
+            svd_times(str(root))  # another checkout: its times alone
+        else:
+            compare_svd(torch.device("cuda"))
         return 0
     if args.bodies:
         return bodies_study()

@@ -36,12 +36,25 @@ from accbpg_and_fw_tpu.parallel import (data_mesh, shard_dopt_design,
 from test_torch_lazy import keep_jax_exec_cache  # noqa: F401 (autouse)
 
 _WORKER = os.path.join(os.path.dirname(__file__), "torch_mesh_worker.py")
+EXTRAS_ITERS, PD_ITERS = 10, 12  # as in the worker
 
 
 def _free_port():
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def _extras_problem():
+    """The extras' Poisson problem: 64 samples of 20 features from
+    ``default_rng(1)``, x0 = 0.05, and the primal-dual method's scalar
+    constraint x @ a - b with b half of x0's value."""
+    rng = np.random.default_rng(1)
+    A = rng.uniform(0.0, 1.0, (64, 20))
+    b = A @ rng.uniform(0.0, 1.0, 20)
+    x0 = np.full(20, 0.05)
+    a = rng.uniform(0.0, 1.0, 20)
+    return A, b, x0, a, np.asarray(0.5 * float(x0 @ a))
 
 
 def _symnmf_matrix():
@@ -125,6 +138,8 @@ def spawn(problems, tmp_path_factory):
     data.update(poi_A=f.A, poi_b=f.b, poi_x0=x0, poi_L=L)
     f, (h, _), L, X0 = problems["nmf"]
     data.update(nmf_M=f.M, nmf_X0=X0, nmf_sigma=h.sigma)
+    A, b, x0, a, c = _extras_problem()
+    data.update(ext_A=A, ext_b=b, ext_x0=x0, pdc_A=a, pdc_b=c)
     path = str(tmp_path_factory.mktemp("mesh") / "data.npz")
     np.savez(path, **{k: np.asarray(v, np.float64) for k, v in data.items()})
     sp = _Spawn(path)
@@ -239,6 +254,42 @@ def refs(problems, jmesh):
                 verbose=False),
         port.BPG(fp, hp, L, torch.tensor(np.asarray(X0)), 50,
                  linesearch=False, verbose=False))
+    out.update(_extras_refs(jmesh))
+    return out
+
+
+def _extras_refs(jmesh):
+    """JAX's sharded runs and the port's unsharded runs of the worker's
+    extras cases (``extras_cases``)."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    A, b, x0, a, c = _extras_problem()
+    fj, xj = shard_regression_problem(
+        acc.PoissonRegression(A=jnp.asarray(A), b=jnp.asarray(b)),
+        jnp.asarray(x0), jmesh)
+    fp = port.PoissonRegression(A, b, device="cpu")
+    xp = torch.tensor(x0)
+    hj, hp = acc.BurgEntropySimplex(), port.BurgEntropySimplex()
+    out = {}
+    for name, run in {
+            "aibm": lambda pkg, f, h, x: pkg.AIBM(
+                f, h, 1.0, x, gamma=2.0, maxitrs=EXTRAS_ITERS,
+                verbose=False),
+            "adaptfgm": lambda pkg, f, h, x: pkg.AdaptFGM(
+                f, h, 1.0, x, maxitrs=EXTRAS_ITERS, verbose=False),
+            "universalgm": lambda pkg, f, h, x: pkg.UniversalGM(
+                f, h, 1.0, x, maxitrs=EXTRAS_ITERS, verbose=False)}.items():
+        out[name] = (run(acc, fj, hj, xj), run(port, fp, hp, xp))
+    rep = NamedSharding(jmesh, PartitionSpec())
+    gj = acc.AX_b(A=jax.device_put(jnp.asarray(a), rep),
+                  b=jax.device_put(jnp.asarray(c), rep))
+    out["pd_poisson"] = (
+        acc.PrimalDualSwitchingGradientMethod(
+            fj, acc.BurgEntropy(), 1.0, gj, xj, PD_ITERS, epsilon=1e-9,
+            verbose=False),
+        port.PrimalDualSwitchingGradientMethod(
+            fp, port.BurgEntropy(), 1.0, port.AX_b(a, c, device="cpu"), xp,
+            PD_ITERS, epsilon=1e-9, verbose=False))
     return out
 
 
@@ -257,6 +308,39 @@ def test_sharded_matches_jax_and_unsharded(refs, spawn, name, n, rtol, atol,
     divergence step on logistic regression, BPG on Poisson regression and
     on SymNMF."""
     _check(spawn.get()[name], *refs[name], n, rtol, atol, hists)
+
+
+@pytest.mark.parametrize("name", ["aibm", "adaptfgm", "universalgm"])
+@pytest.mark.parametrize("graph", [False, True])
+def test_sharded_extras_match_jax_and_unsharded(refs, spawn, name, graph):
+    """AIBM, AdaptFGM and UniversalGM on a sample-sharded Poisson problem,
+    eagerly and through the graph chunk's code (its rows bit for bit with
+    the eager run's), against JAX's sharded run and the port's unsharded
+    one at ``tests/test_parallel.py``'s bar.  The set-up before the loop
+    (AIBM's k=0 line search, the FGM's k=0 row) runs under the steps'
+    rule, and the gradient, a partial sum over the samples, is reduced
+    before the simplex prox takes it."""
+    got = spawn.get()[name + ("_graph" if graph else "")]
+    assert got["sharded"] and got["placements"] == "(Replicate(),)"
+    if graph:
+        assert got["eager_equal"]
+    assert len(got["h1"]) == EXTRAS_ITERS
+    _check(got, *refs[name], 20, rtol=1e-9, atol=1e-10, hists=("h1", "h2"))
+
+
+def test_sharded_primal_dual_matches_jax_and_unsharded(refs, spawn):
+    """The primal-dual method on the sample-sharded Poisson problem with a
+    replicated scalar constraint: F, the gaps and the step sizes against
+    JAX's sharded run and the port's unsharded one, and the graph chunk's
+    rows bit for bit with the eager run's."""
+    got = spawn.get()["pd_poisson"]
+    assert got["eager_equal"]
+    ref_j, ref_p = refs["pd_poisson"]
+    assert 0 < len(got["h0"]) < len(got["h1"]) == PD_ITERS
+    for i in range(3):
+        for ref in (ref_j, ref_p):
+            np.testing.assert_allclose(got[f"h{i}"], np.asarray(ref[i]),
+                                       rtol=1e-9, atol=0)
 
 
 def test_bpg_fast_gram_non_divisible_n(refs, spawn):

@@ -140,12 +140,49 @@ def test_rounds_cover_every_pair_once(k):
                             for j in range(i + 1, k)]
 
 
+@pytest.mark.parametrize("pairs", [1, 2, 4, 7])
+@pytest.mark.parametrize("k", [1, 2, 5, 8, 20, 21, 200, 1000])
+def test_ring_exchange_reproduces_rounds(k, pairs):
+    """The ring layout's exchange (``ring_rounds``): the pairs placed on
+    CTAs of ``pairs`` pairs, each CTA's columns in the buffers of its
+    arcs, shifted by a slot map, and at the start of each round the
+    column that left an arc in the round before sent to the neighbouring
+    CTA.  It gives ``rounds(k)`` round for round over two sweeps (across
+    the sweep's wrap; one at k = 1000); no send lands in a buffer that a
+    neighbour a round behind may still use; every cycle position is held
+    by exactly one CTA."""
+    sweeps = 2 if k < 1000 else 1  # the wrap, where it stays cheap
+    assert svd.ring_rounds(k, pairs, sweeps) == svd.rounds(k) * sweeps
+    kk = k + k % 2
+    Q, L = kk // 2, kk - 1
+    C = -(-Q // pairs)
+    held = []
+    for c in range(C):
+        q0, q1, arcs, fixed = svd.ring_layout(c, C, Q, pairs)
+        assert q1 - q0 >= 1
+        used = [b for _, _, nb, base, _, _ in arcs
+                for b in range(base, base + nb)]
+        used += [] if fixed is None else [fixed]
+        assert sorted(used) == list(range(len(used)))
+        assert len(used) <= svd.ring_buffers(Q, pairs, C)
+        for t0, n, nb, _, cin, cout in arcs:
+            held += [(t0 + u) % L for u in range(n)]
+            assert (cin, cout) == (-1, -1) if C == 1 else (
+                0 <= cin < C and 0 <= cout < C and abs(cin - c) == 1
+                and abs(cout - c) == 1 and nb == n + 2)
+    assert sorted(held) == list(range(L))
+
+
 def test_svd_plan_layouts():
-    """A, V and the norms in one CTA's shared memory where they fit
-    (SymNMF's 200x20: 35,360 bytes), a warp a pair, at most 32; else
+    """Three layouts by shape.  Resident where A, V and the norms fit in
+    one CTA's shared memory (SymNMF's 200x20: 35,360 bytes), a warp a
+    pair, at most 32.  Ring where the card's CTAs hold A and V (each
+    CTA's ``ring_buffers`` columns within its shared memory): in one
+    cluster of up to 16 where its CTAs hold them, else spread over the
+    card, a CTA a multiprocessor, mailboxes between all CTAs.  Else
     streamed, over CTAs of 4 warps, one warp a pair, at most one CTA a
-    multiprocessor, with a partial sum a CTA and two flags beside them; A
-    is g^T where m < n."""
+    multiprocessor, with a partial sum a CTA and two flags beside A, V
+    and the norms.  A is g^T where m < n."""
     limit = 232448 - 1024  # an H100's opt-in shared bytes, less statics
     p = svd.svd_plan(200, 20, limit)
     assert (p.p, p.k, p.transposed, p.layout, p.warps, p.ctas) == \
@@ -153,21 +190,54 @@ def test_svd_plan_layouts():
     assert p.work_bytes == 8 * (200 * 20 + 20 * 20 + 20) == 35360
     q = svd.svd_plan(20, 200, limit)
     assert (q.p, q.k, q.transposed, q.layout) == (200, 20, True, "resident")
+    # 600x60: A and V are 317 KB, past one CTA; 30 pairs, 2 a CTA in one
+    # cluster of 16 (15 CTAs hold pairs), 2 warps a pair
     big = svd.svd_plan(600, 60, limit)
-    assert (big.layout, big.warps, big.ctas) == ("streamed", 4, 8)
-    assert big.work_bytes == 8 * (600 * 60 + 60 * 60 + 60 + 8 + 2)
+    assert (big.layout, big.pairs, big.pair_warps, big.warps, big.ctas,
+            big.cluster) == ("ring", 2, 2, 4, 16, 16)
+    cs = svd.colstride(600, 60)
+    assert cs == 660 and big.smem_bytes == 8 * cs * (2 * 2 + 4)
+    # mailboxes (a column and a flag for 2 sides x 2 parities a ring
+    # CTA), a partial sum and a best norm a CTA, a pad to 16 bytes, the
+    # top column
+    head = 15 * 4 * (cs + 1) + 3 * 16
+    assert big.work_bytes == svd.ring_work_bytes(600, 60, 15, 16) == 8 * (
+        head + cs) == 322944
+    # 1000x200: 100 pairs, 7 a CTA in one cluster, a warp a pair
+    ring = svd.svd_plan(1000, 200, limit, sms=132)
+    assert (ring.layout, ring.pairs, ring.pair_warps, ring.ctas,
+            ring.cluster) == ("ring", 7, 1, 16, 16)
+    # 1000x1000: 500 pairs; 32 a CTA would not fit one cluster's CTAs:
+    # spread over the card's 132 SMs, 4 a CTA, 125 CTAs, 2 warps a pair
     square = svd.svd_plan(1000, 1000, limit, sms=132)
-    assert (square.warps, square.ctas) == (4, 125)
+    assert (square.layout, square.pairs, square.pair_warps, square.warps,
+            square.ctas, square.cluster) == ("ring", 4, 2, 8, 125, 1)
+    assert square.smem_bytes == 8 * 2000 * (2 * 4 + 4) == 192000
+    # past the card's shared memory: streamed
     assert svd.svd_plan(1000, 2000, limit, sms=100).ctas == 100
+    assert svd.svd_plan(1000, 2000, limit, sms=100).layout == "streamed"
     assert svd.svd_plan(1, 5, limit).warps == 1
     assert svd.svd_plan(3, 100000, limit)[5:7] == ("streamed", 2)
     assert svd.svd_plan(200, 20, 0).ctas == 3  # 10 pairs over 4 warps
-    # the bound between the layouts
+    # the bound between the resident layout and the ring
     k = 20
     fits = (limit - 1024) // 8 - k * k - k
     p_max = fits // k
     assert svd.svd_plan(p_max, k, limit).layout == "resident"
-    assert svd.svd_plan(p_max + 1, k, limit).layout == "streamed"
+    assert svd.svd_plan(p_max + 1, k, limit).layout == "ring"
+    # the bound between the ring and the streamed layout (no SM cap: a
+    # pair a CTA spread, 1 x 2 + 4 buffers of 2 (p + k) doubles, even)
+    k = 60
+    p_ring = (limit - 1024) // (8 * 6) - k
+    p_ring -= (p_ring + k) % 2
+    assert svd.svd_plan(p_ring, k, limit).layout == "ring"
+    assert svd.svd_plan(p_ring + 2, k, limit).layout == "streamed"
+    # a CTA at most 16 warps, a cluster at most 16 CTAs
+    for pairs, warps, cluster in ((4, 8, 1), (2, 1, 32)):
+        with pytest.raises(ValueError):
+            svd.ring_plan(600, 60, pairs, warps, cluster)
+    with pytest.raises(ValueError, match="shared bytes"):
+        svd.ring_plan(1000, 1000, 6, 2, 1, limit)
     with pytest.raises(ValueError):
         svd.svd_plan(0, 3, limit)
 
@@ -202,42 +272,63 @@ def _card():
 @pytest.mark.parametrize("name", ["6x4", "4x6", "1x5", "5x1", "200x20",
                                   "20x200", "rank1", "rank1_equal_columns",
                                   "rank1_graded", "zero_4x3", "600x60",
-                                  "60x600"])
+                                  "60x600", "1000x200"])
 def test_kernel_matches_plain_version_on_card(name):
-    """Each shape in its own layout (600x60 and 60x600 streamed, over a
-    grid), and the resident ones also through the streamed layout."""
+    """Each shape in its own layout (600x60, 60x600 and 1000x200 in the
+    ring, 1e-12 at 1000x200 as chip_smoke.py's SVD_TOL_LARGE), and the
+    resident ones also through the streamed layout and through rings of
+    one, two and several CTAs (two pairs a CTA, alone and in clusters of
+    two)."""
     dev = _card()
     g = (torch.tensor(np.random.default_rng(3).standard_normal(
         tuple(map(int, name.split("x")))), device=dev)
-        if name in ("600x60", "60x600") else torch.tensor(_case(name),
-                                                         device=dev))
+        if name in ("600x60", "60x600", "1000x200")
+        else torch.tensor(_case(name), device=dev))
+    tol = 1e-12 if name == "1000x200" else 1e-13
     s, sweeps = svd._launch_cuda(g)
     ref = svd.top_singular_pair_reference(g)
-    torch.testing.assert_close(s, ref, rtol=0, atol=1e-13)
+    torch.testing.assert_close(s, ref, rtol=0, atol=tol)
     assert 1 <= int(sweeps) < svd.MAX_SWEEPS
     plan = svd.device_plan(*g.shape, dev.index)
+    if name in ("600x60", "60x600", "1000x200"):
+        assert plan.layout == "ring"
     if plan.layout == "resident":
         streamed = svd.svd_plan(*g.shape, 0)
         assert streamed.layout == "streamed"
         torch.testing.assert_close(svd._launch_cuda(g, streamed)[0], s,
                                    rtol=0, atol=1e-13)
+        k = min(g.shape)
+        Q = (k + 1) // 2
+        for pairs, cluster in ((Q, 1), (-(-Q // 2), 1), (2, 1), (2, 2)):
+            ring = svd.ring_plan(*g.shape, pairs, 1, cluster,
+                                 svd.smem_limit(dev.index))
+            torch.testing.assert_close(svd._launch_cuda(g, ring)[0], s,
+                                       rtol=0, atol=1e-13)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(200, 20), (600, 60)])
+@pytest.mark.parametrize("shape", [(200, 20), (600, 60), (1000, 200)])
 def test_one_launch_per_lmo_call_in_a_graph(shape):
-    """A captured LMO call is one kernel node in either layout (600x60 is
-    streamed: a cooperative launch): each replay adds one launch on the
-    card and none on the host."""
+    """A captured LMO call is one kernel node in either layout (600x60 and
+    1000x200 are rings: a cooperative launch): each replay adds one launch
+    on the card and none on the host, and gives the eager call's bits."""
+    import ctypes
+
     dev = _card()
     nuc = port.lmo_nuclear_norm_ball()
     g = torch.tensor(np.random.default_rng(4).standard_normal(shape),
                      device=dev)
-    nuc(g)  # built and loaded outside the capture
+    eager = nuc(g)  # built and loaded outside the capture
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         out = nuc(g)
+    nodes = ctypes.c_size_t(0)
+    assert ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None,
+        ctypes.byref(nodes)) == 0
+    assert nodes.value == 1
+    graph.instantiate()
     svd.reset_device_stats()
     host = svd.LAUNCHES
     for _ in range(5):
@@ -245,8 +336,10 @@ def test_one_launch_per_lmo_call_in_a_graph(shape):
     torch.cuda.synchronize()
     launches, at_bound, _ = svd.device_stats()
     assert (launches, at_bound, svd.LAUNCHES) == (5, 0, host)
+    assert torch.equal(out, eager)
     torch.testing.assert_close(out, svd.top_singular_pair_reference(g),
-                               rtol=0, atol=1e-13)
+                               rtol=0, atol=1e-12 if shape[0] > 600
+                               else 1e-13)
 
 
 @pytest.mark.cuda

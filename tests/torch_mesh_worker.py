@@ -21,6 +21,9 @@ import sys
 # iterations of the sharded ABPG_gain through the graph chunk's code, and
 # the iterations of its graph spans there
 GRAPH_ITERS, GRAPH_SPAN = 10, 5
+# iterations of the sharded extras (eager and through the graph chunk's
+# code) and of the primal-dual method
+EXTRAS_ITERS, PD_ITERS = 10, 12
 
 
 def main():
@@ -140,6 +143,8 @@ def main():
 
     graph_cases(out, z, mesh, record, port, h_simplex, shard_dopt_problem,
                 shard_dopt_design)
+    extras_cases(out, z, mesh, record, port, h_simplex,
+                 shard_regression_problem)
 
     torch.distributed.destroy_process_group()
     if rank == 0:
@@ -161,7 +166,7 @@ def graph_cases(out, z, mesh, record, port, h_simplex, shard_dopt_problem,
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.tensor import DTensor, Replicate
 
-    from accbpg_and_fw_tpu_torch.algorithms import bpg, driver
+    from accbpg_and_fw_tpu_torch.algorithms import driver
 
     def rows_equal(got, name, hists):
         """The histories of ``got`` against the first rows of the eager run
@@ -170,17 +175,6 @@ def graph_cases(out, z, mesh, record, port, h_simplex, shard_dopt_problem,
                                   np.asarray(out[name][f"h{i}"])[
                                       :len(got[i])], equal_nan=True)
                    for i in hists)
-
-    def as_graph(run):
-        # a span runs whole, masked past the run's end: spans of
-        # GRAPH_SPAN iterations keep the masked steps few
-        mode, span = driver.chunk_mode, bpg.GRAPH_SPAN
-        driver.chunk_mode = lambda carry, problem=None, cfg=None: "graph"
-        bpg.GRAPH_SPAN = GRAPH_SPAN
-        try:
-            return run()
-        finally:
-            driver.chunk_mode, bpg.GRAPH_SPAN = mode, span
 
     f = port.DOptimalObj(z["dopt16_H"], device="cpu")
     f_sh, x_sh = shard_dopt_problem(f, z["dopt16_x0"], mesh)
@@ -244,6 +238,75 @@ def graph_cases(out, z, mesh, record, port, h_simplex, shard_dopt_problem,
         rows_equal(graph, "fw51", (1, 2, 3))
         and len(graph[1]) == len(out["fw51"]["h1"])
         and out["fw51_graph"]["x"] == out["fw51"]["x"])
+
+
+def as_graph(run):
+    """``run()`` with every carry sent through the graph chunk's code
+    (``_GraphChunk``, which on the CPU runs ``_masked_steps`` without a
+    capture) and spans of GRAPH_SPAN iterations: a span runs whole,
+    masked past the run's end, so short spans keep the masked steps few."""
+    from accbpg_and_fw_tpu_torch.algorithms import bpg, driver, extras
+
+    saved = (driver.chunk_mode, bpg.GRAPH_SPAN, extras.GRAPH_SPAN,
+             extras.PD_GRAPH_SPAN)
+    driver.chunk_mode = lambda carry, problem=None, cfg=None: "graph"
+    bpg.GRAPH_SPAN = extras.GRAPH_SPAN = extras.PD_GRAPH_SPAN = GRAPH_SPAN
+    try:
+        return run()
+    finally:
+        (driver.chunk_mode, bpg.GRAPH_SPAN, extras.GRAPH_SPAN,
+         extras.PD_GRAPH_SPAN) = saved
+
+
+def extras_cases(out, z, mesh, record, port, h_simplex,
+                 shard_regression_problem):
+    """AIBM, AdaptFGM and UniversalGM on a sample-sharded Poisson problem
+    (``ext_*``), eagerly and through the graph chunk's code, and the
+    primal-dual method on it with a replicated linear constraint (``pdc_*``,
+    a scalar ``x @ a - b``); each graph run's rows against its eager run's,
+    bit for bit."""
+    import copy
+
+    import numpy as np
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+
+    f = port.PoissonRegression(z["ext_A"], z["ext_b"], device="cpu")
+    f_sh, x_sh = shard_regression_problem(f, z["ext_x0"], mesh)
+    runs = {
+        "aibm": lambda: port.AIBM(f_sh, h_simplex, 1.0, x_sh, 2.0,
+                                  EXTRAS_ITERS, verbose=False),
+        "adaptfgm": lambda: port.AdaptFGM(f_sh, h_simplex, 1.0, x_sh,
+                                          EXTRAS_ITERS, verbose=False),
+        "universalgm": lambda: port.UniversalGM(f_sh, h_simplex, 1.0, x_sh,
+                                                EXTRAS_ITERS, verbose=False)}
+    for name, run in runs.items():
+        record(name, run(), (1, 2))
+        driver.clear_graph_cache()
+        graph = as_graph(run)
+        record(name + "_graph", graph, (1, 2))
+        out[name + "_graph"]["eager_equal"] = all(
+            np.array_equal(out[name + "_graph"][k], out[name][k])
+            for k in ("x", "h1", "h2"))
+
+    g = port.AX_b(z["pdc_A"], z["pdc_b"], device="cpu")
+    g_rep = copy.copy(g)
+    g_rep.A = distribute_tensor(g.A, mesh, [Replicate()])
+    g_rep.b = distribute_tensor(g.b, mesh, [Replicate()])
+
+    def pd():
+        return port.PrimalDualSwitchingGradientMethod(
+            f_sh, port.BurgEntropy(), 1.0, g_rep, x_sh, PD_ITERS,
+            epsilon=1e-9, verbose=False)
+
+    eager = pd()
+    driver.clear_graph_cache()
+    graph = as_graph(pd)
+    out["pd_poisson"] = {f"h{i}": np.asarray(eager[i]).tolist()
+                         for i in range(3)}
+    out["pd_poisson"]["eager_equal"] = all(
+        np.array_equal(a, b, equal_nan=True) for a, b in zip(graph, eager))
 
 
 if __name__ == "__main__":
