@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from .._device import as_f64, is_dtensor, replicate_like, resolve_device
+from ..diagnostics import span
 from ..ops.dopt_common import ROW, XTOL
 from ..ops.dopt_common import factorize as _dopt_factorize
 from ..ops.dopt_dense import dense_layout, dopt_fw_dense
@@ -255,10 +256,12 @@ def _run_dopt(V, x0, eps, maxitrs, verbose, verbskip, chunk, away,
     if engine != "exact":
         block_engine = {"pallas_lazy": dopt_fw_lazy,
                         "pallas": dopt_fw_dense}[engine]
-        return block_engine(V, x0, eps, maxitrs, away=away, verbose=verbose,
-                            verbskip=verbskip, chunk=chunk,
-                            refresh_every=refresh_every,
-                            checkpoint=checkpoint, device=dev)
+        with span("dopt.solve", engine=engine, m=V.shape[0], n=V.shape[1],
+                  K=1):
+            return block_engine(V, x0, eps, maxitrs, away=away,
+                                verbose=verbose, verbskip=verbskip,
+                                chunk=chunk, refresh_every=refresh_every,
+                                checkpoint=checkpoint, device=dev)
     x0 = as_f64(x0, dev)
     H, w, logdet = _dopt_factorize(V, x0)
     carry = dict(done=replicate_like(torch.tensor(False, device=dev), V),

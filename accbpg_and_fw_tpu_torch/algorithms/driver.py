@@ -78,7 +78,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
-from .. import _loops, _rng, _scalar
+from .. import _loops, _rng, _scalar, diagnostics
 from .._device import full, is_dtensor, replicated
 
 _CKPT_VERSION = 3
@@ -161,11 +161,11 @@ _GRAPHS: OrderedDict = OrderedDict()
 _GRAPH_CACHE_CAP = 16
 
 # Process-wide counts of the graph chunks: captures, replays (one per graph
-# launch, so a chunk of several spans counts each), the host seconds the
-# captures took (set-up, like a compile), and continuations: iterations
-# whose bounded loops overflowed in a replay and ran again eagerly.
-GRAPH_STATS = {"captures": 0, "replays": 0, "capture_s": 0.0,
-               "continuations": 0}
+# launch, so a chunk of several spans counts each), and continuations:
+# iterations whose bounded loops overflowed in a replay and ran again
+# eagerly.  Their host time is in the spans ``graph.capture``,
+# ``graph.replay``, ``graph.read`` and ``graph.continuation``.
+GRAPH_STATS = {"captures": 0, "replays": 0, "continuations": 0}
 
 _EAGER = [False]
 
@@ -434,6 +434,25 @@ def _sharded_scope(carry):
     return contextlib.nullcontext()
 
 
+def _node_count(graph):
+    """The nodes of a kept CUDA graph (the driver API's ``cuGraphGetNodes``
+    on ``raw_cuda_graph()``), or None where the driver does not answer."""
+    import ctypes
+
+    try:
+        get = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+        get.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.POINTER(ctypes.c_size_t)]
+        get.restype = ctypes.c_int
+        n = ctypes.c_size_t(0)
+        if get(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+               ctypes.byref(n)):
+            return None
+    except (OSError, AttributeError, RuntimeError):
+        return None
+    return n.value
+
+
 class _GraphChunk:
     """A chunk of ``chunk`` iterations as replays of a CUDA graph of
     ``span`` iterations, with its static buffers: the carry and the
@@ -442,8 +461,10 @@ class _GraphChunk:
     replay and those of the chunk.  A DTensor's static buffer is its local
     shard, and the captured step sees a DTensor of the same placements
     around it; the collectives of a sharded step are captured with it.
+    ``nodes`` is the captured graph's node count, set at the capture.
     On the CPU (where the tests run the same
-    code) nothing is captured: a replay runs ``_masked_steps``."""
+    code) nothing is captured: a replay runs ``_masked_steps``, and
+    ``nodes`` is None."""
 
     def __init__(self, step, cfg, chunk, problem, leaves, carry, keep,
                  cached, span=None):
@@ -465,11 +486,18 @@ class _GraphChunk:
         self.run = (functools.partial(step, cfg, self.problem) if cached
                     else step)
         self.graph, self.capture_s, self.pool_bytes = None, 0.0, 0
+        self.nodes = None
         if dev.type != "cuda":
             _, _, self.names, self.dtypes = _masked_steps(
                 self.run, self.carry, self.k0, self.limit, 1, self.halted)
             self.rows = self._rows(chunk, dev)
             return
+        with diagnostics.span("graph.capture"):
+            self._capture(chunk, dev)
+        GRAPH_STATS["captures"] += 1
+
+    def _capture(self, chunk, dev):
+        """Capture the graph of a span, and count its nodes."""
         t = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -494,6 +522,7 @@ class _GraphChunk:
         self.graph.instantiate()
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t
+        self.nodes = _node_count(self.graph)
         self.rows = self._rows(chunk, dev)
         static = self.leaves + list(self.bufs.values())
         # card memory the entry holds: its pool and its static buffers
@@ -502,8 +531,6 @@ class _GraphChunk:
                                  for a in static + [self.hist]
                                  + ([self.rows] if self.rows is not None
                                     else [])))
-        GRAPH_STATS["captures"] += 1
-        GRAPH_STATS["capture_s"] += self.capture_s
 
     def _rows(self, chunk, dev):
         """The chunk's packed histories, where it takes several spans (its
@@ -556,16 +583,21 @@ class _GraphChunk:
         spans = -(-(limit - k0) // self.span)
         for j in range(spans):
             self.k0.fill_(k0 + j * self.span)
-            self._launch()
+            with diagnostics.span("graph.replay"):
+                self._launch()
             if spans > 1:
                 self.rows[:, j * self.span:(j + 1) * self.span].copy_(
                     self.hist)
-            if j + 1 < spans and bool(self.halted):
-                spans = j + 1
-                break
+            if j + 1 < spans:
+                with diagnostics.span("graph.read"):
+                    halted = bool(self.halted)
+                if halted:
+                    spans = j + 1
+                    break
         GRAPH_STATS["replays"] += spans
-        packed = (self.hist if spans == 1 else
-                  self.rows[:, :spans * self.span]).cpu().numpy()
+        with diagnostics.span("graph.read", rows=True):
+            packed = (self.hist if spans == 1 else
+                      self.rows[:, :spans * self.span]).cpu().numpy()
         hist = {name: packed[i].astype(_np_dtype(dt))
                 for i, (name, dt) in enumerate(zip(self.names, self.dtypes))}
         return (dict(self.carry), hist, bool(hist.pop("_done")[-1]),
@@ -588,7 +620,8 @@ def _graph_run(graph, step, carry, k0, limit):
         parts.append({name: v[:nv] for name, v in hist.items()})
         k0 += nv
         GRAPH_STATS["continuations"] += 1
-        carry, row = _device_chunk(step, dict(carry), k0, k0 + 1)
+        with diagnostics.span("graph.continuation"):
+            carry, row = _device_chunk(step, dict(carry), k0, k0 + 1)
         parts.append(row)
         k0 += 1
         done = bool(full(carry["done"]))
@@ -744,8 +777,19 @@ def run_driver(
 
     Returns ``(carry, hist, T)``: ``hist`` maps each history name to a host
     numpy array truncated at the stopping iteration (inclusive); ``T`` is
-    the wall-time array, interpolated within each chunk.
+    the wall-time array, interpolated within each chunk.  The run is the
+    span ``driver.solve``.
     """
+    with diagnostics.span("driver.solve"):
+        return _run_chunks(step, carry, maxitrs, verbose, verbskip, header,
+                           print_row, chunk, between_chunks, checkpoint,
+                           problem, cfg, k_start, graph_span)
+
+
+def _run_chunks(step, carry, maxitrs, verbose, verbskip, header, print_row,
+                chunk, between_chunks, checkpoint, problem, cfg, k_start,
+                graph_span):
+    """``run_driver``'s chunks, captures and checkpoints."""
     if maxitrs <= k_start:
         raise ValueError(f"maxitrs must be > {k_start}")
     chunk = max(1, int(chunk) if chunk else int(max(verbskip, 256)))

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .._device import full, replicate_like
+from ..diagnostics import span
 
 _CKPT_VERSION = 1
 
@@ -37,7 +38,9 @@ def factorize(V, x):
     comes out sharded as V's columns and ``H`` and ``logdet`` replicated
     (DTensors that every rank holds whole)."""
     m = V.shape[0]
-    R = torch.linalg.cholesky(full((V * x) @ V.T))  # lower
+    with span("dopt.read"):
+        # the factorization's info is read back on the host: a blocking read
+        R = torch.linalg.cholesky(full((V * x) @ V.T))  # lower
     logdet = 2.0 * torch.log(torch.diagonal(R)).sum()
     Rinv = torch.linalg.solve_triangular(
         R, torch.eye(m, dtype=V.dtype, device=V.device), upper=False)
@@ -154,7 +157,8 @@ def run_blocks(launch, fresh_state, x0, m, eps, maxitrs, *, block_len,
     ``(x, F, SP, SN, T)``.
 
     ``fresh_state(x)`` is the state of a fresh FP64 factorization at
-    ``x``, a dict holding at least ``x`` and ``ld`` (its logdet, a float).
+    ``x``, a dict holding at least ``x`` and ``ld`` (its logdet, a 0-d
+    tensor, read here as a float).
     ``launch(state, kmaxes)`` enqueues one group of blocks, block b of up
     to ``kmaxes[b]`` iterations, reads their rows in one round trip and
     returns ``(state, blocks)``, one ``(done, hist)`` per block: ``hist``
@@ -170,7 +174,19 @@ def run_blocks(launch, fresh_state, x0, m, eps, maxitrs, *, block_len,
     ``fingerprint`` (the JAX engine's), from which a resume
     refactorizes; the verbose rows.  ``T`` is the wall time interpolated
     across each group's rows.
+
+    Spans (``diagnostics.span``): ``dopt.setup`` (the checkpoint's load and
+    the first factorization), ``dopt.read`` (the logdet's read, and
+    ``factorize``'s own),
+    ``dopt.rows`` (the F rebuild, the stop search, the concatenation and
+    T) and ``dopt.refresh``; ``launch`` records its own blocks and read.
     """
+    def fresh(x):
+        state = fresh_state(x)
+        with span("dopt.read"):
+            state["ld"] = float(state["ld"])
+        return state
+
     n = len(x0)
     if verbose:
         print(f"\nSolving D-opt design problem using {title}")
@@ -179,20 +195,21 @@ def run_blocks(launch, fresh_state, x0, m, eps, maxitrs, *, block_len,
     k_done = 0
     t_prev = 0.0
     x = x0
-    if checkpoint is not None:
-        loaded = ckpt_load(checkpoint, fingerprint)
-        if loaded is not None:
-            (x_np, k_done, t_prev, F_parts, SP_parts, SN_parts,
-             T_parts) = loaded
-            if x_np.shape != (n,):
-                raise ValueError(
-                    f"block-engine checkpoint {checkpoint!r}: iterate "
-                    f"length {x_np.shape} does not match n={n}")
-            x = torch.as_tensor(x_np, dtype=x0.dtype).to(x0.device)
-            if (SP_parts[0].size and SP_parts[0][-1] <= eps
-                    and SN_parts[0][-1] <= eps):
-                k_done = maxitrs  # the saved run already stopped
-    state = fresh_state(x)
+    with span("dopt.setup"):
+        if checkpoint is not None:
+            loaded = ckpt_load(checkpoint, fingerprint)
+            if loaded is not None:
+                (x_np, k_done, t_prev, F_parts, SP_parts, SN_parts,
+                 T_parts) = loaded
+                if x_np.shape != (n,):
+                    raise ValueError(
+                        f"block-engine checkpoint {checkpoint!r}: iterate "
+                        f"length {x_np.shape} does not match n={n}")
+                x = torch.as_tensor(x_np, dtype=x0.dtype).to(x0.device)
+                if (SP_parts[0].size and SP_parts[0][-1] <= eps
+                        and SN_parts[0][-1] <= eps):
+                    k_done = maxitrs  # the saved run already stopped
+        state = fresh(x)
     since_refresh = 0
     t0 = time.time() - t_prev
 
@@ -204,23 +221,25 @@ def run_blocks(launch, fresh_state, x0, m, eps, maxitrs, *, block_len,
         t_b = time.time() - t0
         t_a = T_parts[-1][-1] if T_parts and len(T_parts[-1]) else 0.0
         k_first, stopped, parts = k_done, False, []
-        for done, hist in blocks:
-            # F block by block from the running logdet, as JAX rebuilds
-            # it, so that a group gives the bits of its blocks one by one
-            F_rows, ld = f_rows(state["ld"], hist[0], hist[1], m)
-            state["ld"] = float(ld)
-            parts.append((F_rows, hist[2], hist[3]))
-            k_done += hist.shape[1]
-            if done or hist.shape[1] == 0:
-                stopped = True
-                break
-        F_rows, SP_rows, SN_rows = (np.concatenate(p) for p in zip(*parts))
-        rows = len(F_rows)
-        F_parts.append(F_rows)
-        SP_parts.append(SP_rows)
-        SN_parts.append(SN_rows)
-        T_parts.append(t_a + (t_b - t_a) * (np.arange(rows) + 1)
-                       / max(rows, 1))
+        with span("dopt.rows"):
+            for done, hist in blocks:
+                # F block by block from the running logdet, as JAX rebuilds
+                # it, so that a group gives the bits of its blocks one by one
+                F_rows, ld = f_rows(state["ld"], hist[0], hist[1], m)
+                state["ld"] = float(ld)
+                parts.append((F_rows, hist[2], hist[3]))
+                k_done += hist.shape[1]
+                if done or hist.shape[1] == 0:
+                    stopped = True
+                    break
+            F_rows, SP_rows, SN_rows = (np.concatenate(p)
+                                        for p in zip(*parts))
+            rows = len(F_rows)
+            F_parts.append(F_rows)
+            SP_parts.append(SP_rows)
+            SN_parts.append(SN_rows)
+            T_parts.append(t_a + (t_b - t_a) * (np.arange(rows) + 1)
+                           / max(rows, 1))
         if verbose:
             for r in range(rows):
                 if (k_first + r) % verbskip == 0:
@@ -235,7 +254,8 @@ def run_blocks(launch, fresh_state, x0, m, eps, maxitrs, *, block_len,
             break
         if refresh_every and since_refresh >= refresh_every:
             # resets ld to the exact logdet of the refreshed iterate
-            state = fresh_state(state["x"])
+            with span("dopt.refresh"):
+                state = fresh(state["x"])
             since_refresh = 0
 
     def cat(parts):

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .._device import as_f64, resolve_device
+from ..diagnostics import span
 from .dopt_common import (XTOL, check_operands, f_rows, factorize, pivots,
                           run_blocks, step_scalars)
 
@@ -383,29 +384,33 @@ def dopt_fw_dense(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
     boundary, the JAX ``dopt_fw_pallas`` format and fingerprint; a resume
     refactorizes from the saved iterate."""
     dev = resolve_device(device, like=V)
-    V = as_f64(V, dev).contiguous()
-    m, n = V.shape
-    Vb = V[None]
-    VTb = V.T.contiguous()[None] if dev.type == "cuda" else None
+    with span("dopt.setup"):
+        V = as_f64(V, dev).contiguous()
+        m, n = V.shape
+        Vb = V[None]
+        VTb = V.T.contiguous()[None] if dev.type == "cuda" else None
+        x0 = as_f64(x0, dev)
 
     def fresh_state(x):
         H, w, ld = factorize(V, x)
-        return dict(x=x, w=w, H=H, ld=float(ld))
+        return dict(x=x, w=w, H=H, ld=ld)
 
     def launch(state, kmaxes):
         (kmax,) = kmaxes  # a group of one block
-        blk = dense_block(Vb, state["H"][None], state["x"][None],
-                          state["w"][None], eps=eps, kmax=kmax, away=away,
-                          VTs=VTb)
-        misc = blk.misc[0].cpu().numpy()  # the launch's one round trip
-        hist = blk.hist[0].cpu().numpy()
+        with span("dopt.block"):
+            blk = dense_block(Vb, state["H"][None], state["x"][None],
+                              state["w"][None], eps=eps, kmax=kmax,
+                              away=away, VTs=VTb)
+        with span("dopt.read"):
+            misc = blk.misc[0].cpu().numpy()  # the launch's one round trip
+            hist = blk.hist[0].cpu().numpy()
         state.update(x=blk.x[0], w=blk.w[0], H=blk.H[0])
         return state, [(misc[0] > 0.5, hist[:, :int(misc[1])])]
 
     name = ("Frank-Wolfe method with away steps" if away
             else "Frank-Wolfe method")
     return run_blocks(
-        launch, fresh_state, as_f64(x0, dev), m, eps, maxitrs,
+        launch, fresh_state, x0, m, eps, maxitrs,
         block_len=-(-int(chunk or 8192) // _INNER) * _INNER,
         verbose=verbose, verbskip=verbskip, refresh_every=refresh_every,
         checkpoint=checkpoint,

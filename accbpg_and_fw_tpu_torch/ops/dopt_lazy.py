@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .._device import as_f64, resolve_device
+from ..diagnostics import span
 from .dopt_common import (XTOL, check_operands, f_rows, factorize, pivots,
                           run_blocks, step_scalars)
 
@@ -53,6 +54,10 @@ _MAX_M = 16384    # the kernel keeps one length-m vector in shared memory
 # went through each kernel.
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
+# Blocks the drivers enqueued in which no instance recorded a row: launched
+# past the stop, they left at once (read from the group's rows, on either
+# device; the useful blocks are the group's less these).
+FROZEN_BLOCKS = 0
 
 
 class LazyBlock(NamedTuple):
@@ -562,42 +567,51 @@ def dopt_fw_lazy(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
     with no host read, the stop flag passing from block to block on the
     card; one copy then reads the group's rows.  Blocks past the budget
     are never enqueued, so only a stop by eps inside a group leaves frozen
-    launches (each leaves at once) behind it.
+    launches (each leaves at once) behind it (``FROZEN_BLOCKS`` counts
+    them).  Spans: ``dopt.setup``, a ``dopt.block`` per block enqueued
+    (its launch and fold), ``dopt.read`` (the group's copy) and those of
+    ``run_blocks``.
 
     ``refresh_every``: full FP64 refactorization cadence, rounded UP to
     group boundaries.  ``checkpoint``: ``.npz`` snapshot at every group
     boundary, the JAX ``dopt_fw_pallas_lazy`` format and fingerprint; a
     resume refactorizes from the saved iterate."""
     dev = resolve_device(device, like=V)
-    V = as_f64(V, dev).contiguous()
-    m, n = V.shape
     G = (_group_size(maxitrs, refresh_every, checkpoint is not None, 256)
          if group is None else max(1, int(group)))
-    # prepared once for the solve (on the card: plan, scratch, output
-    # buffers with one slot per block of a group, the stop flag)
-    kernel = _prepared(V, slots=G)
+    with span("dopt.setup"):
+        V = as_f64(V, dev).contiguous()
+        m, n = V.shape
+        # prepared once for the solve (on the card: plan, scratch, output
+        # buffers with one slot per block of a group, the stop flag)
+        kernel = _prepared(V, slots=G)
+        x0 = as_f64(x0, dev)
 
     def fresh_state(x):
         H0, w, ld = factorize(V, x)
-        return dict(x=x, w=w, H0=H0, ld=float(ld))
+        return dict(x=x, w=w, H0=H0, ld=ld)
 
     def launch(state, kmaxes):
+        global FROZEN_BLOCKS
         H0, x, w = state["H0"], state["x"], state["w"]
         for slot, kmax in enumerate(kmaxes):
-            blk = kernel.run(H0, x, w, eps=eps, kmax=kmax, away=away,
-                             xtol=XTOL, slot=slot)
-            H0 = _lazy_refresh(H0, blk.C, blk.beta, blk.misc[2],
-                               blk.misc[3])
+            with span("dopt.block"):
+                blk = kernel.run(H0, x, w, eps=eps, kmax=kmax, away=away,
+                                 xtol=XTOL, slot=slot)
+                H0 = _lazy_refresh(H0, blk.C, blk.beta, blk.misc[2],
+                                   blk.misc[3])
             x, w = blk.x, blk.w
         state.update(H0=H0, x=x, w=w)
-        misc, hist = kernel.host_rows(len(kmaxes))
+        with span("dopt.read"):
+            misc, hist = kernel.host_rows(len(kmaxes))
+        FROZEN_BLOCKS += int((misc[:, 1] == 0).sum())
         return state, [(misc[b, 0] > 0.5, hist[b, :, :int(misc[b, 1])])
                        for b in range(len(kmaxes))]
 
     name = ("Frank-Wolfe method with away steps" if away
             else "Frank-Wolfe method")
     return run_blocks(
-        launch, fresh_state, as_f64(x0, dev), m, eps, maxitrs,
+        launch, fresh_state, x0, m, eps, maxitrs,
         block_len=_KR, group=G, verbose=verbose, verbskip=verbskip,
         refresh_every=refresh_every, checkpoint=checkpoint,
         fingerprint=(f"dopt_fw_pallas_lazy|m={m}|n={n}|away={bool(away)}"
@@ -662,22 +676,25 @@ def dopt_fw_lazy_batch(Vs, x0s, eps, num_iters, away=True, group=None,
     w = diag(V^T H0 V) from the folded H0 after a group once
     ``group * 256 >= refresh_every`` iterations have accumulated, JAX's
     cadence."""
+    global FROZEN_BLOCKS
     dev = resolve_device(device, like=Vs)
-    Vs = as_f64(Vs, dev).contiguous()
-    K, m, n = Vs.shape
-    x = as_f64(x0s, dev).clone()
     nb = (_group_size(num_iters, refresh_every, False, 32) if group is None
           else max(1, int(group)))
-    kernel = _prepared(Vs, slots=nb)
-    parts = [factorize(Vs[k], x[k]) for k in range(K)]
-    H0 = torch.stack([p[0] for p in parts])
-    w = torch.stack([p[1] for p in parts])
-    ld = np.array([float(p[2]) for p in parts])
-    m_f = float(m)
-    first = []
-    for k in range(K):
-        i, wi, j, wj = pivots(w[k], x[k], away, XTOL)
-        first.append((-ld[k], (wi - m_f) / m_f, (m_f - wj) / m_f))
+    with span("dopt.setup"):
+        Vs = as_f64(Vs, dev).contiguous()
+        K, m, n = Vs.shape
+        x = as_f64(x0s, dev).clone()
+        kernel = _prepared(Vs, slots=nb)
+        parts = [factorize(Vs[k], x[k]) for k in range(K)]
+        H0 = torch.stack([p[0] for p in parts])
+        w = torch.stack([p[1] for p in parts])
+        m_f = float(m)
+        first = []
+        with span("dopt.read"):
+            ld = np.array([float(p[2]) for p in parts])
+            for k in range(K):
+                i, wi, j, wj = pivots(w[k], x[k], away, XTOL)
+                first.append((-ld[k], (wi - m_f) / m_f, (m_f - wj) / m_f))
 
     rows = [([], [], []) for _ in range(K)]
     stopped = np.zeros(K, bool)
@@ -688,38 +705,45 @@ def dopt_fw_lazy_batch(Vs, x0s, eps, num_iters, away=True, group=None,
         kmaxes = [min(_KR, num_iters - k_done - b * _KR) for b in range(nb)
                   if k_done + b * _KR < num_iters]
         for slot, kmax in enumerate(kmaxes):
-            blk = kernel.run(H0, x, w, eps=eps, kmax=kmax, away=away,
-                             xtol=XTOL, slot=slot)
+            with span("dopt.block"):
+                blk = kernel.run(H0, x, w, eps=eps, kmax=kmax, away=away,
+                                 xtol=XTOL, slot=slot)
+                H0 = _lazy_refresh_batch(H0, blk.C, blk.beta,
+                                         blk.misc[:, 2], blk.misc[:, 3])
             x, w = blk.x, blk.w
-            H0 = _lazy_refresh_batch(H0, blk.C, blk.beta, blk.misc[:, 2],
-                                     blk.misc[:, 3])
-        misc, hist = kernel.host_rows(len(kmaxes))
+        with span("dopt.read"):
+            misc, hist = kernel.host_rows(len(kmaxes))
+        FROZEN_BLOCKS += int((misc[:, :, 1] == 0).all(axis=1).sum())
         k_done += sum(kmaxes)
-        for b in range(len(kmaxes)):
-            for k in range(K):
-                if stopped[k]:
-                    continue
-                nv = int(misc[b, k, 1])
-                if nv:
-                    F_k, ld[k] = f_rows(ld[k], hist[b, k, 0, :nv],
-                                        hist[b, k, 1, :nv], m)
-                    for dst, src in zip(rows[k], (F_k, hist[b, k, 2, :nv],
-                                                  hist[b, k, 3, :nv])):
-                        dst.append(src)
-                    emitted[k] += nv
-                if misc[b, k, 0] > 0.5 or emitted[k] >= num_iters:
-                    stopped[k] = True
+        with span("dopt.rows"):
+            for b in range(len(kmaxes)):
+                for k in range(K):
+                    if stopped[k]:
+                        continue
+                    nv = int(misc[b, k, 1])
+                    if nv:
+                        F_k, ld[k] = f_rows(ld[k], hist[b, k, 0, :nv],
+                                            hist[b, k, 1, :nv], m)
+                        for dst, src in zip(rows[k],
+                                            (F_k, hist[b, k, 2, :nv],
+                                             hist[b, k, 3, :nv])):
+                            dst.append(src)
+                        emitted[k] += nv
+                    if misc[b, k, 0] > 0.5 or emitted[k] >= num_iters:
+                        stopped[k] = True
         if verbose:
             print(f"# lazy batch: emitted={emitted.tolist()} "
                   f"stopped={int(stopped.sum())}/{K}")
         since_refresh += nb * _KR
         if (refresh_every and since_refresh >= refresh_every
                 and (~stopped).any()):
-            w = _fresh_w(H0, Vs)
+            with span("dopt.refresh"):
+                w = _fresh_w(H0, Vs)
             since_refresh = 0
 
-    T = int(emitted.max()) if K else 0
-    F, SP, SN = (np.stack([_pad_rows(rows[k][q], T, first[k][q])
-                           for k in range(K)]) if K else np.zeros((0, T))
-                 for q in range(3))
+    with span("dopt.rows"):
+        T = int(emitted.max()) if K else 0
+        F, SP, SN = (np.stack([_pad_rows(rows[k][q], T, first[k][q])
+                               for k in range(K)]) if K
+                     else np.zeros((0, T)) for q in range(3))
     return x, F, SP, SN

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .._device import as_f64, is_dtensor, resolve_device
+from ..diagnostics import span
 from ..ops.dopt_common import XTOL, factorize
 from ..ops.dopt_dense import dopt_fw_dense_batch
 from ..ops.dopt_lazy import device_limits, dopt_fw_lazy_batch, lazy_fits
@@ -217,12 +218,13 @@ def dopt_fw_batch(Vs, x0s, eps, num_iters, away=True, refresh_every=0,
     dev = resolve_device(device, like=Vs)
     if precision == "auto":
         precision = _resolve_auto_batch_precision(Vs, dev)
-    if precision == "pallas":
-        return dopt_fw_dense_batch(Vs, x0s, eps, num_iters, away=away,
-                                   refresh_every=refresh_every, device=dev)
-    if precision == "pallas_lazy":
-        return dopt_fw_lazy_batch(Vs, x0s, eps, num_iters, away=away,
-                                  refresh_every=refresh_every, device=dev)
+    if precision in ("pallas", "pallas_lazy"):
+        engine = {"pallas": dopt_fw_dense_batch,
+                  "pallas_lazy": dopt_fw_lazy_batch}[precision]
+        K, m, n = Vs.shape
+        with span("dopt.solve", engine=precision, m=m, n=n, K=K):
+            return engine(Vs, x0s, eps, num_iters, away=away,
+                          refresh_every=refresh_every, device=dev)
     if precision not in ("native", "mixed", "ds"):
         raise ValueError(f"unknown precision {precision!r}; expected "
                          "'native', 'mixed', 'ds', 'pallas' or "

@@ -2209,22 +2209,10 @@ class ProxProbe:
 
 
 def graph_nodes(entries):
-    """Nodes of the captured graphs (the driver API's cuGraphGetNodes on
-    each kept graph), or None where it does not answer."""
-    import ctypes
-
-    try:
-        cu = ctypes.CDLL("libcuda.so.1")
-        total = 0
-        for e in entries:
-            n = ctypes.c_size_t(0)
-            if cu.cuGraphGetNodes(ctypes.c_void_p(e.graph.raw_cuda_graph()),
-                                  None, ctypes.byref(n)):
-                return None
-            total += n.value
-        return total
-    except (OSError, AttributeError, RuntimeError):
-        return None
+    """Nodes of the captured graphs (``_GraphChunk.nodes``, the driver
+    API's count at each capture), or None where one was not counted."""
+    counts = [e.nodes for e in entries]
+    return None if None in counts else sum(counts)
 
 
 def synced(run):
@@ -3770,39 +3758,37 @@ def free_port():
 
 class span_clock:
     """While open, the host seconds graph chunks spend in their replays
-    (``_GraphChunk.replay``: the spans' launches and the one read of their
-    rows, which waits for them) and in their continuations
-    (``_device_chunk`` as ``_graph_run`` calls it: the iteration whose
-    bounded loops overflowed, rerun eagerly, synced at its end as
-    ``_graph_run``'s next read of ``done`` would be); ``split(wall)`` says
-    what is left of a wall for the driver's host code around them."""
+    (the spans ``graph.replay`` and ``graph.read``: the launches, the
+    overflow flags' reads and the one read of the chunk's rows, which
+    waits for them) and in their continuations (``graph.continuation``:
+    the iteration whose bounded loops overflowed, rerun eagerly, which
+    ends in its rows' read), as the driver records them
+    (``diagnostics.recording``); ``split(wall)`` says what is left of a
+    wall for the driver's host code around them."""
 
-    def __init__(self, driver):
-        self.driver = driver
+    def __init__(self):
         self.s = {"replay": 0.0, "continuation": 0.0}
         self.n = {"replay": 0, "continuation": 0}
 
-    def _timed(self, what, fn, sync):
-        def run(*args):
-            t = time.perf_counter()
-            out = fn(*args)
-            if sync:
-                torch.cuda.synchronize()
-            self.s[what] += time.perf_counter() - t
-            self.n[what] += 1
-            return out
-        return run
-
     def __enter__(self):
-        d = self.driver
-        self.saved = d._GraphChunk.replay, d._device_chunk
-        d._GraphChunk.replay = self._timed("replay", self.saved[0], False)
-        d._device_chunk = self._timed("continuation", self.saved[1], True)
+        from accbpg_and_fw_tpu_torch import diagnostics
+
+        self._rec = diagnostics.recording()
+        self.spans = self._rec.__enter__()
+        self.start = len(self.spans)
         return self
 
     def __exit__(self, *exc):
-        self.driver._GraphChunk.replay, self.driver._device_chunk = \
-            self.saved
+        for _, _, _, name, t0, t1, attrs in self.spans[self.start:]:
+            what = ("continuation" if name == "graph.continuation" else
+                    "replay" if name in ("graph.replay", "graph.read")
+                    else None)
+            if what is not None:
+                self.s[what] += 1e-9 * (t1 - t0)
+            # a replay call ends in its one read of the chunk's rows
+            self.n["replay"] += bool(attrs.get("rows"))
+            self.n["continuation"] += name == "graph.continuation"
+        return self._rec.__exit__(*exc)
 
     def split(self, wall):
         rest = wall - self.s["replay"] - self.s["continuation"]
@@ -3821,7 +3807,7 @@ def sharded_run(driver, run):
     driver.clear_graph_cache()
     before = driver.GRAPH_STATS["captures"]
     walls = []
-    for clock in (None, span_clock(driver)):
+    for clock in (None, span_clock()):
         warm = dict(driver.GRAPH_STATS)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -3885,7 +3871,7 @@ def sharded_paths(port, counters):
          g_clock) = sharded_run(
             driver, lambda: port.ABPG_gain(f_sh, h, L, x_sh, **kw))
         w_pl = []
-        for pl_clock in (None, span_clock(driver)):  # captured, replayed
+        for pl_clock in (None, span_clock()):  # captured, replayed
             pl_stats = dict(driver.GRAPH_STATS)
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -4671,6 +4657,7 @@ def a9a_phase(port, card, counters):
             before = dict(driver.GRAPH_STATS)
             res, wall, syncs = synced(run)
             st = {k: driver.GRAPH_STATS[k] - before[k] for k in before}
+            cap_s = sum(e.capture_s for e in driver._GRAPHS.values())
             F = np.asarray(res[1])
             if st["captures"] != 1:
                 raise AssertionError(f"a9a {lmo_name} {name}: "
@@ -4680,7 +4667,7 @@ def a9a_phase(port, card, counters):
                                      f"F[-1] {F[-1]}")
             out.append(f"{lmo_name} {name}: {len(F)} rows, F {F[0]:.6f} -> "
                        f"{F[-1]:.6f}, {wall:.3f} s with the capture of "
-                       f"{st['capture_s']:.2f} s, {st['continuations']} "
+                       f"{cap_s:.2f} s, {st['continuations']} "
                        f"continuations, {syncs} syncs")
     launched = no_launches("phase 4q", counters)
     print(f"[a9a] phase 4q ({card}): synthetic a9a-shaped file "
