@@ -58,6 +58,17 @@ BATCH_LAUNCHES = 0
 # past the stop, they left at once (read from the group's rows, on either
 # device; the useful blocks are the group's less these).
 FROZEN_BLOCKS = 0
+# Blocks of a single-instance group that ``dopt_fw_lazy`` left out because
+# it saw the stop before enqueuing them (how often the lookahead engages).
+SKIPPED_BLOCKS = 0
+
+# Blocks a single-instance group keeps in flight: before enqueuing block b
+# the host waits for block b - _LOOKAHEAD and reads its stop flag.  A block
+# is at least ~2.4 ms of card work at the benchmark's sizes (256 iterations
+# of 9.3 us at 30x10000, 3.6 ms at 1000x5000) against ~0.4 ms of host
+# enqueue, so even two in flight keep the card fed; four leave room for a
+# slow enqueue, and a stop leaves at most three frozen launches behind it.
+_LOOKAHEAD = 4
 
 
 class LazyBlock(NamedTuple):
@@ -290,7 +301,10 @@ class _LazyKernel:
     x and w may be the next block's inputs.  The stop flags live on the
     card (one int per instance): a launch reads them at entry, leaves at
     once where one is set, and writes its own at exit, so a group of
-    launches carries its stop with no host read."""
+    launches carries its stop with no host read.  ``seen_stop`` mirrors
+    the flag after each block into pinned host memory behind an event, so
+    that the host learns of a stop ``_LOOKAHEAD`` blocks late with no
+    read of the rows."""
 
     def __init__(self, VT, slots=1):
         if (VT.dtype != torch.float64 or VT.device.type != "cuda"
@@ -328,6 +342,7 @@ class _LazyKernel:
         self._iscr = torch.empty(K * self.plan.iwords, **i32)
         self._done = torch.zeros(K, **i32)
         self._kmax = {}  # batch entry: a device kmax array per value
+        self._mirror = None  # made by the first ``seen_stop``
 
     def _check(self, err, what):
         if err:
@@ -412,6 +427,26 @@ class _LazyKernel:
         return LazyBlock(pair[0, 0], pair[1, 0], self._C[0], self._beta[0],
                          misc[0], hist[0])
 
+    def seen_stop(self, slot):
+        """Called once block ``slot`` of a group (its launch and fold) is
+        enqueued: copy the stop flags to a ring of ``_LOOKAHEAD`` pinned
+        slots with no wait and record an event behind the copy; then wait
+        for the event of block ``slot + 1 - _LOOKAHEAD`` alone and return
+        whether every flag was set then (a read of host memory)."""
+        if self._mirror is None:
+            self._mirror = torch.zeros((_LOOKAHEAD, self.K),
+                                       dtype=torch.int32, pin_memory=True)
+            self._mirror_np = self._mirror.numpy()
+            self._events = [torch.cuda.Event() for _ in range(_LOOKAHEAD)]
+        ring = slot % _LOOKAHEAD
+        self._mirror[ring].copy_(self._done, non_blocking=True)
+        self._events[ring].record(torch.cuda.current_stream(self.dev))
+        if slot + 1 < _LOOKAHEAD:
+            return False
+        ring = (slot + 1) % _LOOKAHEAD
+        self._events[ring].synchronize()
+        return bool(self._mirror_np[ring].all())
+
     def host_rows(self, blocks=1):
         """The ``misc`` and ``hist`` rows of the first ``blocks`` slots as
         numpy arrays with a leading block axis, in one copy to the host
@@ -425,8 +460,9 @@ class _LazyKernel:
 
 class _PlainBlocks:
     """The plain version behind ``_LazyKernel``'s interface, for a design
-    (m, n) or a stack of designs (K, m, n) on the CPU: the same slots, and
-    the stop flags carried from block to block."""
+    (m, n) or a stack of designs (K, m, n) on the CPU: the same slots, the
+    stop flags carried from block to block, and each slot's flags kept for
+    ``seen_stop``."""
 
     def __init__(self, V, slots=1):
         self.V = V
@@ -434,6 +470,7 @@ class _PlainBlocks:
         self.K = V.shape[0] if self.batch else 1
         self._blks = [None] * max(1, int(slots))
         self._done = [False] * self.K
+        self._stopped = [False] * len(self._blks)
 
     def run(self, H0, x, w, *, eps, kmax, away, xtol, done=None, slot=0):
         if done is not None:
@@ -451,7 +488,15 @@ class _PlainBlocks:
                                        away=away, xtol=xtol)
             self._done = [bool(blk.misc[0] > 0.5)]
         self._blks[slot] = blk
+        self._stopped[slot] = all(self._done)
         return blk
+
+    def seen_stop(self, slot):
+        """``_LazyKernel.seen_stop``, as late: whether every flag was set
+        after block ``slot + 1 - _LOOKAHEAD``, so that the CPU enqueues the
+        blocks the card does."""
+        back = slot + 1 - _LOOKAHEAD
+        return back >= 0 and self._stopped[back]
 
     def host_rows(self, blocks=1):
         blks = self._blks[:blocks]
@@ -564,13 +609,21 @@ def dopt_fw_lazy(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
     ``group``: launch blocks per host round trip (JAX's default for None:
     the whole budget, up to 256 blocks, capped by ``refresh_every`` and a
     checkpoint).  The blocks of a group and their H0 folds are enqueued
-    with no host read, the stop flag passing from block to block on the
-    card; one copy then reads the group's rows.  Blocks past the budget
-    are never enqueued, so only a stop by eps inside a group leaves frozen
-    launches (each leaves at once) behind it (``FROZEN_BLOCKS`` counts
-    them).  Spans: ``dopt.setup``, a ``dopt.block`` per block enqueued
-    (its launch and fold), ``dopt.read`` (the group's copy) and those of
-    ``run_blocks``.
+    with no read of the rows, the stop flag passing from block to block on
+    the card; one copy then reads the rows of the blocks enqueued.  The
+    host keeps at most ``_LOOKAHEAD`` blocks in flight: after enqueuing
+    block b it mirrors the card's stop flag to pinned memory, waits for
+    block b + 1 - ``_LOOKAHEAD`` and reads that block's flag, and once it
+    is set enqueues no more of the group (``SKIPPED_BLOCKS`` counts the
+    blocks left out; the plain blocks on the CPU answer as late, so both
+    devices enqueue the same blocks).  Blocks past the budget are never
+    enqueued, so only a stop by eps inside a group leaves frozen launches
+    (each leaves at once) behind it, at most ``_LOOKAHEAD - 1``
+    (``FROZEN_BLOCKS`` counts them); the blocks left out would have been
+    frozen, so the result has the bits of the whole group.  Spans: ``dopt.setup``, a ``dopt.block`` per block enqueued
+    (its launch, its fold, the flag's mirror and the wait for the block
+    ``_LOOKAHEAD`` back, all paced by the card), ``dopt.read`` (the
+    group's copy) and those of ``run_blocks``.
 
     ``refresh_every``: full FP64 refactorization cadence, rounded UP to
     group boundaries.  ``checkpoint``: ``.npz`` snapshot at every group
@@ -592,7 +645,7 @@ def dopt_fw_lazy(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
         return dict(x=x, w=w, H0=H0, ld=ld)
 
     def launch(state, kmaxes):
-        global FROZEN_BLOCKS
+        global FROZEN_BLOCKS, SKIPPED_BLOCKS
         H0, x, w = state["H0"], state["x"], state["w"]
         for slot, kmax in enumerate(kmaxes):
             with span("dopt.block"):
@@ -600,13 +653,18 @@ def dopt_fw_lazy(V, x0, eps, maxitrs, away=True, verbose=True, verbskip=1,
                                  xtol=XTOL, slot=slot)
                 H0 = _lazy_refresh(H0, blk.C, blk.beta, blk.misc[2],
                                    blk.misc[3])
-            x, w = blk.x, blk.w
+                x, w = blk.x, blk.w
+                last = slot + 1 == len(kmaxes) or kernel.seen_stop(slot)
+            if last:
+                break
+        blocks = slot + 1
+        SKIPPED_BLOCKS += len(kmaxes) - blocks
         state.update(H0=H0, x=x, w=w)
         with span("dopt.read"):
-            misc, hist = kernel.host_rows(len(kmaxes))
+            misc, hist = kernel.host_rows(blocks)
         FROZEN_BLOCKS += int((misc[:, 1] == 0).sum())
         return state, [(misc[b, 0] > 0.5, hist[b, :, :int(misc[b, 1])])
-                       for b in range(len(kmaxes))]
+                       for b in range(blocks)]
 
     name = ("Frank-Wolfe method with away steps" if away
             else "Frank-Wolfe method")

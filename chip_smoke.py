@@ -5,6 +5,7 @@
                           [--gain-iters N]
     python3 chip_smoke.py --micro
     python3 chip_smoke.py --dual-prox
+    python3 chip_smoke.py --lookahead
     python3 chip_smoke.py --threefry
     python3 chip_smoke.py --bodies [--extras-only | --fastgram-only]
 
@@ -159,7 +160,12 @@ and the script exits non-zero without the result line:
       slogdet, with its host round trips counted (one per group of
       blocks); then against ``group=1`` in one call (bit for bit; warm
       walls, host reads per solve, and a trace of each: device busy and
-      idle shares, the kernel's share);
+      idle shares, the kernel's share); then the lookahead on the
+      blocks in flight under the benchmark's cap of 100000 (a group of
+      256 blocks) against the whole group enqueued (the engine before
+      the lookahead), in one call: bit for bit, and ``FROZEN_BLOCKS``,
+      ``SKIPPED_BLOCKS``, kernel launches and warm walls a solve
+      (``--lookahead`` runs this part alone);
    e. the Bregman path: ``ABPG_gain`` (gamma=2, 9000 iterations) on
       ``D_opt_design(30, 10000, randseed=10, device="cuda")`` with
       ``BurgEntropySimplex(use_pallas=True)``, as graph chunks (one CUDA
@@ -363,6 +369,7 @@ import torch
 
 # main-path instance (baselines/dopt_1000x5000_ref.json)
 M, N, SEED, EPS, REF_ITERS = 1000, 5000, 10, 1e-8, 20741
+LOOKAHEAD_CAP = 100000  # the benchmark's cap: a group of 256 blocks
 F_STAR = 104.26595073287248   # F_star_certified of that file
 GAP_TOL = 1e-6
 # the dense sweep (BASELINE.md: K=32 of 30x1000 to slack 1e-8)
@@ -4276,6 +4283,60 @@ def main_group_one(port, dl, V64, x0, got):
     trace_line(f"main path {M}x{N} group=1", one, "dopt_lazy_kernel")
 
 
+def lookahead_phase(dl, V64, x0):
+    """Phase 4d's lookahead: the main path's design under the benchmark's
+    cap of 100000 iterations (one group of 256 blocks, the stop in block
+    82) with at most ``_LOOKAHEAD`` blocks in flight, against the whole
+    group enqueued (``seen_stop`` answering no, as the engine did before
+    the lookahead), in turns in one call: bit for bit, then a solve's
+    ``FROZEN_BLOCKS``, ``SKIPPED_BLOCKS``, kernel launches and warm
+    walls."""
+    V = torch.as_tensor(V64, device="cuda")
+    seen_stop = dl._LazyKernel.seen_stop
+    counters = ("LAUNCHES", "FROZEN_BLOCKS", "SKIPPED_BLOCKS")
+
+    def counted():
+        before = [getattr(dl, c) for c in counters]
+        out = dl.dopt_fw_lazy(V, x0, EPS, LOOKAHEAD_CAP, verbose=False)
+        return out, [getattr(dl, c) - b for c, b in zip(counters, before)]
+
+    def whole_group():
+        dl._LazyKernel.seen_stop = lambda self, slot: False
+        try:
+            return counted()
+        finally:
+            dl._LazyKernel.seen_stop = seen_stop
+
+    runs = {"lookahead": counted, "whole group": whole_group}
+    seen = {name: [] for name in runs}
+    for _ in range(3):  # the first warms up
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, counts = run()
+            torch.cuda.synchronize()
+            seen[name].append((time.perf_counter() - t, out, counts))
+    (_, a, _), (_, b, _) = seen["lookahead"][0], seen["whole group"][0]
+    if not (torch.equal(a[0], b[0]) and all(
+            np.array_equal(p, q) for p, q in zip(a[1:4], b[1:4]))):
+        raise AssertionError("lookahead: x, F, SP, SN differ from the "
+                             "whole group's")
+    frozen = seen["lookahead"][-1][2][1]
+    if frozen > dl._LOOKAHEAD - 1:
+        raise AssertionError(f"lookahead: {frozen} frozen blocks, more "
+                             f"than {dl._LOOKAHEAD - 1}")
+    text = "; ".join(
+        f"{name}: launches {v[-1][2][0]}, frozen {v[-1][2][1]}, skipped "
+        f"{v[-1][2][2]}, warm walls "
+        + " ".join(f"{w:.4f}" for w, _, _ in v[1:]) + " s"
+        for name, v in seen.items())
+    print(f"[lookahead] ({card_line()}) {M}x{N} cap {LOOKAHEAD_CAP} "
+          f"({len(a[1])} iterations, group "
+          f"{dl._group_size(LOOKAHEAD_CAP, 0, False, 256)}, "
+          f"_LOOKAHEAD {dl._LOOKAHEAD}), x, F, SP, SN bit for bit: {text}",
+          flush=True)
+
+
 def host_launches(run):
     """Runtime calls that launch work on the card (kernels, graphs, copies,
     fills) in one call of ``run``, from a CPU-side trace."""
@@ -4697,6 +4758,10 @@ def main():
     ap.add_argument("--dual-prox", action="store_true",
                     help="build the dual prox kernel and run its phase "
                          "alone ([dual prox], [stages], the plan sweep)")
+    ap.add_argument("--lookahead", action="store_true",
+                    help="run the main path's lookahead part of phase 4d "
+                         "alone (frozen and skipped blocks a solve "
+                         "against the whole group enqueued)")
     ap.add_argument("--threefry", action="store_true",
                     help="build the threefry kernel and run its phase "
                          "alone ([threefry], the sweep, the walls)")
@@ -4730,6 +4795,11 @@ def main():
 
         print(f"[card] {card_line()}", flush=True)
         compare_dual_prox(port, torch.device("cuda"))
+        return 0
+    if args.lookahead:
+        from accbpg_and_fw_tpu_torch.ops import dopt_lazy as dl
+
+        lookahead_phase(dl, main_design(), np.full(N, 1.0 / N))
         return 0
     if args.threefry:
         print(f"[card] {card_line()}", flush=True)
@@ -4874,6 +4944,7 @@ def main():
           f"{reads} host round trips, final SP {SP[-1]:.4e} SN "
           f"{SN[-1]:.4e}, certified gap {gap:.3e}", flush=True)
     main_group_one(port, dl, V64, x0, (x, F, SP, SN))
+    lookahead_phase(dl, V64, x0)
 
     from accbpg_and_fw_tpu_torch.algorithms import driver
 

@@ -15,11 +15,16 @@ block.  Bars:
 * F rtol 1e-9, SP and SN atol 1e-9 plus half a float32 ulp: the JAX lazy
   kernel's own bars (its slacks are float32 roundings);
 * G=1, 2 and 4 of the port bit for bit (x, F, SP, SN), and one host read
-  per group with no block enqueued past the budget.
+  per group with no block enqueued past the budget;
+* the lookahead on the blocks in flight: a stop inside a longer group is
+  seen ``_LOOKAHEAD`` blocks late, as on the card, so ``_LOOKAHEAD - 1``
+  frozen blocks follow it, the rest of the group is skipped, and the bits
+  are ``group=1``'s.
 
 The tests marked ``cuda`` hold the same on the card: a group of kernel
 launches against ``group=1`` bit for bit, the frozen launches of a stop
-inside a group, and the stop flag carried on the card.
+inside a group (at most ``_LOOKAHEAD - 1`` of them under the default
+group of 256 blocks), and the stop flag carried on the card.
 """
 
 import numpy as np
@@ -37,9 +42,11 @@ EPS = 1e-8
 SP_ATOL, F_RTOL, X_ATOL = 1e-9, 1e-9, 1e-12
 F32_HALF_ULP = 2.0 ** -24
 # 12x160 from seed 3 stops by eps at row 1068 (block 5 of 256 rows); a
-# budget of 1060 ends in block 5 without a stop
+# budget of 1060 ends in block 5 without a stop; under a budget of 100000
+# the default group is 256 blocks
 STOP_ROWS = 1069
 BUDGETS = (1060, 1500)
+BIG_BUDGET = 100000
 
 
 @pytest.fixture(scope="module")
@@ -131,7 +138,8 @@ def test_group_matches_jax_lazy(design, jax_runs, monkeypatch, group, budget):
     assert counts.runs == min(groups * group, _blocks(budget))
 
 
-@pytest.mark.parametrize("budget", BUDGETS, ids=["budget", "stop-in-group"])
+@pytest.mark.parametrize("budget", BUDGETS + (BIG_BUDGET,),
+                         ids=["budget", "stop-in-group", "stop-in-256"])
 def test_groups_agree_bit_for_bit(design, budget):
     V, x0 = design
     runs = [dl.dopt_fw_lazy(V, x0, EPS, budget, verbose=False, device="cpu",
@@ -163,6 +171,50 @@ def test_default_group_reads_once(design, monkeypatch):
     counts = _Counts(monkeypatch)
     dl.dopt_fw_lazy(V, x0, EPS, 1500, verbose=False, device="cpu")
     assert counts.reads == 1 and counts.runs == _blocks(1500)
+
+
+@pytest.mark.parametrize("group", [4, 8, 16, None])
+def test_stop_seen_lookahead_late(design, monkeypatch, group):
+    """A stop flag that the host reads ``_LOOKAHEAD`` blocks late (after
+    enqueuing block b, the flag after block b + 1 - ``_LOOKAHEAD``) leaves
+    the blocks up to the stop and ``_LOOKAHEAD - 1`` frozen ones where the
+    group holds them, the rest of the group skipped, one read a group,
+    and the bits of ``group=1`` (the default group: 8 blocks enqueued of
+    256, 3 frozen, 248 skipped)."""
+    V, x0 = design
+    ref = dl.dopt_fw_lazy(V, x0, EPS, BIG_BUDGET, verbose=False,
+                          device="cpu", group=1)
+    counts = _Counts(monkeypatch)
+    frozen, skipped = dl.FROZEN_BLOCKS, dl.SKIPPED_BLOCKS
+    out = dl.dopt_fw_lazy(V, x0, EPS, BIG_BUDGET, verbose=False,
+                          device="cpu", group=group)
+    assert torch.equal(out[0], ref[0])
+    for a, b in zip(out[1:4], ref[1:4]):
+        np.testing.assert_array_equal(a, b)
+    G = 256 if group is None else group
+    useful = _blocks(STOP_ROWS)
+    # the stop's group: blocks from its first to the stop, then frozen
+    first = (useful - 1) // G * G
+    runs = first + min(G, useful - first + dl._LOOKAHEAD - 1)
+    assert counts.runs == runs
+    assert counts.reads == -(-useful // G)
+    assert dl.FROZEN_BLOCKS - frozen == runs - useful
+    assert dl.SKIPPED_BLOCKS - skipped == first + G - runs
+
+
+def test_plain_blocks_see_the_stop_lookahead_late():
+    """``seen_stop`` after each block of a group: a stop in the group's
+    first block is seen after block ``_LOOKAHEAD`` - 1, not before."""
+    V, x = _stopping_design()
+    H0, w, _ = dc.factorize(V, x)
+    blocks = dl._prepared(V, slots=dl._LOOKAHEAD + 1)
+    seen = []
+    for slot in range(dl._LOOKAHEAD + 1):
+        blk = blocks.run(H0, x, w, eps=1e-3, kmax=dl._KR, away=True,
+                         xtol=dc.XTOL, slot=slot)
+        x, w = blk.x, blk.w
+        seen.append(blocks.seen_stop(slot))
+    assert seen == [False] * (dl._LOOKAHEAD - 1) + [True, True]
 
 
 def test_refresh_at_group_boundaries(design, monkeypatch):
@@ -376,6 +428,28 @@ def test_groups_on_card_bit_for_bit(design, cuda_dev, budget):
     cpu = dl.dopt_fw_lazy(V, x0, EPS, budget, verbose=False, device="cpu")
     assert len(cpu[1]) == len(one[1])
     np.testing.assert_allclose(one[1], cpu[1], rtol=F_RTOL)
+
+
+@pytest.mark.cuda
+def test_stop_inside_default_group_on_card(design, cuda_dev):
+    """A stop in block 5 of the default 256-block group on the card: the
+    host reads the mirrored flag ``_LOOKAHEAD`` blocks late, so
+    ``_LOOKAHEAD - 1`` frozen launches follow the stop and the rest of the
+    group is skipped; x, F, SP and SN are ``group=1``'s bit for bit."""
+    V, x0 = design
+    Vc = torch.as_tensor(V, device=cuda_dev)
+    one = dl.dopt_fw_lazy(Vc, x0, EPS, BIG_BUDGET, verbose=False, group=1)
+    launches, frozen = dl.LAUNCHES, dl.FROZEN_BLOCKS
+    skipped = dl.SKIPPED_BLOCKS
+    whole = dl.dopt_fw_lazy(Vc, x0, EPS, BIG_BUDGET, verbose=False)
+    assert len(whole[1]) == STOP_ROWS
+    assert torch.equal(one[0], whole[0])
+    for a, b in zip(one[1:4], whole[1:4]):
+        np.testing.assert_array_equal(a, b)
+    useful = _blocks(STOP_ROWS)
+    assert dl.LAUNCHES - launches == useful + dl._LOOKAHEAD - 1
+    assert dl.FROZEN_BLOCKS - frozen == dl._LOOKAHEAD - 1
+    assert dl.SKIPPED_BLOCKS - skipped == 256 - useful - dl._LOOKAHEAD + 1
 
 
 @pytest.mark.cuda
