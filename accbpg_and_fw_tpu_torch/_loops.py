@@ -23,11 +23,23 @@ from ._device import full, is_dtensor
 OVERFLOW = [None]
 # Inside a masked body of an enclosing bounded loop: whether that body is
 # live (a 0-d bool tensor), so that a loop nested in it overflows only there.
-LIVE = [None]
+ENCLOSING = [None]
 # Set to a dict to tally, per loop name, how many bodies each Python-form
 # loop took (``{name: {bodies: count}}``): the counts the masked bodies
 # per loop are chosen from.
 TALLY = [None]
+# While ``_masked_steps`` builds an iteration: per loop name, the flags of
+# the masked bodies its loops ran (whether each ran while the loop's
+# condition held); None elsewhere.
+GOES = [None]
+# The live-trial counter of the masked form: per ``(name, device)``, the
+# masked bodies that ran while the loop's condition held, in the iterations
+# a graph chunk kept (an overflowed or frozen one counts none), as an int64
+# 0-d tensor on the device, added to on the card (``count_live``).  ``RUN``
+# counts, per name, the masked bodies of the spans a chunk launched, on the
+# host (``count_run``).  ``live_counts`` reads both.
+LIVE = {}
+RUN = {}
 
 
 def where(pred, a, b):
@@ -63,7 +75,8 @@ def device_while(cond, body, state, bound, bodies, name=None):
       they give the same bits.
 
     ``state`` is a tuple, list or dict of tensors (in the Python form it may
-    hold anything ``body`` takes); ``name`` keys the loop in ``TALLY``."""
+    hold anything ``body`` takes); ``name`` keys the loop in ``TALLY`` and,
+    in the masked form, in ``GOES`` (``LIVE``'s input)."""
     flags = OVERFLOW[0]
     if flags is None:
         n = 0
@@ -74,17 +87,55 @@ def device_while(cond, body, state, bound, bodies, name=None):
             counts = TALLY[0].setdefault(name, {})
             counts[n] = counts.get(n, 0) + 1
         return state
-    outer = LIVE[0]
+    outer = ENCLOSING[0]
     go = cond(state) if outer is None else outer & cond(state)
     n = bodies if bound is None else min(bodies, bound)
+    goes = None if GOES[0] is None else GOES[0].setdefault(name, [])
     for _ in range(n):
-        LIVE[0] = go
+        if goes is not None:
+            goes.append(go)
+        ENCLOSING[0] = go
         try:
             new = body(state)
         finally:
-            LIVE[0] = outer
+            ENCLOSING[0] = outer
         state = _select(go, new, state)
         go = go & cond(state)
     if bound is None or n < bound:
         flags.append(go)
     return state
+
+
+def count_live(goes, keep):
+    """Add one iteration's live masked bodies (``goes``, ``GOES``'s dict)
+    to ``LIVE`` where ``keep`` (a 0-d bool tensor: the iteration's result
+    is kept) holds: three operations a loop name (a stack, a sum and one
+    multiply-add into the counter), no host read.  A counter is made on
+    the first iteration built outside a capture (a chunk runs one before
+    it captures), so that no capture holds its allocation or zeroes it at
+    each replay; a name first met inside a capture is not counted."""
+    for name, flags in goes.items():
+        live = torch.stack([full(f) for f in flags]).sum()
+        key = (name, str(live.device))
+        if key not in LIVE:
+            if live.is_cuda and torch.cuda.is_current_stream_capturing():
+                continue
+            LIVE[key] = torch.zeros((), dtype=torch.int64, device=live.device)
+        LIVE[key].addcmul_(live, keep)
+
+
+def count_run(bodies):
+    """Add the masked bodies of a launched span (``{name: bodies}``) to
+    ``RUN``."""
+    for name, n in bodies.items():
+        RUN[name] = RUN.get(name, 0) + n
+
+
+def live_counts():
+    """``{name: (live, run)}``: the masked bodies that did work and those
+    run, per loop name, since the process started (one read a counter)."""
+    live = {}
+    for (name, _), t in LIVE.items():
+        live[name] = live.get(name, 0) + int(t)
+    return {name: (live.get(name, 0), RUN.get(name, 0))
+            for name in sorted(set(live) | set(RUN), key=str)}

@@ -336,17 +336,20 @@ def graph_key(step, cfg, chunk, problem, carry, span=None):
     return (step, cfg, int(chunk), span, pspec, cspec), leaves, keep
 
 
-def _masked_steps(step, carry, k0, limit, n, halted=None):
+def _masked_steps(step, carry, k0, limit, n, halted=None, bodies=None):
     """``n`` iterations ``k = k0, k0 + 1, ...`` (``k0`` and ``limit`` 0-d
     int64 tensors) with no host read: the carry freezes once ``done`` is
     set or past ``limit``, and only the real stop persists into the carry
     (JAX's ``_masked_scan_body``).  The steps' ``device_while`` loops take
     their masked form; from the first iteration where one overflowed the
     carry freezes too, without a stop (``halted``, a 0-d bool tensor that a
-    chunk carries over its spans, says that one did before).  Returns the
-    carry and the histories packed into one float64 tensor (names x n) with
-    their names and dtypes; ``_done`` is the carry's flag and ``_halt`` the
-    overflow's after each row."""
+    chunk carries over its spans, says that one did before).  The live
+    masked bodies of each kept iteration go to ``_loops.LIVE`` on the
+    device; ``bodies``, where given, is a dict that gets, per loop name, the
+    masked bodies the ``n`` iterations run.  Returns the carry and the
+    histories packed into one float64 tensor (names x n) with their names
+    and dtypes; ``_done`` is the carry's flag and ``_halt`` the overflow's
+    after each row."""
     if halted is None:
         halted = torch.zeros((), dtype=torch.bool, device=k0.device)
     ks = k0 + torch.arange(n, device=k0.device)
@@ -355,12 +358,12 @@ def _masked_steps(step, carry, k0, limit, n, halted=None):
         for i in range(n):
             k = ks[i]
             frozen = carry["done"] | (k >= limit) | halted
-            flags = []
-            _loops.OVERFLOW[0] = flags
+            flags, goes = [], {}
+            _loops.OVERFLOW[0], _loops.GOES[0] = flags, goes
             try:
                 new, h = step(carry, k)
             finally:
-                _loops.OVERFLOW[0] = None
+                _loops.OVERFLOW[0] = _loops.GOES[0] = None
             hold = frozen
             if flags:
                 over = torch.stack([full(f) for f in flags]).any()
@@ -368,6 +371,11 @@ def _masked_steps(step, carry, k0, limit, n, halted=None):
                 halted = halted | (over & torch.logical_not(frozen))
             h = dict(h)
             h["_valid"] = torch.logical_not(hold)
+            if goes:
+                _loops.count_live(goes, full(h["_valid"]))
+                if bodies is not None:
+                    for name, g in goes.items():
+                        bodies[name] = bodies.get(name, 0) + len(g)
             new = dict(new)
             new["done"] = carry["done"] | new["done"] | h["_stop"]
             carry = {key: _loops.where(hold, carry[key],
@@ -487,6 +495,7 @@ class _GraphChunk:
                     else step)
         self.graph, self.capture_s, self.pool_bytes = None, 0.0, 0
         self.nodes = None
+        self.bodies = {}  # masked bodies a span runs, per loop name
         if dev.type != "cuda":
             _, _, self.names, self.dtypes = _masked_steps(
                 self.run, self.carry, self.k0, self.limit, 1, self.halted)
@@ -517,7 +526,7 @@ class _GraphChunk:
             before = torch.cuda.memory_reserved(dev)
             out, self.hist, self.names, self.dtypes = _masked_steps(
                 self.run, self.carry, self.k0, self.limit, self.span,
-                self.halted)
+                self.halted, self.bodies)
             self._store(out)
         self.graph.instantiate()
         torch.cuda.synchronize(dev)
@@ -556,14 +565,17 @@ class _GraphChunk:
         self.halted.copy_(self.hist[self.names.index("_halt"), -1] != 0)
 
     def _launch(self):
-        """One span from the static buffers."""
+        """One span from the static buffers; its masked bodies counted in
+        ``_loops.RUN``."""
         if self.graph is not None:
             self.graph.replay()
-            return
-        out, self.hist, _, _ = _masked_steps(
-            self.run, self.carry, self.k0, self.limit, self.span,
-            self.halted)
-        self._store(out)
+        else:
+            self.bodies = {}
+            out, self.hist, _, _ = _masked_steps(
+                self.run, self.carry, self.k0, self.limit, self.span,
+                self.halted, self.bodies)
+            self._store(out)
+        _loops.count_run(self.bodies)
 
     def replay(self, carry, k0, limit):
         """Run iterations ``k0 <= k < limit`` (at most a chunk) from
@@ -780,10 +792,21 @@ def run_driver(
     the wall-time array, interpolated within each chunk.  The run is the
     span ``driver.solve``.
     """
-    with diagnostics.span("driver.solve"):
+    with diagnostics.span("driver.solve", **_solve_attrs(step, problem)):
         return _run_chunks(step, carry, maxitrs, verbose, verbskip, header,
                            print_row, chunk, between_chunks, checkpoint,
                            problem, cfg, k_start, graph_span)
+
+
+def _solve_attrs(step, problem):
+    """The ``driver.solve`` span's attributes: the step's name and the
+    problem's f-oracle's own (``span_attrs``).  Computed only while the
+    recorder is on."""
+    if diagnostics.SPANS[0] is None:
+        return {}
+    f = problem.get("f") if isinstance(problem, dict) else None
+    return {"driver": getattr(step, "__name__", type(step).__name__),
+            **(f.span_attrs() if hasattr(f, "span_attrs") else {})}
 
 
 def _run_chunks(step, carry, maxitrs, verbose, verbskip, header, print_row,

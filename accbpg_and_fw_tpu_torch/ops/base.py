@@ -47,6 +47,11 @@ class SmoothOracle:
         """Fused (f(x), grad f(x)); override to share the heavy compute."""
         return self.value(x, key=key), self.grad(x, key=key)
 
+    def span_attrs(self):
+        """What a profile's ``driver.solve`` span names the problem by:
+        the data matrix's ``m`` and ``n`` where the oracle holds one."""
+        return {}
+
     # --- reference-compatible aliases -------------------------------------
     def __call__(self, x):
         return self.value(x)

@@ -40,7 +40,11 @@ class _DataOracle(SmoothOracle):
 
     def _data(self, device, *arrays):
         self.device = resolve_device(device, like=arrays[0])
+        self._mn = tuple(int(v) for v in arrays[0].shape)
         return [as_f64(a, self.device) for a in arrays]
+
+    def span_attrs(self):
+        return dict(zip("mn", self._mn)) if len(self._mn) == 2 else {}
 
 
 class DOptimalObj(SmoothOracle):
@@ -63,6 +67,9 @@ class DOptimalObj(SmoothOracle):
         self.H = as_f64(H, resolve_device(device, like=H))
         self.n_valid = None if n_valid is None else int(n_valid)
         self._pads = None
+
+    def span_attrs(self):
+        return {"m": int(self.m), "n": int(self.n)}
 
     @classmethod
     def from_design(cls, H, levels=7, max_diag=6, device=None):

@@ -7,7 +7,8 @@
     python3 chip_smoke.py --dual-prox
     python3 chip_smoke.py --lookahead
     python3 chip_smoke.py --threefry
-    python3 chip_smoke.py --bodies [--extras-only | --fastgram-only]
+    python3 chip_smoke.py --bodies [--extras-only | --fastgram-only |
+                                    --fw-only]
 
 With ``--micro`` it builds and runs ``csrc/micro_cluster.cu``: the clocks
 of the primitives the cluster kernels are built from (an exchange across a
@@ -31,8 +32,11 @@ ABPG_gain 30x10000 (kernel route) and BPG-LS 30x1000 (default h) under
 continuations, nodes per graph), and one ABPG_gain graph of 256
 iterations against one of 32 (nodes, capture seconds); then the four FW
 line-search drivers on phase 4i's illcond problem, eagerly first with the
-tally, then as graphs of 256 and of 32 iterations at the bodies that
-cover 90%, 99% and 99.9% of their iterations; then the extras of phase
+tally, then as graphs at the shipped bodies with the live masked bodies
+against those run (``_loops.live_counts``) beside the tally's trials
+(``--fw-only`` runs this part alone), then as graphs of 256 and of 32
+iterations at the bodies that cover 90%, 99% and 99.9% of their
+iterations; then the extras of phase
 4k (AIBM, UniversalGM and AdaptFGM on the Poisson problem, the
 primal-dual study with its line search) the same way (``--extras-only``
 runs this part alone); then the fast_gram paths (ABPG_gain 30x10000,
@@ -2318,14 +2322,16 @@ def bodies_study(iters=2000):
     graphs first, then eagerly: the order of phases 4e-4f), the FW line
     searches (eagerly first), the extras, the fast_gram paths and
     ABPG_gain's first capture after its long eager run;
-    ``--extras-only`` and ``--fastgram-only`` run one part alone."""
+    ``--extras-only``, ``--fastgram-only`` and ``--fw-only`` run one part
+    alone."""
     from accbpg_and_fw_tpu_torch.ops import _build
 
     _build.build_all(["simplex_mult", "threefry", "dual_prox"])
     print(f"[bodies] torch {torch.__version__}; {card_line()}", flush=True)
-    only = {"--extras-only", "--fastgram-only"} & set(sys.argv)
+    only = {"--extras-only", "--fastgram-only", "--fw-only"} & set(sys.argv)
     if not only:
         bregman_bodies(iters)
+    if not only or "--fw-only" in only:
         fw_bodies()
     if not only or "--extras-only" in only:
         extras_bodies()
@@ -2570,6 +2576,7 @@ def fw_bodies():
               f"{ms / 1e3:.3f} s; bodies taken per loop: " + "; ".join(
                   f"{loop} {sorted(counts.items())}"
                   for loop, counts in tally.items()), flush=True)
+        live_line(name, run, tally)
         chosen, parts = getattr(fw, attr), []
         for bodies in quantile_bodies(next(iter(tally.values()))):
             for span in (256, 32):
@@ -2592,6 +2599,33 @@ def fw_bodies():
         print(f"[bodies] {name} as graphs over {FW_ITERS} iterations: "
               + "; ".join(parts) + f" ({attr} = {chosen}, GRAPH_SPAN = "
               f"{chosen_span})", flush=True)
+
+
+def live_line(label, run, tally):
+    """The ``[bodies]`` line of one warm run as graphs at the shipped
+    bodies: per loop, the masked bodies that did work against those run
+    (``_loops.live_counts``), beside the trials after the first that the
+    eager run's ``TALLY`` counted on the same problem (the live bodies and
+    the continuations' trials add up to them)."""
+    from accbpg_and_fw_tpu_torch import _loops
+    from accbpg_and_fw_tpu_torch.algorithms import driver
+
+    driver.clear_graph_cache()
+    run()  # the capture
+    before, cont = _loops.live_counts(), driver.GRAPH_STATS["continuations"]
+    run()
+    after = _loops.live_counts()
+    parts = []
+    for loop, counts in tally.items():
+        live, ran = (after.get(loop, (0, 0))[i] - before.get(loop, (0, 0))[i]
+                     for i in (0, 1))
+        parts.append(f"{loop}: {live} live of {ran} masked bodies run "
+                     f"({100.0 * live / max(ran, 1):.2f}%), eager TALLY "
+                     f"{sum(b * c for b, c in counts.items())} trials")
+    print(f"[bodies] {label} as graphs at the shipped bodies: "
+          + "; ".join(parts) + f"; "
+          f"{driver.GRAPH_STATS['continuations'] - cont} continuations",
+          flush=True)
 
 
 def capture_after_eager():
@@ -4779,6 +4813,8 @@ def main():
                     help="with --bodies: only the extras' loops")
     ap.add_argument("--fastgram-only", action="store_true",
                     help="with --bodies: only the fast_gram loops")
+    ap.add_argument("--fw-only", action="store_true",
+                    help="with --bodies: only the FW line searches")
     args = ap.parse_args()
     # ---- 1. the card --------------------------------------------------------
     if not torch.cuda.is_available():

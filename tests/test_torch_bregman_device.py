@@ -239,12 +239,12 @@ def test_device_while_forms():
         got = _loops.device_while(cond, body, start, 2, 4)
         assert float(got[0]) == 3.0 and not flags
         # an outer body that is not live: the inner loop's flag is false
-        _loops.LIVE[0] = torch.tensor(False)
+        _loops.ENCLOSING[0] = torch.tensor(False)
         _loops.device_while(cond, body, start, None, 1)
         assert len(flags) == 1 and not bool(flags[0])
     finally:
         _loops.OVERFLOW[0] = None
-        _loops.LIVE[0] = None
+        _loops.ENCLOSING[0] = None
 
 
 THETA_GRID = [(th, gam, r) for th in (1.0, 0.61, 0.2, 0.013)
